@@ -1,0 +1,34 @@
+"""Color tables and direction vectors (PyTorch port).
+
+Counterpart of ``gym_multigrid_tpu/core/constants.py``; only the tables the
+Collect path reads are carried over.  They are plain numpy arrays and dicts
+so the rest of the port can build device tensors from them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# Map of color names to RGB values (insertion order defines the color ids).
+COLORS: dict[str, np.ndarray] = {
+    "red": np.array([228, 3, 3]),
+    "orange": np.array([255, 140, 0]),
+    "yellow": np.array([255, 237, 0]),
+    "green": np.array([0, 128, 38]),
+    "blue": np.array([0, 77, 255]),
+    "purple": np.array([117, 7, 135]),
+    "brown": np.array([120, 79, 23]),
+    "grey": np.array([100, 100, 100]),
+    "light_red": np.array([234, 153, 153]),
+    "light_blue": np.array([90, 170, 223]),
+}
+
+COLOR_TO_IDX: dict[str, int] = {key: i for i, key in enumerate(COLORS)}
+
+# Agent direction -> (dx, dy): right, down, left, up.
+DIR_TO_VEC = np.array([(1, 0), (0, 1), (-1, 0), (0, -1)], dtype=np.int32)
+
+# Collect action -> (dx, dy): north, east, south, west.
+COLLECT_ACTION_TO_VEC = np.array(
+    [(0, -1), (1, 0), (0, 1), (-1, 0)], dtype=np.int32
+)

@@ -1,0 +1,51 @@
+"""World descriptors: per-env-family encoding schemas (PyTorch port).
+
+Counterpart of ``gym_multigrid_tpu/core/world.py``.  The object
+vocabularies are the observation spec, so their names and index values
+must match the reference exactly.  Only the Collect world is needed so far.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from gym_multigrid_tpu_torch.core.constants import COLORS
+
+
+@dataclass(frozen=True)
+class World:
+    """Static encoding schema for one env family."""
+
+    encode_dim: int
+    normalize_obs: int
+    OBJECT_TO_IDX: dict[str, int]
+    COLORS: dict[str, np.ndarray]
+    COLOR_TO_IDX: dict[str, int] = field(init=False)
+    IDX_TO_COLOR: dict[int, str] = field(init=False)
+    IDX_TO_OBJECT: dict[int, str] = field(init=False)
+
+    def __post_init__(self):
+        set_ = object.__setattr__
+        set_(self, "COLOR_TO_IDX", {k: i for i, k in enumerate(self.COLORS)})
+        set_(self, "IDX_TO_COLOR", dict(enumerate(self.COLORS)))
+        set_(self, "IDX_TO_OBJECT", {v: k for k, v in self.OBJECT_TO_IDX.items()})
+
+    @property
+    def num_objects(self) -> int:
+        return len(self.OBJECT_TO_IDX)
+
+
+def _schema(encode_dim: int, colors, *object_names: str) -> World:
+    """Build a World whose object ids are the listed name order."""
+    return World(
+        encode_dim=encode_dim,
+        normalize_obs=1,
+        COLORS=colors,
+        OBJECT_TO_IDX={name: i for i, name in enumerate(object_names)},
+    )
+
+
+#: Collect: empty/wall/ball/agent = 0..3
+CollectWorld = _schema(3, COLORS, "empty", "wall", "ball", "agent")

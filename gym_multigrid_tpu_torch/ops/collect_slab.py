@@ -1,0 +1,631 @@
+"""Collect slab math: one transition and one whole-board reset for a batch
+of (B, C) int32 planes (PyTorch port).
+
+Counterpart of ``gym_multigrid_tpu/ops/pallas_collect.py``: its Pallas
+kernels ``collect_step_slab`` and ``collect_reset_slab`` are the hand-written
+CUDA kernels in ``gym_multigrid_tpu_torch/csrc/``, and its plain bodies
+``_step_math`` and ``_reset_math`` are :func:`step_spec` and
+:func:`reset_spec` here.
+
+* :func:`collect_step_slab` / :func:`collect_reset_slab` take the plain
+  version for tensors on the CPU and launch the kernel for CUDA tensors.
+  On the card the kernel is the only implementation: there is no fallback.
+* :func:`step_batch` / :func:`reset_batch` are the batch glue of
+  ``make_collect_step_batch`` / ``make_collect_reset_batch``: reward-slot
+  tables, info counters, terminated/truncated and the obs.  Their uniforms
+  come from a ``torch.Generator``, or from an ``rnd`` tensor used as is
+  (which is how the tests hold them to JAX bit for bit).
+
+The reset also takes a ``done`` mask, so the batch env resets finished
+rows in place without asking the host whether any row finished.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from gym_multigrid_tpu_torch.core.constants import (
+    COLLECT_ACTION_TO_VEC,
+    COLOR_TO_IDX,
+)
+from gym_multigrid_tpu_torch.core.world import CollectWorld
+from gym_multigrid_tpu_torch.envs.collect import (
+    CollectConfig,
+    CollectState,
+    _wall_mask,
+    build_plan,
+    encode,
+    reward_slot_tables,
+)
+from gym_multigrid_tpu_torch.ops import _build
+from gym_multigrid_tpu_torch.ops.sampling import masked_pick
+
+#: Largest board the kernels take: a lane holds 8 cells of each plane.
+MAX_CELLS = 256
+#: Agent counts the kernels take (the JAX kernels' envelope).
+AGENT_COUNTS = (1, 2)
+
+# Agent placement modes of the reset kernel.
+_AGENTS_FIXED, _AGENTS_CHOICE, _AGENTS_UNIFORM = 0, 1, 2
+
+
+class _Tables(NamedTuple):
+    """Static per-config tables of the step."""
+
+    width: int
+    height: int
+    n_cells: int
+    empty: int
+    ball: int
+    agent: int
+    agent_colors: tuple[int, ...]
+    respawn: bool
+    respawn_rects: tuple[tuple[bool, ...], ...]  # (n_colors, n_cells)
+    action_dx: tuple[int, ...]
+    action_dy: tuple[int, ...]
+    #: first reward-table slot of respawned balls (= number of planned
+    #: placements); a respawned ball of color c carries slot base + c
+    respawn_slot_base: int
+
+
+def make_tables(cfg: CollectConfig) -> _Tables:
+    plan = build_plan(cfg)
+    idx = CollectWorld.OBJECT_TO_IDX
+    return _Tables(
+        width=cfg.width,
+        height=cfg.height,
+        n_cells=cfg.num_cells,
+        empty=idx["empty"],
+        ball=idx["ball"],
+        agent=idx["agent"],
+        agent_colors=tuple(int(c) for c in cfg.agents_index),
+        respawn=cfg.respawn,
+        respawn_rects=tuple(
+            tuple(bool(b) for b in row) for row in plan.respawn_rects
+        ),
+        action_dx=tuple(int(v[0]) for v in COLLECT_ACTION_TO_VEC),
+        action_dy=tuple(int(v[1]) for v in COLLECT_ACTION_TO_VEC),
+        respawn_slot_base=len(plan.ball_colors),
+    )
+
+
+class _ResetTables(NamedTuple):
+    """Static reset program (from ``build_plan``)."""
+
+    n_cells: int
+    empty: int
+    wall: int
+    ball: int
+    agent: int
+    wall_color: int
+    ball_colors: tuple[int, ...]  # per placement
+    agent_colors: tuple[int, ...]
+    balls_before_agents: bool
+    agent_fixed: tuple[tuple[int, int], ...] | None
+    agent_choice: tuple[tuple[int, int], ...] | None  # static coord pool
+    width: int
+
+
+def make_reset_tables(cfg: CollectConfig):
+    plan = build_plan(cfg)
+    idx = CollectWorld.OBJECT_TO_IDX
+    rt = _ResetTables(
+        n_cells=cfg.num_cells,
+        empty=idx["empty"],
+        wall=idx["wall"],
+        ball=idx["ball"],
+        agent=idx["agent"],
+        wall_color=COLOR_TO_IDX["grey"],
+        ball_colors=tuple(int(c) for c in plan.ball_colors),
+        agent_colors=tuple(int(c) for c in cfg.agents_index),
+        balls_before_agents=plan.balls_before_agents,
+        agent_fixed=plan.agent_fixed,
+        agent_choice=(
+            tuple((int(x), int(y)) for x, y in plan.agent_choice_coords)
+            if plan.agent_choice_coords is not None
+            else None
+        ),
+        width=cfg.width,
+    )
+    return rt, plan
+
+
+class ResetArrays(NamedTuple):
+    """The reset program's tables as tensors on one device."""
+
+    wall: torch.Tensor  # (C,) bool
+    ball_rects: torch.Tensor  # (n_balls, C) bool, walls excluded
+    #: (n_balls + 2 * n_coords,) int32: each placement's ball color, then
+    #: the agents' fixed (x, y) or the coordinate pool, flattened
+    program: torch.Tensor
+
+
+def make_reset_arrays(cfg: CollectConfig, device) -> ResetArrays:
+    rt, plan = make_reset_tables(cfg)
+    wall = _wall_mask(cfg)
+    # Placement masks exclude walls: a placement only takes empty cells.
+    ball_rects = plan.ball_rects & ~wall[None, :]
+    coords = rt.agent_fixed or rt.agent_choice or ()
+    program = np.array(
+        list(rt.ball_colors) + [v for xy in coords for v in xy], dtype=np.int32
+    )
+    return ResetArrays(
+        wall=torch.as_tensor(wall, device=device),
+        ball_rects=torch.as_tensor(ball_rects, device=device),
+        program=torch.as_tensor(program, device=device),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Step
+# ---------------------------------------------------------------------------
+
+
+def step_spec(t: _Tables, go, gc, gs, pos, acts, rnd, rects):
+    """One Collect transition for a (B, C) slab, in plain PyTorch.
+
+    go/gc/gs: (B, C) int32 object, color and reward-slot planes
+    pos:      (B, 2*n_agents) int32 [a0x, a0y, a1x, a1y]
+    acts:     (B, n_agents) int32; ids outside 0..3 are a no-op
+    rnd:      (B, 3) float32 uniforms [move order, respawn of the first
+              mover, respawn of the second mover]
+    rects:    (n_colors, C) bool respawn rect of each ball color
+
+    Returns (go, gc, gs, pos, picked) with picked (B, n_agents) int32: the
+    reward-table slot of the ball each agent picked up, or -1.
+    """
+    B, C = go.shape
+    n_agents = acts.shape[1]
+    lane = torch.arange(C, dtype=torch.int32, device=go.device)[None, :]
+    w = t.width
+
+    # Move order: for 2 agents a fair coin; agent 1 moves first when
+    # rnd[:, 0] < 0.5.
+    if n_agents == 2:
+        first = (rnd[:, 0:1] < 0.5).to(torch.int32)
+    else:
+        first = torch.zeros((B, 1), dtype=torch.int32, device=go.device)
+
+    picked = [torch.full((B, 1), -1, dtype=torch.int32, device=go.device)
+              for _ in range(n_agents)]
+    pos_cols = [pos[:, 2 * i : 2 * i + 2] for i in range(n_agents)]
+
+    for slot in range(n_agents):
+        i_vec = first if slot == 0 else 1 - first
+        is0 = i_vec == 0
+
+        def pick(a, b):  # per-row select between agent 0's and agent 1's
+            return torch.where(is0, a, b) if n_agents == 2 else a
+
+        act = pick(acts[:, 0:1], acts[:, -1:])
+        px = pick(pos_cols[0][:, 0:1], pos_cols[-1][:, 0:1])
+        py = pick(pos_cols[0][:, 1:2], pos_cols[-1][:, 1:2])
+        my_color = pick(
+            torch.full_like(act, t.agent_colors[0]),
+            torch.full_like(act, t.agent_colors[1 % len(t.agent_colors)]),
+        )
+
+        valid = (act >= 0) & (act < 4)
+        dx = torch.zeros_like(act)
+        dy = torch.zeros_like(act)
+        for a in range(4):
+            m = valid & (act == a)
+            dx = torch.where(m, t.action_dx[a], dx)
+            dy = torch.where(m, t.action_dy[a], dy)
+        nx = (px + dx).clamp(0, t.width - 1)
+        ny = (py + dy).clamp(0, t.height - 1)
+        nidx = ny * w + nx  # (B, 1)
+        oidx = py * w + px
+        hit_n = lane == nidx
+        hit_o = lane == oidx
+
+        cell = go.gather(1, nidx.long())
+        is_ball = cell == t.ball
+        do_move = is_ball | (cell == t.empty)
+        ball_color = gc.gather(1, nidx.long())
+        ball_slot = gs.gather(1, nidx.long())
+
+        # pickup: clear the ball cell
+        clear = hit_n & is_ball
+        go = torch.where(clear, t.empty, go)
+        gc = torch.where(clear, 0, gc)
+        gs = torch.where(clear, 0, gs)
+
+        if t.respawn:
+            # Respawn before the agent moves in: uniform over the empty
+            # cells of the ball color's rect, the vacated cell included.
+            bc = ball_color.clamp(0, rects.shape[0] - 1)
+            mask = rects[bc[:, 0].long()] & (go == t.empty)
+            hit_r = masked_pick(mask, rnd[:, 1 + slot : 2 + slot]) & is_ball
+            go = torch.where(hit_r, t.ball, go)
+            gc = torch.where(hit_r, ball_color, gc)
+            gs = torch.where(hit_r, t.respawn_slot_base + ball_color, gs)
+
+        # move; a respawn on the vacated ball cell is overwritten (stomped)
+        into = hit_n & do_move
+        go = torch.where(into, t.agent, go)
+        gc = torch.where(into, my_color, gc)
+        gs = torch.where(into, 0, gs)
+        out = hit_o & do_move
+        go = torch.where(out, t.empty, go)
+        gc = torch.where(out, 0, gc)
+
+        new_xy = torch.cat(
+            [torch.where(do_move, nx, px), torch.where(do_move, ny, py)], dim=1
+        )
+        picked_here = torch.where(is_ball, ball_slot, -1)
+        for i in range(n_agents):
+            mine = i_vec == i
+            pos_cols[i] = torch.where(mine, new_xy, pos_cols[i])
+            picked[i] = torch.where(mine, picked_here, picked[i])
+
+    return go, gc, gs, torch.cat(pos_cols, dim=1), torch.cat(picked, dim=1)
+
+
+def _check(name, x, dtype, shape, device):
+    if (
+        x.device != device
+        or x.dtype != dtype
+        or tuple(x.shape) != tuple(shape)
+        or not x.is_contiguous()
+    ):
+        raise ValueError(
+            f"{name}: expected a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)} on {device}, got {x.dtype} {tuple(x.shape)} on "
+            f"{x.device} (contiguous={x.is_contiguous()})"
+        )
+
+
+def _check_envelope(n_cells, n_agents):
+    if n_agents not in AGENT_COUNTS:
+        raise ValueError(
+            f"the Collect kernels take {AGENT_COUNTS} agents, got {n_agents}"
+        )
+    if n_cells > MAX_CELLS:
+        raise ValueError(
+            f"the Collect kernels take boards of at most {MAX_CELLS} cells, "
+            f"got {n_cells}"
+        )
+
+
+def collect_step_slab(t: _Tables, go, gc, gs, pos, acts, rnd, rects):
+    """One transition of the batch: :func:`step_spec` for CPU tensors, the
+    CUDA kernel ``csrc/collect_step.cu`` for CUDA tensors (new output
+    tensors; the inputs are not changed).  Same arguments and results as
+    :func:`step_spec`."""
+    if go.device.type == "cpu":
+        return step_spec(t, go, gc, gs, pos, acts, rnd, rects)
+    if go.device.type != "cuda":
+        raise ValueError(f"no Collect step for tensors on {go.device}")
+    B, C = go.shape
+    A = acts.shape[-1]
+    _check_envelope(C, A)
+    if C != t.n_cells or B < 1:
+        raise ValueError(f"planes of shape {(B, C)} for a {t.n_cells}-cell board")
+    dev = go.device
+    for name, x, dtype, shape in (
+        ("go", go, torch.int32, (B, C)),
+        ("gc", gc, torch.int32, (B, C)),
+        ("gs", gs, torch.int32, (B, C)),
+        ("pos", pos, torch.int32, (B, 2 * A)),
+        ("acts", acts, torch.int32, (B, A)),
+        ("rnd", rnd, torch.float32, (B, 3)),
+        ("rects", rects, torch.bool, (len(t.respawn_rects), C)),
+    ):
+        _check(name, x, dtype, shape, dev)
+    kernels = _build.load()
+    go_o, gc_o, gs_o = (torch.empty_like(go) for _ in range(3))
+    pos_o = torch.empty_like(pos)
+    picked = torch.empty_like(acts)
+    with torch.cuda.device(dev):
+        err = kernels.collect_step(
+            go.data_ptr(), gc.data_ptr(), gs.data_ptr(), pos.data_ptr(),
+            acts.data_ptr(), rnd.data_ptr(), rects.data_ptr(),
+            go_o.data_ptr(), gc_o.data_ptr(), gs_o.data_ptr(),
+            pos_o.data_ptr(), picked.data_ptr(),
+            B, t.width, t.height, A, int(t.respawn), rects.shape[0],
+            t.respawn_slot_base, t.agent_colors[0],
+            t.agent_colors[1 % len(t.agent_colors)],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"collect_step kernel launch failed: CUDA error {err}")
+    collect_step_slab.launches += 1
+    return go_o, gc_o, gs_o, pos_o, picked
+
+
+#: Launches of the step kernel since the count was last set to 0.
+collect_step_slab.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Reset
+# ---------------------------------------------------------------------------
+
+
+def reset_spec(rt: _ResetTables, wall, ball_rects, rnd):
+    """Sequential placement program for a (B, C) slab, in plain PyTorch.
+
+    wall:       (C,) bool static wall mask
+    ball_rects: (n_balls, C) bool placement rects, walls excluded
+    rnd:        (B, n_balls + n_agents) float32 uniforms
+    Returns (go, gc, gs, pos) with pos (B, 2*A); gs holds each placed
+    ball's reward-table slot (its placement index).
+    """
+    B = rnd.shape[0]
+    C = rt.n_cells
+    dev = rnd.device
+    lane = torch.arange(C, dtype=torch.int32, device=dev)[None, :]
+    go = torch.where(wall, rt.wall, rt.empty).to(torch.int32).repeat(B, 1)
+    gc = torch.where(wall, rt.wall_color, 0).to(torch.int32).repeat(B, 1)
+    gs = torch.zeros((B, C), dtype=torch.int32, device=dev)
+    A = len(rt.agent_colors)
+    w = rt.width
+
+    def place_balls(go, gc, gs, base):
+        for b, color in enumerate(rt.ball_colors):
+            mask = ball_rects[b][None, :] & (go == rt.empty)
+            hit = masked_pick(mask, rnd[:, base + b : base + b + 1])
+            go = torch.where(hit, rt.ball, go)
+            gc = torch.where(hit, color, gc)
+            gs = torch.where(hit, b, gs)
+        return go, gc, gs
+
+    def place_agents(go, gc, gs, base):
+        cols = []
+        for i, color in enumerate(rt.agent_colors):
+            if rt.agent_fixed is not None:
+                x, y = rt.agent_fixed[i]
+                idx = torch.full((B, 1), y * w + x, dtype=torch.int32, device=dev)
+            elif rt.agent_choice is not None:
+                u = rnd[:, base + i : base + i + 1]
+                n = len(rt.agent_choice)
+                j = (u * n).to(torch.int32).clamp(max=n - 1)
+                idx = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+                for k, (x, y) in enumerate(rt.agent_choice):
+                    idx = torch.where(j == k, y * w + x, idx)
+            else:
+                hit = masked_pick(go == rt.empty, rnd[:, base + i : base + i + 1])
+                idx = torch.where(hit, lane, 0).sum(1, keepdim=True, dtype=torch.int32)
+            hit = lane == idx
+            go = torch.where(hit, rt.agent, go)
+            gc = torch.where(hit, color, gc)
+            gs = torch.where(hit, 0, gs)
+            cols.append(torch.cat([idx % w, idx // w], dim=1))
+        return go, gc, gs, cols
+
+    nb = len(rt.ball_colors)
+    if rt.balls_before_agents:
+        go, gc, gs = place_balls(go, gc, gs, 0)
+        go, gc, gs, pos_cols = place_agents(go, gc, gs, nb)
+    else:
+        go, gc, gs, pos_cols = place_agents(go, gc, gs, 0)
+        go, gc, gs = place_balls(go, gc, gs, A)
+    return go, gc, gs, torch.cat(pos_cols, dim=1)
+
+
+def collect_reset_slab(rt: _ResetTables, rnd, ra: ResetArrays, done=None, out=None):
+    """Whole-board reset: :func:`reset_spec` for CPU tensors, the CUDA
+    kernel ``csrc/collect_reset.cu`` for CUDA tensors.
+
+    With ``done`` None every row is reset into new tensors.  With a (B,)
+    bool ``done`` only the rows where it is True are reset, in place in
+    ``out = (go, gc, gs, pos)``; the other rows are left as they are, so
+    the result is ``where(done, reset_spec(...), out)``.  Returns
+    (go, gc, gs, pos)."""
+    if rnd.device.type == "cpu":
+        new = reset_spec(rt, ra.wall, ra.ball_rects, rnd)
+        if done is None:
+            return new
+        for o, n in zip(out, new):
+            o.copy_(torch.where(done[:, None], n, o))
+        return out
+    if rnd.device.type != "cuda":
+        raise ValueError(f"no Collect reset for tensors on {rnd.device}")
+    B, C, A, nb = rnd.shape[0], rt.n_cells, len(rt.agent_colors), len(rt.ball_colors)
+    _check_envelope(C, A)
+    if B < 1:
+        raise ValueError("an empty batch has nothing to reset")
+    dev = rnd.device
+    if done is None:
+        out = tuple(
+            torch.empty((B, C), dtype=torch.int32, device=dev) for _ in range(3)
+        ) + (torch.empty((B, 2 * A), dtype=torch.int32, device=dev),)
+    else:
+        _check("done", done, torch.bool, (B,), dev)
+    coords = rt.agent_fixed or rt.agent_choice or ()
+    for name, x, dtype, shape in (
+        ("rnd", rnd, torch.float32, (B, nb + A)),
+        ("wall", ra.wall, torch.bool, (C,)),
+        ("ball_rects", ra.ball_rects, torch.bool, (nb, C)),
+        ("program", ra.program, torch.int32, (nb + 2 * len(coords),)),
+        ("go", out[0], torch.int32, (B, C)),
+        ("gc", out[1], torch.int32, (B, C)),
+        ("gs", out[2], torch.int32, (B, C)),
+        ("pos", out[3], torch.int32, (B, 2 * A)),
+    ):
+        _check(name, x, dtype, shape, dev)
+    if rt.agent_fixed is not None:
+        mode = _AGENTS_FIXED
+    elif rt.agent_choice is not None:
+        mode = _AGENTS_CHOICE
+    else:
+        mode = _AGENTS_UNIFORM
+    kernels = _build.load()
+    with torch.cuda.device(dev):
+        err = kernels.collect_reset(
+            rnd.data_ptr(), ra.wall.data_ptr(), ra.ball_rects.data_ptr(),
+            ra.program.data_ptr(), None if done is None else done.data_ptr(),
+            *(o.data_ptr() for o in out),
+            B, rt.width, C, nb, A, int(rt.balls_before_agents), mode,
+            len(coords), rt.agent_colors[0],
+            rt.agent_colors[1 % len(rt.agent_colors)],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"collect_reset kernel launch failed: CUDA error {err}")
+    collect_reset_slab.launches += 1
+    return out
+
+
+#: Launches of the reset kernel since the count was last set to 0.
+collect_reset_slab.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Batch glue
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True, eq=False)
+class CollectSlab:
+    """Everything the batch glue needs for one config on one device."""
+
+    cfg: CollectConfig
+    device: torch.device
+    t: _Tables
+    rt: _ResetTables
+    respawn_rects: torch.Tensor  # (n_colors, C) bool
+    reset_arrays: ResetArrays
+    slot_rewards: torch.Tensor  # (n_slots,) float32
+    slot_info: torch.Tensor  # (n_slots,) int32
+    info_ids: torch.Tensor  # (num_ball_types,) int32: 0, 1, ...
+
+    @property
+    def reset_draws(self) -> int:
+        """Uniforms one env's reset takes: one per ball and per agent."""
+        return len(self.rt.ball_colors) + self.cfg.num_agents
+
+
+def make_collect_slab(cfg: CollectConfig, device) -> CollectSlab:
+    device = torch.device(device)
+    _check_envelope(cfg.num_cells, cfg.num_agents)
+    t = make_tables(cfg)
+    rt, plan = make_reset_tables(cfg)
+    slot_rewards, slot_info, _ = reward_slot_tables(cfg, plan)
+    return CollectSlab(
+        cfg=cfg,
+        device=device,
+        t=t,
+        rt=rt,
+        respawn_rects=torch.as_tensor(plan.respawn_rects, device=device),
+        reset_arrays=make_reset_arrays(cfg, device),
+        slot_rewards=torch.as_tensor(slot_rewards, device=device),
+        slot_info=torch.as_tensor(slot_info, device=device),
+        info_ids=torch.arange(cfg.num_ball_types, dtype=torch.int32, device=device),
+    )
+
+
+def step_batch(
+    slab: CollectSlab,
+    states: CollectState,
+    actions: torch.Tensor,
+    *,
+    generator: torch.Generator | None = None,
+    rnd: torch.Tensor | None = None,
+    encode_obs: bool = True,
+):
+    """Batch-level Collect step.
+
+    Returns (states', obs, rewards (B, A) float32, terminated (B,),
+    truncated (B,), info_counts).  ``rnd`` (B, 3) is used as is when
+    given, else drawn from ``generator``.  ``encode_obs=False`` returns
+    None for the obs, for callers that would throw it away."""
+    cfg = slab.cfg
+    B = states.grid_obj.shape[0]
+    if rnd is None:
+        rnd = torch.rand((B, 3), generator=generator, device=slab.device)
+    go, gc, gs, pos, picked = collect_step_slab(
+        slab.t,
+        states.grid_obj,
+        states.grid_color,
+        states.grid_slot,
+        states.agent_pos.reshape(B, -1),
+        actions.to(torch.int32).contiguous(),
+        rnd,
+        slab.respawn_rects,
+    )
+    got_ball = picked >= 0  # (B, A); picked is the reward-table slot
+    ps = picked.clamp(0, slab.slot_rewards.shape[0] - 1)
+    rewards = torch.where(got_ball, slab.slot_rewards[ps], 0.0)
+    collected = states.collected + got_ball.sum(1, dtype=torch.int32)
+    # info counters: one-hot (agent, info-slot) bumps
+    bump = (slab.slot_info[ps][..., None] == slab.info_ids) & got_ball[..., None]
+    info_counts = states.info_counts + bump.to(torch.int32)
+
+    step_count = states.step_count + 1
+    if cfg.respawn or cfg.fixed_horizon:
+        terminated = torch.zeros((B,), dtype=torch.bool, device=slab.device)
+    else:
+        terminated = collected == cfg.num_balls
+    truncated = step_count >= cfg.max_steps
+
+    new_states = CollectState(
+        grid_obj=go,
+        grid_color=gc,
+        grid_slot=gs,
+        agent_pos=pos.reshape(B, -1, 2),
+        collected=collected,
+        step_count=step_count,
+        info_counts=info_counts,
+    )
+    obs = encode(cfg, new_states) if encode_obs else None
+    return new_states, obs, rewards, terminated, truncated, info_counts
+
+
+def reset_batch(
+    slab: CollectSlab,
+    num_envs: int,
+    *,
+    generator: torch.Generator | None = None,
+    rnd: torch.Tensor | None = None,
+    done: torch.Tensor | None = None,
+    states: CollectState | None = None,
+) -> CollectState:
+    """Batch reset through the whole-board placement program.
+
+    ``rnd`` (num_envs, ``slab.reset_draws``) is used as is when given, else
+    drawn from ``generator``.  With ``done`` (num_envs,) bool, the rows of
+    ``states`` where it is True are reset IN PLACE (planes, positions and
+    counters) and ``states`` is returned; the other rows keep their
+    values."""
+    if rnd is None:
+        rnd = torch.rand(
+            (num_envs, slab.reset_draws), generator=generator, device=slab.device
+        )
+    A, nt = slab.cfg.num_agents, slab.cfg.num_ball_types
+    if done is None:
+        go, gc, gs, pos = collect_reset_slab(slab.rt, rnd, slab.reset_arrays)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=slab.device)
+
+        return CollectState(
+            grid_obj=go,
+            grid_color=gc,
+            grid_slot=gs,
+            agent_pos=pos.reshape(num_envs, A, 2),
+            collected=zeros(num_envs),
+            step_count=zeros(num_envs),
+            info_counts=zeros(num_envs, A, nt),
+        )
+    collect_reset_slab(
+        slab.rt,
+        rnd,
+        slab.reset_arrays,
+        done=done,
+        out=(
+            states.grid_obj,
+            states.grid_color,
+            states.grid_slot,
+            states.agent_pos.view(num_envs, 2 * A),
+        ),
+    )
+    states.collected.masked_fill_(done, 0)
+    states.step_count.masked_fill_(done, 0)
+    states.info_counts.masked_fill_(done[:, None, None], 0)
+    return states
