@@ -5,18 +5,25 @@
 Needs one CUDA device and ``nvcc``; exits non-zero, printing no result,
 without them.  Phases, each of which fails the run on any fault:
 
-1. Build the CUDA kernels from ``gym_multigrid_tpu_torch/csrc/``.
+1. Build the CUDA kernels from ``gym_multigrid_tpu_torch/csrc/``, one
+   ``nvcc`` per source, all at once.
 2. Hold each kernel to its plain PyTorch version on the card, bit for bit:
-   the step kernel over 100 chained steps at B = 8192 (the main config, the
-   1-agent even config and the 15x15 quadrants config, with the invalid
-   action ids -1, 4 and 7 mixed in), the reset kernel on every layout and
-   under a random ``done`` mask.
-3. Drive the main path: ``make_collect_batch`` of the respawn-clustered
-   config at B = 8192, ``reset(seed=0)``, ``rollout`` of 500 steps with the
-   launch counts set to 0 just before and read just after; check the
-   rollout's invariants; then, after untimed calls until the time per call
-   settles, time it, each kernel and its plain version.
-4. Profile 50 steps of the rollout: device time by kernel and idle share.
+   the Collect step kernel over 100 chained steps at B = 8192 (the main
+   config, the 1-agent even config and the 15x15 quadrants config, with the
+   invalid action ids -1, 4 and 7 mixed in), the Collect reset kernel on
+   every layout and under a random ``done`` mask, and the CtF step kernel
+   over 100 chained steps at B = 8192 on four configs (CTF_MAIN; 2v2
+   patrol/patrol_fight with an obstacle penalty; 1v1 fight; 3v3
+   capture/patrol/rw), finished envs respawned by ``reset_spec`` under the
+   ``done`` mask.
+3. Drive each path, with every launch count set to 0 just before it and
+   read just after: Collect (``make_collect_batch`` of the
+   respawn-clustered config at B = 8192, ``reset(seed=0)``, ``rollout`` of
+   500 steps) and CtF (``make_ctf_batch(CTF_MAIN, 8192)``,
+   ``reset(seed=0)``, ``rollout`` of 400 steps).  Check each rollout's
+   invariants; then, after untimed calls until the time per call settles,
+   time it, each kernel and its plain version.
+4. Profile 50 steps of each rollout: device time by kernel and idle share.
 
 Prints the timing lines, one JSON line of kernel records, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -25,9 +32,11 @@ and power limit, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
@@ -36,7 +45,8 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device")
 
 from gym_multigrid_tpu_torch.envs.collect import AGENT, BALL, CollectConfig  # noqa: E402
-from gym_multigrid_tpu_torch.ops import _build  # noqa: E402
+from gym_multigrid_tpu_torch.envs.ctf import CtfConfig, CtfState, PolicySpec  # noqa: E402
+from gym_multigrid_tpu_torch.ops import _build, ctf_slab  # noqa: E402
 from gym_multigrid_tpu_torch.ops.collect_slab import (  # noqa: E402
     collect_reset_slab,
     collect_step_slab,
@@ -45,13 +55,40 @@ from gym_multigrid_tpu_torch.ops.collect_slab import (  # noqa: E402
     reset_spec,
     step_spec,
 )
-from gym_multigrid_tpu_torch.parallel.vector import make_collect_batch  # noqa: E402
+from gym_multigrid_tpu_torch.ops.ctf_slab import ctf_step_slab  # noqa: E402
+from gym_multigrid_tpu_torch.parallel.vector import (  # noqa: E402
+    make_collect_batch,
+    make_ctf_batch,
+)
 
 B = 8192
 STEPS_PER_CALL = 500  # ten lockstep 50-step episodes
 MAIN = CollectConfig(layout="quadrants_respawn", respawn=True, max_steps=50)
 SINGLE = CollectConfig(agents_index=(3,), layout="even", respawn=False)
 QUADRANTS15 = CollectConfig(size=15, num_balls=30, layout="quadrants")
+
+# CtF: the config the repo's family bench drives (bench_all.py), 2v2 on
+# the 10x10 board, 400 steps per rollout call.
+MAP = str(Path(__file__).resolve().parent / "tests" / "assets" / "board.txt")
+CTF_STEPS_PER_CALL = 400
+CTF_MAIN = CtfConfig.from_map_path(
+    MAP, num_blue_agents=2, num_red_agents=2, variant="mvn",
+    enemy_policies=(PolicySpec("fight"), PolicySpec("rw")),
+    observation_option="flattened",
+)
+CTF_PATROL = CtfConfig.from_map_path(
+    MAP, num_blue_agents=2, num_red_agents=2,
+    enemy_policies=(PolicySpec("patrol"), PolicySpec("patrol_fight")),
+    obstacle_penalty_ratio=0.5,
+)
+CTF_1V1 = CtfConfig.from_map_path(
+    MAP, variant="1v1", enemy_policies=(PolicySpec("fight"),),
+    obstacle_penalty_ratio=0.5,
+)
+CTF_3V3 = CtfConfig.from_map_path(
+    MAP, num_blue_agents=3, num_red_agents=3,
+    enemy_policies=(PolicySpec("capture"), PolicySpec("patrol"), PolicySpec("rw")),
+)
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 rate, and
 # int32 ALU ops on the CUDA cores (132 SMs x 64 int32 lanes x 1.98 GHz).
@@ -67,7 +104,24 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 PICK_OPS_PER_WORD = 3
 PICK_OPS = 8
 MOVE_OPS = 16
-WARMUP_MAX = 20  # untimed rollout calls at most before the timed ones
+# The CtF step, per env, counting each 32-bit integer or float operation
+# it needs: a squared distance is 6 (two subtracts, two converts, two
+# multiplies and the add folded into the compare: 7 with it), a red
+# policy's random action and gate 4, the closed-form A* step 6, a border
+# cell of a patrol scan 9 (the on-border test and the distance), a mover
+# 16 plus 2 per agent it checks for occupancy, a flag check 4, a battle 16
+# (distance, eligibility, the truth table, the draw, the reward and the
+# outcome updates).  The float operations are counted at the int32 rate,
+# the lower of the two.
+CTF_DIST_OPS = 7
+CTF_POLICY_OPS = 4
+CTF_ASTAR_OPS = 6
+CTF_BORDER_OPS = 9
+CTF_BATTLE_OPS = 16
+# Untimed rollout calls at most before the timed ones: Collect's are cut to
+# 10 to keep the whole run near a minute and a half.
+COLLECT_WARMUP_MAX = 10
+CTF_WARMUP_MAX = 20
 DEV = torch.device("cuda", 0)
 
 
@@ -141,17 +195,90 @@ def check_reset_kernel(cfg, seed):
     return err
 
 
+def ctf_step_args(slab, states, blue_actions, rnd):
+    """The step's inputs from a batch state, as ``step_batch`` passes them."""
+    B = states.pos.shape[0]
+    return (slab.t, states.pos.reshape(B, -1), states.dir,
+            states.terminated.to(torch.int32), states.collided.to(torch.int32),
+            blue_actions, rnd, slab.cells, slab.border, slab.pool)
+
+
+def check_ctf_step_kernel(cfg, name, steps, seed):
+    """``ctf_step_slab`` against ``step_spec`` over chained steps from
+    random cells, a tenth of the agents terminated and a tenth collided;
+    finished envs are respawned by ``reset_spec`` under the done mask, so
+    live episodes keep battling.  Blue ids include the out-of-range -2, -1,
+    5 and 6, which both clamp."""
+    slab = ctf_slab.make_ctf_slab(cfg, DEV)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    states = ctf_slab.reset_batch(slab, B, generator=gen)
+    A, (s0, s1) = cfg.num_agents, cfg.field_map.shape
+    states.pos = torch.stack([
+        torch.randint(0, s0, (B, A), generator=gen, device=DEV, dtype=torch.int32),
+        torch.randint(0, s1, (B, A), generator=gen, device=DEV, dtype=torch.int32),
+    ], dim=2)
+    states.terminated = torch.rand((B, A), generator=gen, device=DEV) < 0.1
+    states.collided = torch.rand((B, A), generator=gen, device=DEV) < 0.1
+    err, battles, flags, bumps, episodes = 0.0, 0, 0, 0, 0
+    for _ in range(steps):
+        ba = torch.randint(-2, 7, (B, cfg.num_blue_agents), generator=gen,
+                           device=DEV, dtype=torch.int32)
+        rnd = torch.rand((B, slab.step_draws), generator=gen, device=DEV)
+        args = ctf_step_args(slab, states, ba, rnd)
+        got = ctf_step_slab(*args)
+        err = max(err, max_abs_err(got, ctf_slab.step_spec(*args)))
+        pos, dirs, term, coll, _, ep_term, rfc, bfc, bbl, brl = got
+        battles += int(bbl.sum() + brl.sum())
+        flags += int(rfc.sum() + bfc.sum())
+        bumps += int((coll > args[4]).sum())
+        step_count = states.step_count + 1
+        done = (ep_term[:, 0] == 1) | (step_count >= cfg.max_steps)
+        episodes += int(done.sum())
+        states = CtfState(pos.reshape(states.pos.shape), dirs, term.bool(),
+                          coll.bool(), step_count)
+        states = ctf_slab.reset_batch(slab, B, generator=gen, done=done, states=states)
+    check(battles > 0, f"{name}: no battles")
+    check(flags > 0, f"{name}: no flag captures")
+    check(cfg.obstacle_penalty == 0 or cfg.variant != "mvn" or bumps > 0,
+          f"{name}: no collisions")
+    log(f"ctf_step kernel == step_spec: {name}, {steps} steps at B={B}: "
+        f"{battles} battles lost, {flags} flag captures, {bumps} new collisions, "
+        f"{episodes} episodes ended, max_abs_err {err}")
+    return err
+
+
+def ctf_step_ops(t, n_border):
+    """Operations one batch of CtF steps needs (see CTF_*_OPS)."""
+    A, nb = t.n_blue + t.n_red, t.n_blue
+    per_env = 0
+    for kind, _ in t.policies:
+        per_env += CTF_POLICY_OPS
+        if kind == "rw":
+            continue
+        per_env += CTF_ASTAR_OPS
+        if kind in ("fight", "patrol_fight"):
+            per_env += nb * CTF_DIST_OPS
+        if kind in ("patrol", "patrol_fight"):
+            per_env += n_border * CTF_BORDER_OPS
+    per_env += A * (MOVE_OPS + 2 * A)  # movers, with the move order's pick
+    per_env += A * 4  # flag checks
+    per_env += (nb * t.n_red if t.mvn else 1) * CTF_BATTLE_OPS
+    return B * per_env
+
+
 def time_ms(fn, iters, windows=5):
     """ms per call over ``windows`` windows of ``iters`` calls: CUDA events
     around each window, queued behind a device sleep so that host launch
     cost hides when the device is the slower side, one synchronise per
-    window.  Returns the median window and all of them."""
+    window.  The sleep, 2e8 cycles (about 100 ms at 1.98 GHz), outlasts
+    the enqueue of 200 launches at up to 500 us of host time each.
+    Returns the median window and all of them."""
     fn()
     torch.cuda.synchronize()
     per_call = []
     for _ in range(windows):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(50_000_000)
+        torch.cuda._sleep(200_000_000)
         start.record()
         for _ in range(iters):
             fn()
@@ -187,6 +314,174 @@ def bound(nbytes, ops):
     return max(t_bytes, t_ops), by, t_bytes, t_ops
 
 
+def run_counted(drive):
+    """Set every kernel's launch count to 0, run ``drive``, synchronise,
+    and return (the counts it left, what it returned)."""
+    collect_step_slab.launches = collect_reset_slab.launches = 0
+    ctf_step_slab.launches = 0
+    result = drive()
+    torch.cuda.synchronize()
+    counts = {"collect_step": collect_step_slab.launches,
+              "collect_reset": collect_reset_slab.launches,
+              "ctf_step": ctf_step_slab.launches}
+    log(f"launches on this path: {counts}")
+    return counts, result
+
+
+def collect_main_path():
+    """The Collect main path: reset(seed=0) and one 500-step rollout at
+    B = 8192.  Returns (env, states, obs, metrics)."""
+    env = make_collect_batch(MAIN, B)
+    states, obs = env.reset(seed=0)
+    states, metrics = env.rollout(states, STEPS_PER_CALL)
+    return env, states, obs, metrics
+
+
+def check_collect_path(env, states, obs, metrics):
+    """The Collect rollout's invariants, then 25 more steps' board
+    invariants.  Returns the states."""
+    check(obs.shape == (B, 10, 10, 3) and obs.dtype == torch.uint8, "obs shape")
+    episodes = int(metrics["episodes"])
+    reward_sum = float(metrics["reward_sum"])
+    ep_return_sum = float(metrics["ep_return_sum"])
+    check(episodes == B * STEPS_PER_CALL // MAIN.max_steps, f"episodes {episodes}")
+    check(reward_sum > 0, "no reward")
+    # Rewards are integers summed below 2**24: float32 sums are exact.
+    check(ep_return_sum == reward_sum, f"{ep_return_sum} != {reward_sum}")
+    check(bool((metrics["run_return"] == 0).all()), "run_return after lockstep truncation")
+    check(bool((states.step_count == 0).all()), "states not reset at the episode boundary")
+    log(f"rollout: {episodes} episodes, reward_sum {reward_sum}, "
+        f"reward per agent-step {reward_sum / (B * STEPS_PER_CALL * 2)}")
+    for _ in range(25):  # mid-episode board invariants
+        states, *_ = env.step(states, torch.randint(0, 4, (B, 2), device=DEV, dtype=torch.int32))
+    balls = (states.grid_obj == BALL).sum(1)
+    check(bool((balls <= MAIN.num_balls).all()), "more balls than placed")
+    check(bool((balls >= MAIN.num_balls - states.collected).all()), "balls lost beyond pickups")
+    check(bool(((states.grid_obj == AGENT).sum(1) == 2).all()), "agents per board")
+    return states
+
+
+def distinct_cells(states):
+    """True where no two agents of an env share a cell."""
+    p = states.pos[:, :, 0] * 1024 + states.pos[:, :, 1]
+    return ~(p[:, :, None] == p[:, None, :]).triu(diagonal=1).any(dim=(1, 2))
+
+
+def ctf_main_path():
+    """The CtF path: CTF_MAIN at B = 8192, reset(seed=0) and one 400-step
+    rollout.  Returns (env, first states, obs, final states, metrics)."""
+    env = make_ctf_batch(CTF_MAIN, B)
+    first, obs = env.reset(seed=0)
+    states, metrics = env.rollout(first, CTF_STEPS_PER_CALL)
+    return env, first, obs, states, metrics
+
+
+def check_ctf_path(env, first, obs, states, metrics):
+    """The CtF path's invariants: a second reset(seed=0) gives the same
+    state, spawns lie in their team's territory and never overlap, the obs
+    has its shape, and after the rollout the metrics agree, no two agents
+    share a cell and every agent is on the board."""
+    again, _ = env.reset(seed=0)
+    states0 = first
+    check(all(torch.equal(getattr(states0, f), getattr(again, f))
+              for f in ("pos", "dir", "terminated", "collided", "step_count")),
+          "reset(seed=0) twice differs")
+    nb = CTF_MAIN.num_blue_agents
+    terr = [env.slab.bterr, env.slab.rterr]
+    for a in range(CTF_MAIN.num_agents):  # spawns in their own territory
+        t = terr[a >= nb]
+        inside = ((states0.pos[:, a, :1] == t[0]) & (states0.pos[:, a, 1:] == t[1])).any(dim=1)
+        check(bool(inside.all()), f"agent {a} spawned outside its territory")
+    check(bool(distinct_cells(states0).all()), "spawns overlap")
+    # flattened: positions, flags, the three cell lists, terminated flags
+    A = CTF_MAIN.num_agents
+    cells = env.slab.bterr.shape[1] + env.slab.rterr.shape[1] + int((env.slab.cells[3] > 0).sum())
+    check(obs.dtype == torch.int32 and tuple(obs.shape) == (B, 2 * A + 4 + 2 * cells + A),
+          f"obs {obs.dtype} {tuple(obs.shape)}")
+    episodes = int(metrics["episodes"])
+    reward_sum = float(metrics["reward_sum"])
+    ep_return_sum = float(metrics["ep_return_sum"])
+    run_sum = float(metrics["run_return"].double().sum())
+    check(math.isfinite(reward_sum) and episodes > 0, f"episodes {episodes}, reward {reward_sum}")
+    # Sums of the same rewards in another order: float32 rounding only.
+    check(abs(ep_return_sum + run_sum - reward_sum) <= 1e-5 * max(1.0, abs(reward_sum)) + 1e-2,
+          f"ep_return_sum {ep_return_sum} + run_return {run_sum} != reward_sum {reward_sum}")
+    check(bool(distinct_cells(states).all()), "two agents share a cell")
+    check(bool((states.pos >= 0).all() and (states.pos < 10).all()), "agent off the board")
+    check(bool((states.step_count < CTF_MAIN.max_steps).all()), "episode past max_steps")
+    log(f"ctf rollout: {episodes} episodes, reward_sum {reward_sum}, "
+        f"ep_return_sum {ep_return_sum}, run_return sum {run_sum}")
+
+
+def time_rollout(env, states, steps, agents, warmup_max):
+    """Warm-up calls until three in a row lie within 5% of each other (at
+    most ``warmup_max``), each logged with the host's share of it and the card's
+    clocks, then 11 timed calls; logs agent-steps/s (median, slowest,
+    fastest).  Returns the final states."""
+    agent_steps = B * steps * agents
+
+    def timed_rollout():
+        """One rollout call: (device-event ms, host wall ms, host CPU ms)."""
+        nonlocal states
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        w0, c0 = time.perf_counter(), time.process_time()
+        start.record()
+        states, _ = env.rollout(states, steps)
+        end.record()
+        end.synchronize()
+        return (start.elapsed_time(end), (time.perf_counter() - w0) * 1e3,
+                (time.process_time() - c0) * 1e3)
+
+    warm, settled = [], False
+    while len(warm) < warmup_max and not settled:
+        clocks = gpu_clocks()
+        warm.append(timed_rollout())
+        log(f"warm-up call {len(warm) - 1}: {warm[-1][0]:.1f} ms (host wall "
+            f"{warm[-1][1]:.1f} ms, host CPU {warm[-1][2]:.1f} ms; before it: {clocks})")
+        last = [w[0] for w in warm[-3:]]
+        settled = len(last) == 3 and max(last) <= 1.05 * min(last)
+    log(f"warm-up: {len(warm)} calls, settled: {settled}")
+    calls = [timed_rollout() for _ in range(11)]
+    windows = [c[0] for c in calls]
+    median = sorted(windows)[len(windows) // 2]
+    log(f"{type(env.slab).__name__} rollout of {steps} steps at B={B}, {len(windows)} calls "
+        f"after the warm-up: ms per call {windows}; host CPU ms "
+        f"{[round(c[2], 1) for c in calls]}; "
+        f"agent-steps/s {agent_steps / (median / 1e3)} (median), "
+        f"{agent_steps / (max(windows) / 1e3)} (slowest), "
+        f"{agent_steps / (min(windows) / 1e3)} (fastest); after: {gpu_clocks()}")
+    return states
+
+
+def profile_rollout(env, states, name, steps=50):
+    """Device time by kernel and the idle share over ``steps`` rollout
+    steps under ``torch.profiler``: the twelve longest kernels, and the
+    port's own kernels wherever they rank."""
+    torch.cuda.synchronize()
+    kinds = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=kinds) as prof:
+        t0 = time.perf_counter()
+        env.rollout(states, steps)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = sorted(
+        ((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA),
+        key=lambda r: -r[1],
+    )
+    busy_us = sum(r[1] for r in rows)
+    if busy_us > 0:
+        log(f"profile of {steps} {name} rollout steps (wall clock under the profiler): "
+            f"wall {wall_us:.0f} us, device kernels {busy_us:.0f} us "
+            f"({sum(r[2] for r in rows) / steps:.1f} launches per step), idle share "
+            f"{1 - busy_us / wall_us:.3f}")
+        for rank, (key, dev_us, count) in enumerate(rows):
+            if rank < 12 or key.startswith(("void collect::", "void ctf::")):
+                log(f"  #{rank + 1:<3d} {dev_us:9.1f} us  {count:5d}x  {key[:90]}")
+    else:
+        log(f"profile of {name}: no device time recorded (device busy share not measured)")
+
+
 def main():
     # Phase 1: build.
     t0 = time.perf_counter()
@@ -210,70 +505,20 @@ def main():
     )
     reset_err = max(reset_err, check_reset_kernel(QUADRANTS15, seed=20))
 
-    # Phase 3: the main path, with the launch counts of this run.
-    collect_step_slab.launches = collect_reset_slab.launches = 0
-    env = make_collect_batch(MAIN, B)
-    states, obs = env.reset(seed=0)
-    states, metrics = env.rollout(states, STEPS_PER_CALL)
-    torch.cuda.synchronize()
-    launches = {"collect_step": collect_step_slab.launches,
-                "collect_reset": collect_reset_slab.launches}
-    log(f"main path launches: {launches}")
+    ctf_err = max(
+        check_ctf_step_kernel(CTF_MAIN, "CTF_MAIN", 100, seed=30),
+        check_ctf_step_kernel(CTF_PATROL, "2v2 patrol/patrol_fight, obstacle penalty", 100, seed=31),
+        check_ctf_step_kernel(CTF_1V1, "1v1 fight, obstacle penalty", 100, seed=32),
+        check_ctf_step_kernel(CTF_3V3, "3v3 capture/patrol/rw", 100, seed=33),
+    )
+
+    # Phase 3: each path, with the launch counts of its own run.
+    launches, (env, *result) = run_counted(collect_main_path)
     check(launches["collect_step"] == STEPS_PER_CALL, "step kernel launches")
     check(launches["collect_reset"] == STEPS_PER_CALL + 1, "reset kernel launches")
-    check(obs.shape == (B, 10, 10, 3) and obs.dtype == torch.uint8, "obs shape")
-    episodes = int(metrics["episodes"])
-    reward_sum = float(metrics["reward_sum"])
-    ep_return_sum = float(metrics["ep_return_sum"])
-    check(episodes == B * STEPS_PER_CALL // MAIN.max_steps, f"episodes {episodes}")
-    check(reward_sum > 0, "no reward")
-    # Rewards are integers summed below 2**24: float32 sums are exact.
-    check(ep_return_sum == reward_sum, f"{ep_return_sum} != {reward_sum}")
-    check(bool((metrics["run_return"] == 0).all()), "run_return after lockstep truncation")
-    check(bool((states.step_count == 0).all()), "states not reset at the episode boundary")
-    log(f"rollout: {episodes} episodes, reward_sum {reward_sum}, "
-        f"reward per agent-step {reward_sum / (B * STEPS_PER_CALL * 2)}")
-    for _ in range(25):  # mid-episode board invariants
-        states, *_ = env.step(states, torch.randint(0, 4, (B, 2), device=DEV, dtype=torch.int32))
-    balls = (states.grid_obj == BALL).sum(1)
-    check(bool((balls <= MAIN.num_balls).all()), "more balls than placed")
-    check(bool((balls >= MAIN.num_balls - states.collected).all()), "balls lost beyond pickups")
-    check(bool(((states.grid_obj == AGENT).sum(1) == 2).all()), "agents per board")
-
-    # Timing: the rollout (end to end), each kernel and its plain version.
-    agent_steps = B * STEPS_PER_CALL * MAIN.num_agents
-
-    def timed_rollout():
-        """One rollout call: (device-event ms, host wall ms, host CPU ms)."""
-        nonlocal states
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        w0, c0 = time.perf_counter(), time.process_time()
-        start.record()
-        states, _ = env.rollout(states, STEPS_PER_CALL)
-        end.record()
-        end.synchronize()
-        return (start.elapsed_time(end), (time.perf_counter() - w0) * 1e3,
-                (time.process_time() - c0) * 1e3)
-
-    # Warm-up: untimed calls until three in a row lie within 5% of each
-    # other, each logged with the host's share of it and the card's clocks.
-    warm, settled = [], False
-    while len(warm) < WARMUP_MAX and not settled:
-        clocks = gpu_clocks()
-        warm.append(timed_rollout())
-        log(f"warm-up call {len(warm) - 1}: {warm[-1][0]:.1f} ms (host wall "
-            f"{warm[-1][1]:.1f} ms, host CPU {warm[-1][2]:.1f} ms; before it: {clocks})")
-        last = [w[0] for w in warm[-3:]]
-        settled = len(last) == 3 and max(last) <= 1.05 * min(last)
-    log(f"warm-up: {len(warm)} calls, settled: {settled}")
-    calls = [timed_rollout() for _ in range(11)]
-    windows = [c[0] for c in calls]
-    median = sorted(windows)[len(windows) // 2]
-    log(f"rollout of {STEPS_PER_CALL} steps at B={B}, {len(windows)} calls after the "
-        f"warm-up: ms per call {windows}; host CPU ms {[round(c[2], 1) for c in calls]}; "
-        f"agent-steps/s {agent_steps / (median / 1e3)} (median), "
-        f"{agent_steps / (max(windows) / 1e3)} (slowest), "
-        f"{agent_steps / (min(windows) / 1e3)} (fastest); after: {gpu_clocks()}")
+    check(launches["ctf_step"] == 0, "CtF kernel launched on the Collect path")
+    states = check_collect_path(env, *result)
+    states = time_rollout(env, states, STEPS_PER_CALL, MAIN.num_agents, COLLECT_WARMUP_MAX)
 
     slab, C, A = env.slab, MAIN.num_cells, MAIN.num_agents
     pos = states.agent_pos.reshape(B, -1)
@@ -318,30 +563,42 @@ def main():
         f"{reset_bytes} bytes take {reset_parts[0] * 1e3:.2f} us, {reset_ops} operations "
         f"{reset_parts[1] * 1e3:.2f} us), reset_spec {reset_plain_ms * 1e3:.1f} us "
         f"{us(reset_plain_all)}")
-    log("library_ms: null for both kernels (no single PyTorch call computes either)")
 
-    # Phase 4: where the rollout's time goes.
-    torch.cuda.synchronize()
-    acts_kinds = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts_kinds) as prof:
-        t0 = time.perf_counter()
-        states, _ = env.rollout(states, 50)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = sorted(
-        ((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA),
-        key=lambda r: -r[1],
-    )
-    busy_us = sum(r[1] for r in rows)
-    if busy_us > 0:
-        log(f"profile of 50 rollout steps (wall clock under the profiler): wall "
-            f"{wall_us:.0f} us, device kernels {busy_us:.0f} us, idle share "
-            f"{1 - busy_us / wall_us:.3f}")
-        for key, dev_us, count in rows[:12]:
-            log(f"  {dev_us:9.1f} us  {count:5d}x  {key[:90]}")
-    else:
-        log("profile: no device time recorded (device busy share not measured)")
+    # The CtF path.
+    ctf_launches, (ctf_env, *ctf_result) = run_counted(ctf_main_path)
+    check(ctf_launches["ctf_step"] == CTF_STEPS_PER_CALL, "CtF step kernel launches")
+    check(ctf_launches["collect_step"] == ctf_launches["collect_reset"] == 0,
+          "Collect kernels launched on the CtF path")
+    check_ctf_path(ctf_env, *ctf_result)
+    ctf_states = ctf_result[2]
+    ctf_states = time_rollout(ctf_env, ctf_states, CTF_STEPS_PER_CALL, CTF_MAIN.num_agents,
+                              CTF_WARMUP_MAX)
+
+    cslab = ctf_env.slab
+    ba = torch.randint(0, 5, (B, CTF_MAIN.num_blue_agents), device=DEV, dtype=torch.int32)
+    rnd_c = torch.rand((B, cslab.step_draws), device=DEV)
+    ctf_args = ctf_step_args(cslab, ctf_states, ba, rnd_c)
+    ctf_ms, ctf_all = time_ms(lambda: ctf_step_slab(*ctf_args), 200)
+    ctf_plain_ms, ctf_plain_all = time_ms(lambda: ctf_slab.step_spec(*ctf_args), 20)
+    ctf_out = ctf_step_slab(*ctf_args)
+    ctf_bytes = sum(x.numel() * x.element_size() for x in ctf_args[1:]) + sum(
+        x.numel() * x.element_size() for x in ctf_out)
+    ctf_ops = ctf_step_ops(cslab.t, cslab.border.shape[1])
+    ctf_bound, ctf_by, *ctf_parts = bound(ctf_bytes, ctf_ops)
+    rnd_reset = torch.rand((B, cslab.reset_draws), device=DEV)
+    ctf_reset_ms, ctf_reset_all = time_ms(
+        lambda: ctf_slab.reset_spec(cslab.t, rnd_reset, cslab.bterr, cslab.rterr), 20)
+    log(f"ctf_step: {ctf_ms * 1e3:.2f} us/launch (median of windows {us(ctf_all)}), "
+        f"bound {ctf_bound * 1e3:.2f} us ({ctf_by}; {ctf_bytes} bytes take "
+        f"{ctf_parts[0] * 1e3:.2f} us, {ctf_ops} operations {ctf_parts[1] * 1e3:.2f} us), "
+        f"step_spec {ctf_plain_ms * 1e3:.1f} us {us(ctf_plain_all)}; "
+        f"ctf reset_spec (plain PyTorch, no kernel) {ctf_reset_ms * 1e3:.1f} us "
+        f"{us(ctf_reset_all)}")
+    log("library_ms: null for every kernel (no single PyTorch call computes any)")
+
+    # Phase 4: where each rollout's time goes.
+    profile_rollout(env, states, "Collect")
+    profile_rollout(ctf_env, ctf_states, "CtF")
 
     record = {"kernels": [
         {"name": "collect_step", "route": "cuda",
@@ -356,6 +613,12 @@ def main():
          "launches": launches["collect_reset"], "max_abs_err": reset_err,
          "ms": reset_ms, "plain_ms": reset_plain_ms, "bound_ms": reset_bound,
          "bound_by": reset_by, "library_ms": None},
+        {"name": "ctf_step", "route": "cuda",
+         "source": "gym_multigrid_tpu_torch/csrc/ctf_step.cu",
+         "replaces": "gym_multigrid_tpu/ops/pallas_ctf.py:492",
+         "launches": ctf_launches["ctf_step"], "max_abs_err": ctf_err,
+         "ms": ctf_ms, "plain_ms": ctf_plain_ms, "bound_ms": ctf_bound,
+         "bound_by": ctf_by, "library_ms": None},
     ]}
     log(json.dumps(record))
     smi = subprocess.run(

@@ -1,7 +1,7 @@
 """Color tables and direction vectors (PyTorch port).
 
 Counterpart of ``gym_multigrid_tpu/core/constants.py``; only the tables the
-Collect path reads are carried over.  They are plain numpy arrays and dicts
+Collect and CtF paths read are carried over.  They are plain numpy arrays and dicts
 so the rest of the port can build device tensors from them.
 """
 
@@ -23,6 +23,23 @@ COLORS: dict[str, np.ndarray] = {
     "light_blue": np.array([90, 170, 223]),
 }
 
+# CtF palette: other light_* shades, plus white and the defeated greys.
+CTF_COLORS: dict[str, np.ndarray] = {
+    "red": np.array([228, 3, 3]),
+    "orange": np.array([255, 140, 0]),
+    "yellow": np.array([255, 237, 0]),
+    "green": np.array([0, 128, 38]),
+    "blue": np.array([0, 77, 255]),
+    "purple": np.array([117, 7, 135]),
+    "brown": np.array([120, 79, 23]),
+    "grey": np.array([100, 100, 100]),
+    "light_red": np.array([255, 228, 225]),
+    "light_blue": np.array([240, 248, 255]),
+    "white": np.array([255, 250, 250]),
+    "red_grey": np.array([170, 152, 169]),
+    "blue_grey": np.array([140, 146, 172]),
+}
+
 COLOR_TO_IDX: dict[str, int] = {key: i for i, key in enumerate(COLORS)}
 
 # Agent direction -> (dx, dy): right, down, left, up.
@@ -31,4 +48,9 @@ DIR_TO_VEC = np.array([(1, 0), (0, 1), (-1, 0), (0, -1)], dtype=np.int32)
 # Collect action -> (dx, dy): north, east, south, west.
 COLLECT_ACTION_TO_VEC = np.array(
     [(0, -1), (1, 0), (0, 1), (-1, 0)], dtype=np.int32
+)
+
+# CtF action -> position delta: stay, left, down, right, up.
+CTF_ACTION_TO_VEC = np.array(
+    [(0, 0), (0, -1), (-1, 0), (0, 1), (1, 0)], dtype=np.int32
 )

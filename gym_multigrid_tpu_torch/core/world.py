@@ -2,7 +2,8 @@
 
 Counterpart of ``gym_multigrid_tpu/core/world.py``.  The object
 vocabularies are the observation spec, so their names and index values
-must match the reference exactly.  Only the Collect world is needed so far.
+must match the reference exactly.  Only the Collect and CtF worlds are
+needed so far.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from gym_multigrid_tpu_torch.core.constants import COLORS
+from gym_multigrid_tpu_torch.core.constants import COLORS, CTF_COLORS
 
 
 @dataclass(frozen=True)
@@ -49,3 +50,10 @@ def _schema(encode_dim: int, colors, *object_names: str) -> World:
 
 #: Collect: empty/wall/ball/agent = 0..3
 CollectWorld = _schema(3, COLORS, "empty", "wall", "ball", "agent")
+
+#: CtF: territories 0/1, agents 2/3, flags 4/5, obstacle 6
+CtfWorld = _schema(
+    3, CTF_COLORS,
+    "blue_territory", "red_territory", "blue_agent", "red_agent",
+    "blue_flag", "red_flag", "obstacle",
+)

@@ -1,1 +1,1 @@
-"""Env families of the port (Collect so far)."""
+"""Env families of the port: Collect and Capture-the-Flag so far."""

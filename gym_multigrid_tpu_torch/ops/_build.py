@@ -35,19 +35,22 @@ def _build_dir() -> Path:
 
 
 BUILD_DIR = _build_dir()
-# No --use_fast_math: the kernels must round the respawn pick's float32
-# product as the plain versions do.
+# No --use_fast_math: the kernels must round their float32 products and
+# sums (the respawn and move-order picks, the CtF reward) as the plain
+# versions do.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: source file -> (C entry point, its argument types).  Pointers and the
-#: stream are c_void_p, so ctypes does not cut them to 32 bits.
+#: stream are c_void_p, so ctypes does not cut them to 32 bits; a Python
+#: float passed as c_float is rounded to float32 once.
 ENTRY_POINTS = {
     "collect_step.cu": ("collect_step", [_P] * 12 + [_I] * 9 + [_P]),
     "collect_reset.cu": ("collect_reset", [_P] * 9 + [_I] * 10 + [_P]),
+    "ctf_step.cu": ("ctf_step", [_P] * 21 + [_I] * 17 + [_F] * 7 + [_P]),
 }
 
 
@@ -101,6 +104,22 @@ def build() -> dict[str, str]:
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return logs
+
+
+def check_arg(name, x, dtype, shape, device):
+    """Raise unless tensor ``x`` is what a kernel argument must be: a
+    contiguous ``dtype`` tensor of ``shape`` on ``device``."""
+    if (
+        x.device != device
+        or x.dtype != dtype
+        or tuple(x.shape) != tuple(shape)
+        or not x.is_contiguous()
+    ):
+        raise ValueError(
+            f"{name}: expected a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)} on {device}, got {x.dtype} {tuple(x.shape)} on "
+            f"{x.device} (contiguous={x.is_contiguous()})"
+        )
 
 
 @functools.cache

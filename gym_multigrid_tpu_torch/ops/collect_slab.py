@@ -266,20 +266,6 @@ def step_spec(t: _Tables, go, gc, gs, pos, acts, rnd, rects):
     return go, gc, gs, torch.cat(pos_cols, dim=1), torch.cat(picked, dim=1)
 
 
-def _check(name, x, dtype, shape, device):
-    if (
-        x.device != device
-        or x.dtype != dtype
-        or tuple(x.shape) != tuple(shape)
-        or not x.is_contiguous()
-    ):
-        raise ValueError(
-            f"{name}: expected a contiguous {dtype} tensor of shape "
-            f"{tuple(shape)} on {device}, got {x.dtype} {tuple(x.shape)} on "
-            f"{x.device} (contiguous={x.is_contiguous()})"
-        )
-
-
 def _check_envelope(n_cells, n_agents):
     if n_agents not in AGENT_COUNTS:
         raise ValueError(
@@ -316,7 +302,7 @@ def collect_step_slab(t: _Tables, go, gc, gs, pos, acts, rnd, rects):
         ("rnd", rnd, torch.float32, (B, 3)),
         ("rects", rects, torch.bool, (len(t.respawn_rects), C)),
     ):
-        _check(name, x, dtype, shape, dev)
+        _build.check_arg(name, x, dtype, shape, dev)
     kernels = _build.load()
     go_o, gc_o, gs_o = (torch.empty_like(go) for _ in range(3))
     pos_o = torch.empty_like(pos)
@@ -436,7 +422,7 @@ def collect_reset_slab(rt: _ResetTables, rnd, ra: ResetArrays, done=None, out=No
             torch.empty((B, C), dtype=torch.int32, device=dev) for _ in range(3)
         ) + (torch.empty((B, 2 * A), dtype=torch.int32, device=dev),)
     else:
-        _check("done", done, torch.bool, (B,), dev)
+        _build.check_arg("done", done, torch.bool, (B,), dev)
     coords = rt.agent_fixed or rt.agent_choice or ()
     for name, x, dtype, shape in (
         ("rnd", rnd, torch.float32, (B, nb + A)),
@@ -448,7 +434,7 @@ def collect_reset_slab(rt: _ResetTables, rnd, ra: ResetArrays, done=None, out=No
         ("gs", out[2], torch.int32, (B, C)),
         ("pos", out[3], torch.int32, (B, 2 * A)),
     ):
-        _check(name, x, dtype, shape, dev)
+        _build.check_arg(name, x, dtype, shape, dev)
     if rt.agent_fixed is not None:
         mode = _AGENTS_FIXED
     elif rt.agent_choice is not None:

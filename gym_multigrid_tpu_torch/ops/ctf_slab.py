@@ -1,0 +1,659 @@
+"""CtF slab math: one transition and one spawn draw for a batch of envs
+(PyTorch port).
+
+Counterpart of ``gym_multigrid_tpu/ops/pallas_ctf.py``: its Pallas kernel
+``ctf_step_slab`` is the hand-written CUDA kernel
+``gym_multigrid_tpu_torch/csrc/ctf_step.cu``, its plain body
+``_ctf_step_math`` is :func:`step_spec` here, and ``_ctf_reset_math`` is
+:func:`reset_spec`.
+
+* :func:`ctf_step_slab` takes the plain version for tensors on the CPU and
+  launches the kernel for CUDA tensors.  On the card the kernel is the
+  only implementation: there is no fallback.
+* The reset has no kernel, here as in the JAX package (which has one
+  ``pallas_call``, the step): :func:`reset_spec` runs as PyTorch tensor
+  ops on whatever device its inputs are on.
+* :func:`step_batch` / :func:`reset_batch` are the batch glue of
+  ``make_ctf_step_batch`` and of the auto-reset in ``_ctf_ms_math``:
+  state, termination, truncation, obs and info.  Their uniforms come from
+  a ``torch.Generator``, or from an ``rnd`` tensor used as is (which is
+  how the tests hold them to JAX bit for bit).
+
+Every float constant of the step is formed in double on the host and
+rounded to float32 once, where the JAX package's weakly typed Python
+floats meet a float32 array.
+"""
+
+from __future__ import annotations
+
+import functools
+import itertools
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from gym_multigrid_tpu_torch.core.constants import CTF_ACTION_TO_VEC
+from gym_multigrid_tpu_torch.envs.ctf import (
+    A_DOWN,
+    A_LEFT,
+    A_RIGHT,
+    A_STAY,
+    A_UP,
+    NUM_ACTIONS,
+    POLICY_KINDS,
+    SPAWN_DIR,
+    CtfConfig,
+    CtfState,
+    build_tables,
+    encode,
+    info,
+)
+from gym_multigrid_tpu_torch.ops import _build
+from gym_multigrid_tpu_torch.ops.sampling import PickState
+from gym_multigrid_tpu_torch.policy.ctf.heuristic import locate_border, patrol_targets
+
+#: Agent counts the step kernel takes (the JAX kernel's envelope).
+MAX_AGENTS = 8
+#: Largest board the step kernel takes; border and pool lists are bounded
+#: by it too (a border cell per own cell, four pool entries per border
+#: cell).  20x20 (tests/assets/board_large.txt) is 400 cells.
+MAX_CELLS = 1024
+
+# The render direction of each action: stay/left/down/right/up.
+_A2DIR = (3, 3, 2, 1, 0)
+
+
+class CtfKTables(NamedTuple):
+    """Static per-config tables of the step (the JAX ``CtfKTables``)."""
+
+    mvn: bool
+    s0: int
+    s1: int
+    n_blue: int
+    n_red: int
+    bound0: int  # pos[0] upper bound: the map's shape[1] (reference quirk)
+    bound1: int
+    blue_flag: tuple[int, int]
+    red_flag: tuple[int, int]
+    battle_range: float
+    randomness: float
+    flag_reward: float
+    battle_reward: float
+    obstacle_penalty: float
+    step_penalty: float
+    max_steps: int
+    # per red agent: (kind, probability of the optimal action)
+    policies: tuple[tuple[str, float], ...]
+
+
+def make_ctf_ktables(cfg: CtfConfig) -> CtfKTables:
+    t = build_tables(cfg)
+    S0, S1 = t.fm.shape
+    return CtfKTables(
+        mvn=cfg.variant == "mvn",
+        s0=S0,
+        s1=S1,
+        n_blue=cfg.num_blue_agents,
+        n_red=cfg.num_red_agents,
+        bound0=S1,
+        bound1=S0,
+        blue_flag=(int(t.blue_flag[0]), int(t.blue_flag[1])),
+        red_flag=(int(t.red_flag[0]), int(t.red_flag[1])),
+        battle_range=float(cfg.battle_range),
+        randomness=float(cfg.randomness),
+        flag_reward=float(cfg.flag_reward),
+        battle_reward=float(cfg.battle_reward),
+        obstacle_penalty=float(cfg.obstacle_penalty),
+        step_penalty=float(cfg.step_penalty),
+        max_steps=int(cfg.max_steps),
+        policies=tuple((s.kind, float(s.randomness)) for s in cfg.enemy_policies),
+    )
+
+
+def ctf_static_inputs(cfg: CtfConfig, device="cpu"):
+    """(cells (4, N), border (2, nb), pool (2, np)) int32 on ``device``.
+
+    cells rows: can_enter, blue_mask, red_mask, obstacle_mask, flat index
+    ``row * S1 + col``.  border and pool are the red patrol tables as
+    (row; col) rows, in the order the step reads them; a dummy (2, 1) of
+    zeros when no red agent patrols."""
+    t = build_tables(cfg)
+    cells = np.stack([
+        t.can_enter.reshape(-1), t.blue_mask.reshape(-1),
+        t.red_mask.reshape(-1), t.obstacle_mask.reshape(-1),
+    ]).astype(np.int32)
+    if any(s.kind in ("patrol", "patrol_fight") for s in cfg.enemy_policies):
+        border_list, _ = locate_border(t.fm, "red")
+        border = np.asarray(border_list, dtype=np.int32).reshape(-1, 2)
+        pool = np.asarray(patrol_targets(border_list), dtype=np.int32).reshape(-1, 2)
+    else:
+        border = np.zeros((1, 2), dtype=np.int32)
+        pool = np.zeros((1, 2), dtype=np.int32)
+    return tuple(
+        torch.as_tensor(np.ascontiguousarray(x), device=device)
+        for x in (cells, border.T, pool.T)
+    )
+
+
+def n_perm_draws(t: CtfKTables) -> int:
+    """Uniforms for the MvN move order: one index into the A! permutations
+    for up to 4 agents, A - 1 Fisher-Yates draws beyond."""
+    A = t.n_blue + t.n_red
+    return 1 if A <= 4 else A - 1
+
+
+def rnd_width(t: CtfKTables) -> int:
+    """Uniforms per env per step: move order, 3 per red policy, battles."""
+    return n_perm_draws(t) + 3 * t.n_red + t.n_blue * t.n_red
+
+
+# ---------------------------------------------------------------------------
+# Step
+# ---------------------------------------------------------------------------
+
+
+def _optimal_action(cr, cc, tr, tc):
+    """First step of the reference A*'s path on an open board, closed
+    form: down while the target row is smaller, then along the row, then
+    up."""
+    dr, dc = tr - cr, tc - cc
+    along = torch.where(dc < 0, A_LEFT, A_RIGHT)
+    return torch.where(
+        (dr == 0) & (dc == 0),
+        A_STAY,
+        torch.where(dr < 0, A_DOWN, torch.where(dc != 0, along, A_UP)),
+    ).to(torch.int32)
+
+
+def step_spec(t: CtfKTables, pos, dirs, term, coll, blue_actions, rnd, cells, border, pool):
+    """One CtF transition (both variants) for a batch, in plain PyTorch.
+
+    pos:   (B, 2A) int32 [a0 row, a0 col, a1 row, ...], blue agents first
+    dirs, term, coll: (B, A) int32 (term and coll 0/1 flags)
+    blue_actions: (B, n_blue) int32; ids outside 0..4 are clamped
+    rnd:   (B, rnd_width(t)) float32 uniforms
+    cells: (4, N) int32; border (2, nb), pool (2, np) int32
+
+    Returns (pos, dirs, term, coll, reward (B, 1) float32, episode_term
+    (B, 1), red flag captured (B, 1), blue flag captured (B, 1), blue
+    battle lost (B, n_blue), red battle lost (B, n_red)), all int32 but
+    the reward.
+    """
+    B = pos.shape[0]
+    nb, A = t.n_blue, t.n_blue + t.n_red
+    dev = pos.device
+
+    def f32(v):  # a double rounded to float32 once
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    def col(x, i):
+        return x[:, i : i + 1]
+
+    def flag(row, cx, cy):  # static cell flag at the clipped position
+        q = cx.clamp(0, t.s0 - 1) * t.s1 + cy.clamp(0, t.s1 - 1)
+        return cells[row][q.long()] > 0
+
+    def sq(a, b):  # float32 squared distance of integer points, exact
+        dx, dy = (a[0] - b[0]).to(torch.float32), (a[1] - b[1]).to(torch.float32)
+        return dx * dx + dy * dy
+
+    px, py = pos[:, 0::2].clone(), pos[:, 1::2].clone()
+    tm, cl, dr_ = term.clone(), coll.clone(), dirs.clone()
+    agent = torch.arange(A, dtype=torch.int32, device=dev)[None, :]
+    CAN_ENTER, BLUE_MASK, RED_MASK, OBSTACLE_MASK = range(4)
+
+    # ---- scripted red actions from the pre-move state ----
+    perm_draws = n_perm_draws(t)
+    acts = [blue_actions.clamp(0, NUM_ACTIONS - 1)]
+    for r, (kind, p_opt) in enumerate(t.policies):
+        base = perm_draws + 3 * r
+        u_t, u_g, u_a = col(rnd, base), col(rnd, base + 1), col(rnd, base + 2)
+        rand_act = ((u_a * NUM_ACTIONS).to(torch.int32)).clamp(max=NUM_ACTIONS - 1)
+        if kind == "rw":
+            acts.append(rand_act)
+            continue
+        cr, cc = col(px, nb + r), col(py, nb + r)
+        if kind == "capture":
+            trow = torch.full((B, 1), t.blue_flag[0], dtype=torch.int32, device=dev)
+            tcol = torch.full((B, 1), t.blue_flag[1], dtype=torch.int32, device=dev)
+        else:
+            # closest blue agent; ties go to the first
+            d = sq((px[:, :nb], py[:, :nb]), (cr, cc))
+            k = d.argmin(dim=1, keepdim=True)
+            trow, tcol = px[:, :nb].gather(1, k), py[:, :nb].gather(1, k)
+        if kind in ("patrol", "patrol_fight"):
+            n_pool = pool.shape[1]
+            onb = ((cr == border[0]) & (cc == border[1])).any(dim=1, keepdim=True)
+            # uniform over the pool, duplicates weighing more
+            if n_pool:
+                j = ((u_t * n_pool).to(torch.int32)).clamp(max=n_pool - 1).long()
+                prow, pcol = pool[0][j], pool[1][j]
+            else:
+                prow = pcol = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+            # closest border cell; ties go to the first
+            k = sq((border[0][None, :], border[1][None, :]), (cr, cc)).argmin(dim=1, keepdim=True)
+            brow, bcol = border[0][k], border[1][k]
+            patrol_row = torch.where(onb, prow, brow)
+            patrol_col = torch.where(onb, pcol, bcol)
+            if kind == "patrol":
+                trow, tcol = patrol_row, patrol_col
+            else:
+                # chase once any blue stands in red territory (flag included)
+                opp_in = flag(RED_MASK, px[:, :nb], py[:, :nb]).any(dim=1, keepdim=True)
+                trow = torch.where(opp_in, trow, patrol_row)
+                tcol = torch.where(opp_in, tcol, patrol_col)
+        optimal = _optimal_action(cr, cc, trow, tcol)
+        acts.append(torch.where(u_g < f32(p_opt), optimal, rand_act))
+    acts = torch.cat(acts, dim=1)
+
+    # ---- sequential moves: MvN shuffles the order, 1v1 is blue then red ----
+    if t.mvn and A <= 4:
+        perms = torch.tensor(list(itertools.permutations(range(A))), dtype=torch.int32, device=dev)
+        j = ((col(rnd, 0) * len(perms)).to(torch.int32)).clamp(max=len(perms) - 1)
+        order = perms[j[:, 0].long()]  # (B, A): the mover of each slot
+    elif t.mvn:
+        # Fisher-Yates: slot s moves the floor(u_s * (A - s))-th agent not
+        # yet moved.
+        taken = torch.zeros((B, A), dtype=torch.bool, device=dev)
+        movers = []
+        for slot in range(A):
+            remaining = A - slot
+            if slot < A - 1:
+                r_pick = ((col(rnd, slot) * remaining).to(torch.int32)).clamp(max=remaining - 1)
+            else:
+                r_pick = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+            rank = torch.cumsum(~taken, dim=1, dtype=torch.int32) - 1
+            hit = ~taken & (rank == r_pick)
+            i_vec = torch.where(hit, agent, 0).sum(dim=1, keepdim=True, dtype=torch.int32)
+            taken = taken | (agent == i_vec)
+            movers.append(i_vec)
+        order = torch.cat(movers, dim=1)
+    else:
+        order = agent.expand(B, A)
+
+    dx_of, dy_of = torch.as_tensor(CTF_ACTION_TO_VEC, device=dev).T
+    dir_of = torch.tensor(_A2DIR, dtype=torch.int32, device=dev)
+    for slot in range(A):
+        i_vec = order[:, slot : slot + 1].long()
+        mine = agent == i_vec
+        act = acts.gather(1, i_vec).long()
+        cr, cc = px.gather(1, i_vec), py.gather(1, i_vec)
+        alive = tm.gather(1, i_vec) == 0
+        nr, nc = cr + dx_of[act], cc + dy_of[act]
+        inb = (nr >= 0) & (nc >= 0) & (nr < t.bound0) & (nc < t.bound1)
+        static_ok = flag(CAN_ENTER, nr, nc)
+        # every agent blocks: dead ones, and the mover itself on ``stay``
+        occupied = ((px == nr) & (py == nc)).any(dim=1, keepdim=True)
+        if t.mvn and t.obstacle_penalty != 0:
+            hit_agent = (alive & inb & occupied).to(torch.int32)
+            cl = torch.where(mine, torch.maximum(cl, hit_agent), cl)
+        moved = mine & (alive & inb & static_ok & ~occupied)
+        px = torch.where(moved, nr, px)
+        py = torch.where(moved, nc, py)
+        dr_ = torch.where(moved, dir_of[act], dr_)
+
+    # ---- collided penalty and termination, MvN only ----
+    reward = torch.zeros((B, 1), dtype=torch.float32, device=dev)
+    episode_term = torch.zeros((B, 1), dtype=torch.bool, device=dev)
+    if t.mvn and t.obstacle_penalty != 0:
+        for b in range(nb):
+            reward = reward - f32(t.obstacle_penalty) * col(cl, b).to(torch.float32)
+        tm = torch.maximum(tm, cl)
+
+    # ---- flag captures, terminated agents included ----
+    flag_reward = f32(t.flag_reward)
+    on_red = (px[:, :nb] == t.red_flag[0]) & (py[:, :nb] == t.red_flag[1])
+    on_blue = (px[:, nb:] == t.blue_flag[0]) & (py[:, nb:] == t.blue_flag[1])
+    for b in range(nb):
+        reward = reward + flag_reward * col(on_red, b).to(torch.float32)
+    for r in range(t.n_red):
+        reward = reward - flag_reward * col(on_blue, r).to(torch.float32)
+    rfc = on_red.any(dim=1, keepdim=True)
+    bfc = on_blue.any(dim=1, keepdim=True)
+    episode_term = episode_term | rfc | bfc
+
+    # ---- battles, row-major and sequential ----
+    ub_base = perm_draws + 3 * t.n_red
+    bin_own = flag(BLUE_MASK, px[:, :nb], py[:, :nb])
+    rin_own = flag(RED_MASK, px[:, nb:], py[:, nb:])
+    battle_reward, range2 = f32(t.battle_reward), f32(t.battle_range * t.battle_range)
+    p_half, p_own, p_away = f32(0.5), f32(t.randomness), f32(1.0 - t.randomness)
+    bbl = torch.zeros((B, nb), dtype=torch.bool, device=dev)
+    brl = torch.zeros((B, t.n_red), dtype=torch.bool, device=dev)
+    k = 0
+    for b in range(nb):
+        for r in range(t.n_red):
+            if not t.mvn and (b, r) != (0, 0):
+                continue
+            i = nb + r
+            d2 = sq((col(px, b), col(py, b)), (col(px, i), col(py, i)))
+            eligible = (d2 <= range2) & (col(tm, b) == 0) & (col(tm, i) == 0)
+            bo, ro = col(bin_own, b), col(rin_own, r)
+            p_blue = torch.where(bo == ro, p_half, torch.where(bo, p_own, p_away))
+            blue_win = col(rnd, ub_base + k) < p_blue
+            k += 1
+            win, lose = eligible & blue_win, eligible & ~blue_win
+            reward = reward + battle_reward * win.to(torch.float32)
+            reward = reward - battle_reward * lose.to(torch.float32)
+            tm = torch.where(agent == i, torch.maximum(tm, win.to(torch.int32)), tm)
+            if t.mvn:
+                tm = torch.where(agent == b, torch.maximum(tm, lose.to(torch.int32)), tm)
+            else:
+                # 1v1: blue losing ends the episode
+                episode_term = episode_term | lose
+            brl[:, r : r + 1] |= win
+            bbl[:, b : b + 1] |= lose
+
+    if t.mvn:
+        episode_term = episode_term | (tm[:, :nb] == 1).all(dim=1, keepdim=True)
+        reward = reward - f32(t.step_penalty * t.n_blue)
+    else:
+        # 1v1: standing on an obstacle cell costs and ends the episode
+        if t.obstacle_penalty != 0:
+            on_obs = flag(OBSTACLE_MASK, col(px, 0), col(py, 0))
+            reward = reward - f32(t.obstacle_penalty) * on_obs.to(torch.float32)
+            episode_term = episode_term | on_obs
+        reward = reward - f32(t.step_penalty)
+
+    def i32(x):
+        return x.to(torch.int32)
+
+    return (
+        torch.stack([px, py], dim=2).reshape(B, 2 * A),
+        dr_, tm, cl, reward,
+        i32(episode_term), i32(rfc), i32(bfc), i32(bbl), i32(brl),
+    )
+
+
+def check_envelope(t: CtfKTables, n_border: int = 0, n_pool: int = 0):
+    """Raise unless the step kernel takes this config: 2 to 8 agents,
+    known policy kinds, a board of at most ``MAX_CELLS`` cells, and patrol
+    lists that fit its shared memory."""
+    A = t.n_blue + t.n_red
+    if not 2 <= A <= MAX_AGENTS:
+        raise ValueError(f"the CtF step kernel takes 2 to {MAX_AGENTS} agents, got {A}")
+    kinds = [k for k, _ in t.policies]
+    if any(k not in POLICY_KINDS for k in kinds):
+        raise ValueError(f"the CtF step kernel takes policies {POLICY_KINDS}, got {kinds}")
+    if t.s0 * t.s1 > MAX_CELLS:
+        raise ValueError(
+            f"the CtF step kernel takes boards of at most {MAX_CELLS} cells, "
+            f"got {t.s0}x{t.s1}"
+        )
+    if n_border > MAX_CELLS or n_pool > 4 * MAX_CELLS:
+        raise ValueError(
+            f"the CtF step kernel takes at most {MAX_CELLS} border cells and "
+            f"{4 * MAX_CELLS} pool entries, got {n_border} and {n_pool}"
+        )
+
+
+@functools.cache
+def _policy_arrays(t: CtfKTables, device: torch.device):
+    """Each red agent's policy kind (its index in POLICY_KINDS) and its
+    probability of the optimal action, as the kernel reads them."""
+    kinds = torch.tensor([POLICY_KINDS.index(k) for k, _ in t.policies], dtype=torch.int32)
+    p_opt = torch.tensor([p for _, p in t.policies], dtype=torch.float32)
+    return kinds.to(device), p_opt.to(device)
+
+
+def ctf_step_slab(t: CtfKTables, pos, dirs, term, coll, blue_actions, rnd, cells, border, pool):
+    """One transition of the batch: :func:`step_spec` for CPU tensors, the
+    CUDA kernel ``csrc/ctf_step.cu`` for CUDA tensors (new output tensors;
+    the inputs are not changed).  Same arguments and results as
+    :func:`step_spec`."""
+    if pos.device.type == "cpu":
+        return step_spec(t, pos, dirs, term, coll, blue_actions, rnd, cells, border, pool)
+    if pos.device.type != "cuda":
+        raise ValueError(f"no CtF step for tensors on {pos.device}")
+    B, A, nb, nr = pos.shape[0], t.n_blue + t.n_red, t.n_blue, t.n_red
+    n_border, n_pool = border.shape[-1], pool.shape[-1]
+    check_envelope(t, n_border, n_pool)
+    if B < 1:
+        raise ValueError("an empty batch has nothing to step")
+    dev = pos.device
+    R = rnd_width(t)
+    for name, x, dtype, shape in (
+        ("pos", pos, torch.int32, (B, 2 * A)),
+        ("dirs", dirs, torch.int32, (B, A)),
+        ("term", term, torch.int32, (B, A)),
+        ("coll", coll, torch.int32, (B, A)),
+        ("blue_actions", blue_actions, torch.int32, (B, nb)),
+        ("rnd", rnd, torch.float32, (B, R)),
+        ("cells", cells, torch.int32, (4, t.s0 * t.s1)),
+        ("border", border, torch.int32, (2, n_border)),
+        ("pool", pool, torch.int32, (2, n_pool)),
+    ):
+        _build.check_arg(name, x, dtype, shape, dev)
+    kinds, p_opt = _policy_arrays(t, dev)
+    outs = (
+        torch.empty_like(pos), torch.empty_like(dirs), torch.empty_like(term),
+        torch.empty_like(coll),
+        torch.empty((B, 1), dtype=torch.float32, device=dev),
+        *(torch.empty((B, 1), dtype=torch.int32, device=dev) for _ in range(3)),
+        torch.empty((B, nb), dtype=torch.int32, device=dev),
+        torch.empty((B, nr), dtype=torch.int32, device=dev),
+    )
+    # Float constants: doubles rounded to float32 once, as the plain
+    # version's f32() does; ctypes passes each as a C float.
+    kernels = _build.load()
+    with torch.cuda.device(dev):
+        err = kernels.ctf_step(
+            pos.data_ptr(), dirs.data_ptr(), term.data_ptr(), coll.data_ptr(),
+            blue_actions.data_ptr(), rnd.data_ptr(), cells.data_ptr(),
+            border.data_ptr(), pool.data_ptr(), kinds.data_ptr(), p_opt.data_ptr(),
+            *(o.data_ptr() for o in outs),
+            B, nb, nr, int(t.mvn), t.s0, t.s1, t.bound0, t.bound1,
+            *t.blue_flag, *t.red_flag, n_border, n_pool, R,
+            int(t.mvn and t.obstacle_penalty != 0),
+            int(not t.mvn and t.obstacle_penalty != 0),
+            t.battle_range * t.battle_range, t.randomness, 1.0 - t.randomness,
+            t.flag_reward, t.battle_reward, t.obstacle_penalty,
+            t.step_penalty * t.n_blue if t.mvn else t.step_penalty,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"ctf_step kernel launch failed: CUDA error {err}")
+    ctf_step_slab.launches += 1
+    return outs
+
+
+#: Launches of the step kernel since the count was last set to 0.
+ctf_step_slab.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Reset (no kernel: plain PyTorch on the batch's device)
+# ---------------------------------------------------------------------------
+
+
+def ctf_reset_inputs(cfg: CtfConfig, device="cpu"):
+    """(bterr, rterr): the (2, n) int32 spawn territory lists, (row; col)
+    rows in the order of ``build_tables``."""
+    t = build_tables(cfg)
+    bterr = np.asarray(t.blue_territory, dtype=np.int32).T.copy()
+    rterr = np.asarray(t.red_territory, dtype=np.int32).T.copy()
+    # reset_spec packs both coordinates of a cell into one row | col << 8
+    # word; a coordinate above 255 would corrupt the other field.
+    for name, terr in (("blue", bterr), ("red", rterr)):
+        if terr.size and int(terr.max()) > 255:
+            raise ValueError(
+                f"{name} territory coordinates reach {int(terr.max())} — "
+                "the packed spawn reduce supports boards up to 256x256"
+            )
+    return torch.as_tensor(bterr, device=device), torch.as_tensor(rterr, device=device)
+
+
+def reset_spec(t: CtfKTables, rnd, bterr, rterr):
+    """Spawn positions for a batch: MvN draws cells without replacement
+    per team (``PickState``), 1v1 draws each agent independently.
+
+    rnd: (B, n_blue + n_red) float32; bterr/rterr: (2, n) int32.
+    Returns pos (B, 2A) int32."""
+    B = rnd.shape[0]
+
+    def draw_team(terr, n_agents, base):
+        n = terr.shape[1]
+        packed = terr[0] | (terr[1] << 8)
+        ps = PickState.full(B, n, rnd.device)
+        cols = []
+        for a in range(n_agents):
+            u = rnd[:, base + a : base + a + 1]
+            if t.mvn:
+                _, idx, ps = ps.pick(u)
+            else:
+                idx = ((u * n).to(torch.int32)).clamp(max=n - 1)
+            p = packed[idx.long()]
+            cols += [p & 255, p >> 8]
+        return cols
+
+    cols = draw_team(bterr, t.n_blue, 0) + draw_team(rterr, t.n_red, t.n_blue)
+    return torch.cat(cols, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Batch glue
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True, eq=False)
+class CtfSlab:
+    """Everything the batch glue needs for one config on one device."""
+
+    cfg: CtfConfig
+    device: torch.device
+    t: CtfKTables
+    cells: torch.Tensor  # (4, N) int32
+    border: torch.Tensor  # (2, nb) int32
+    pool: torch.Tensor  # (2, np) int32
+    bterr: torch.Tensor  # (2, n_bt) int32
+    rterr: torch.Tensor  # (2, n_rt) int32
+
+    @property
+    def step_draws(self) -> int:
+        """Uniforms one env's step takes."""
+        return rnd_width(self.t)
+
+    @property
+    def reset_draws(self) -> int:
+        """Uniforms one env's reset takes: one per agent."""
+        return self.cfg.num_agents
+
+
+def make_ctf_slab(cfg: CtfConfig, device) -> CtfSlab:
+    """The slab of ``cfg`` on ``device``.  A CUDA slab must fit the step
+    kernel's envelope (:func:`check_envelope`); the plain version on the
+    CPU takes any config."""
+    device = torch.device(device)
+    t = make_ctf_ktables(cfg)
+    if any(k in ("patrol", "patrol_fight") for k, _ in t.policies) and not (
+        locate_border(build_tables(cfg).fm, "red")[0]
+    ):
+        raise ValueError("a patrol policy needs a red border, and this map has none")
+    cells, border, pool = ctf_static_inputs(cfg)
+    if device.type == "cuda":
+        check_envelope(t, border.shape[1], pool.shape[1])
+    bterr, rterr = ctf_reset_inputs(cfg, device)
+    return CtfSlab(cfg, device, t, cells.to(device), border.to(device), pool.to(device),
+                   bterr, rterr)
+
+
+def step_batch(
+    slab: CtfSlab,
+    states: CtfState,
+    blue_actions: torch.Tensor,
+    *,
+    generator: torch.Generator | None = None,
+    rnd: torch.Tensor | None = None,
+    encode_obs: bool = True,
+    with_info: bool = True,
+):
+    """Batch-level CtF step with the scripted red policies.
+
+    Returns (states', obs, reward (B,) float32, terminated (B,),
+    truncated (B,), info).  ``rnd`` (B, ``slab.step_draws``) is used as is
+    when given, else drawn from ``generator``.  ``encode_obs=False`` and
+    ``with_info=False`` return None for the obs and the info, for callers
+    that would throw them away."""
+    t = slab.t
+    B, A = states.pos.shape[0], slab.cfg.num_agents
+    if rnd is None:
+        rnd = torch.rand((B, slab.step_draws), generator=generator, device=slab.device)
+    pos, dirs, term, coll, reward, ep_term, rfc, bfc, bbl, brl = ctf_step_slab(
+        t,
+        states.pos.reshape(B, 2 * A),
+        states.dir,
+        states.terminated.to(torch.int32),
+        states.collided.to(torch.int32),
+        blue_actions.reshape(B, -1).to(torch.int32).contiguous(),
+        rnd,
+        slab.cells,
+        slab.border,
+        slab.pool,
+    )
+    step_count = states.step_count + 1
+    new_states = CtfState(
+        pos=pos.reshape(B, A, 2),
+        dir=dirs,
+        terminated=term.to(torch.bool),
+        collided=coll.to(torch.bool),
+        step_count=step_count,
+    )
+    obs = encode(slab.cfg, new_states) if encode_obs else None
+    step_info = None
+    if with_info:
+        step_info = dict(
+            info(slab.cfg, new_states),
+            red_flag_captured=rfc[:, 0].to(torch.bool),
+            blue_flag_captured=bfc[:, 0].to(torch.bool),
+            agent_terminated=new_states.terminated,
+            battle_blue_lost=bbl.to(torch.bool),
+            battle_red_lost=brl.to(torch.bool),
+        )
+    return (
+        new_states, obs, reward[:, 0], ep_term[:, 0].to(torch.bool),
+        step_count >= t.max_steps, step_info,
+    )
+
+
+def reset_batch(
+    slab: CtfSlab,
+    num_envs: int,
+    *,
+    generator: torch.Generator | None = None,
+    rnd: torch.Tensor | None = None,
+    done: torch.Tensor | None = None,
+    states: CtfState | None = None,
+) -> CtfState:
+    """Batch reset: spawn positions from :func:`reset_spec`, direction 3,
+    no agent terminated or collided, step count 0.
+
+    ``rnd`` (num_envs, ``slab.reset_draws``) is used as is when given, else
+    drawn from ``generator``.  With ``done`` (num_envs,) bool, the result is
+    ``states`` with the rows where it is True reset, in new tensors:
+    ``states`` itself is not changed, so obs and info that hold views of
+    it keep the pre-reset values."""
+    A = slab.cfg.num_agents
+    if rnd is None:
+        rnd = torch.rand((num_envs, slab.reset_draws), generator=generator, device=slab.device)
+    pos = reset_spec(slab.t, rnd, slab.bterr, slab.rterr).reshape(num_envs, A, 2)
+    if done is None:
+        def zeros(dtype, *shape):
+            return torch.zeros(shape, dtype=dtype, device=slab.device)
+
+        return CtfState(
+            pos=pos,
+            dir=torch.full((num_envs, A), SPAWN_DIR, dtype=torch.int32, device=slab.device),
+            terminated=zeros(torch.bool, num_envs, A),
+            collided=zeros(torch.bool, num_envs, A),
+            step_count=zeros(torch.int32, num_envs),
+        )
+    rows = done[:, None]
+    return CtfState(
+        pos=torch.where(rows[:, :, None], pos, states.pos),
+        dir=states.dir.masked_fill(rows, SPAWN_DIR),
+        terminated=states.terminated.masked_fill(rows, False),
+        collided=states.collided.masked_fill(rows, False),
+        step_count=states.step_count.masked_fill(done, 0),
+    )

@@ -1,39 +1,32 @@
-"""Batched lockstep Collect envs with auto-reset (PyTorch port).
+"""Batched lockstep envs with auto-reset (PyTorch port).
 
-Counterpart of ``BatchedEnv`` and ``make_collect_batch`` in
-``gym_multigrid_tpu/parallel/vector.py``.  The batch runs in lockstep on
-one device; every step and reset of the whole batch is one kernel launch
-on a CUDA device (``ops/collect_slab.py``).  Finished envs are reset in
-place by the reset kernel under a ``done`` mask, so neither ``step`` nor
-``rollout`` waits on the device inside its loop.  Randomness comes from
-the env's ``torch.Generator``, seeded by ``reset(seed)``.
+Counterpart of ``BatchedEnv``, ``make_collect_batch`` and
+``make_ctf_batch`` in ``gym_multigrid_tpu/parallel/vector.py``.  The batch
+runs in lockstep on one device; every step of the whole batch is one
+kernel launch on a CUDA device (``ops/collect_slab.py``,
+``ops/ctf_slab.py``).  Finished envs are reset under a ``done`` mask (in
+place by the Collect reset kernel; into new tensors by the CtF spawn draw,
+which is plain PyTorch), so neither ``step`` nor ``rollout`` waits on the device inside
+its loop.  Randomness comes from the env's ``torch.Generator``, seeded by
+``reset(seed)``.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
-from gym_multigrid_tpu_torch.envs.collect import (
-    CollectConfig,
-    CollectState,
-    encode,
-)
-from gym_multigrid_tpu_torch.ops.collect_slab import (
-    CollectSlab,
-    make_collect_slab,
-    reset_batch,
-    step_batch,
-)
-
-#: Collect's action space: north, east, south, west.
-NUM_ACTIONS = 4
+from gym_multigrid_tpu_torch.core.constants import COLLECT_ACTION_TO_VEC
+from gym_multigrid_tpu_torch.envs import collect, ctf
+from gym_multigrid_tpu_torch.ops import collect_slab, ctf_slab
 
 
 @dataclass(frozen=True, eq=False)
 class BatchedEnv:
-    """Batched Collect env with auto-reset.
+    """Batched env with auto-reset, for one env family.
 
     reset(seed) -> (states, obs)
     step(states, actions) -> (states', obs, rewards, terminated, truncated)
@@ -41,15 +34,25 @@ class BatchedEnv:
     ``step`` applies the transition to every env, then resets the envs that
     finished; the obs and rewards it returns are the *pre-reset* ones
     (gymnasium's autoreset convention: the final step is visible, and the
-    next step starts from the reset state).
+    next step starts from the reset state).  Rewards are (B, A) per agent
+    for Collect and (B,) per env for CtF.
     """
 
-    slab: CollectSlab
+    slab: collect_slab.CollectSlab | ctf_slab.CtfSlab
     num_envs: int
     generator: torch.Generator
+    # The family's batch functions: step_batch(slab, states, actions, *,
+    # generator, encode_obs), reset_batch(slab, n, *, generator, done,
+    # states) -> states and encode(cfg, states).
+    step_batch: Callable
+    reset_batch: Callable
+    encode: Callable
+    #: Action space of one env: ids 0..num_actions-1, action_cols of them.
+    num_actions: int
+    action_cols: int
 
     @property
-    def cfg(self) -> CollectConfig:
+    def cfg(self):
         return self.slab.cfg
 
     @property
@@ -59,32 +62,32 @@ class BatchedEnv:
     def reset(self, seed: int):
         """Seed the env's generator and reset every env."""
         self.generator.manual_seed(seed)
-        states = reset_batch(self.slab, self.num_envs, generator=self.generator)
-        return states, encode(self.cfg, states)
+        states = self.reset_batch(self.slab, self.num_envs, generator=self.generator)
+        return states, self.encode(self.cfg, states)
 
-    def step(self, states: CollectState, actions):
+    def step(self, states, actions):
         actions = torch.as_tensor(actions, device=self.device)
-        if tuple(actions.shape) != (self.num_envs, self.cfg.num_agents):
+        if tuple(actions.shape) != (self.num_envs, self.action_cols):
             raise ValueError(
                 f"actions must have shape ({self.num_envs}, "
-                f"{self.cfg.num_agents}), got {tuple(actions.shape)}"
+                f"{self.action_cols}), got {tuple(actions.shape)}"
             )
         return self._step(states, actions, encode_obs=True)
 
     def _step(self, states, actions, encode_obs):
-        new_states, obs, rewards, term, trunc, _ = step_batch(
+        new_states, obs, rewards, term, trunc, _ = self.step_batch(
             self.slab, states, actions, generator=self.generator,
             encode_obs=encode_obs,
         )
-        reset_batch(
+        states = self.reset_batch(
             self.slab, self.num_envs, generator=self.generator,
             done=term | trunc, states=new_states,
         )
-        return new_states, obs, rewards, term, trunc
+        return states, obs, rewards, term, trunc
 
     def rollout(
         self,
-        states: CollectState,
+        states,
         num_steps: int,
         run_return: torch.Tensor | None = None,
     ):
@@ -112,15 +115,17 @@ class BatchedEnv:
         run_ret = run_return
         for _ in range(num_steps):
             actions = torch.randint(
-                0, NUM_ACTIONS, (B, self.cfg.num_agents), generator=self.generator,
+                0, self.num_actions, (B, self.action_cols), generator=self.generator,
                 device=dev, dtype=torch.int32,
             )
             states, _, rewards, term, trunc = self._step(
                 states, actions, encode_obs=False
             )
             done = term | trunc
-            # Per-agent rewards sum into the team return.
-            run_ret = run_ret + rewards.sum(dim=1)
+            # Per-agent rewards sum into the team return; a per-env
+            # reward is the team's already.
+            team = rewards.sum(dim=1) if rewards.ndim > 1 else rewards
+            run_ret = run_ret + team
             ret_sum = ret_sum + rewards.sum()
             ep_count = ep_count + done.sum(dtype=torch.int32)
             ep_ret_sum = ep_ret_sum + torch.where(done, run_ret, 0.0).sum()
@@ -133,8 +138,21 @@ class BatchedEnv:
         }
 
 
+def _device(device, name: str) -> torch.device:
+    """``device``, or the current CUDA device when it is None; with no
+    CUDA device and no explicit ``device`` this raises."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{name} runs on a CUDA device and none is "
+                "available; pass device='cpu' to run the plain PyTorch version"
+            )
+        device = torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
 def make_collect_batch(
-    cfg: CollectConfig,
+    cfg: collect.CollectConfig,
     num_envs: int,
     device: str | torch.device | None = None,
 ) -> BatchedEnv:
@@ -142,17 +160,39 @@ def make_collect_batch(
 
     The default device is the current CUDA device; with no CUDA device and
     no explicit ``device`` this raises.  ``device="cpu"`` runs the plain
-    PyTorch versions of the kernels."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "make_collect_batch runs on a CUDA device and none is "
-                "available; pass device='cpu' to run the plain PyTorch version"
-            )
-        device = torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
+    PyTorch versions of the kernels.  Actions are (num_envs, num_agents)
+    ids 0..3."""
+    device = _device(device, "make_collect_batch")
     return BatchedEnv(
-        slab=make_collect_slab(cfg, device),
+        slab=collect_slab.make_collect_slab(cfg, device),
         num_envs=num_envs,
         generator=torch.Generator(device=device),
+        step_batch=collect_slab.step_batch,
+        reset_batch=collect_slab.reset_batch,
+        encode=collect.encode,
+        num_actions=len(COLLECT_ACTION_TO_VEC),
+        action_cols=cfg.num_agents,
+    )
+
+
+def make_ctf_batch(
+    cfg: ctf.CtfConfig,
+    num_envs: int,
+    device: str | torch.device | None = None,
+) -> BatchedEnv:
+    """A batch of ``num_envs`` CtF envs with the scripted red policies in
+    the step, on ``device`` (default and CPU as for
+    :func:`make_collect_batch`).  Actions are the blue team's,
+    (num_envs, num_blue_agents) ids 0..4; rewards are (num_envs,) team
+    rewards."""
+    device = _device(device, "make_ctf_batch")
+    return BatchedEnv(
+        slab=ctf_slab.make_ctf_slab(cfg, device),
+        num_envs=num_envs,
+        generator=torch.Generator(device=device),
+        step_batch=functools.partial(ctf_slab.step_batch, with_info=False),
+        reset_batch=ctf_slab.reset_batch,
+        encode=ctf.encode,
+        num_actions=ctf.NUM_ACTIONS,
+        action_cols=cfg.num_blue_agents,
     )

@@ -123,10 +123,12 @@ def test_ctypes_argtypes_match_c_entry_points(source):
     params = _c_signature(source, name)
     assert len(params) == len(argtypes)
     for param, argtype in zip(params, argtypes):
-        want = _build._P if "*" in param else _build._I
+        if "*" in param:
+            want = _build._P
+        else:
+            want = _build._F if param.startswith("float ") else _build._I
+            assert param.startswith(("int ", "float ")), param
         assert argtype is want, (param, argtype)
-        if want is _build._I:
-            assert param.startswith("int "), param
 
 
 def test_kernel_constants_equal_python_tables():

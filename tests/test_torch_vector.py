@@ -127,10 +127,14 @@ loaded = [n for n in sys.modules
           if n == "jax" or n.startswith(("jax.", "jaxlib"))
           or n == "gym_multigrid_tpu" or n.startswith("gym_multigrid_tpu.")]
 assert not loaded, loaded
-print(len([n for n in sys.modules if n.startswith("gym_multigrid_tpu_torch")]))
+print(" ".join(n for n in sys.modules if n.startswith("gym_multigrid_tpu_torch")))
 """
     out = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 10  # the package and every module in it
+    walked = set(out.stdout.split())
+    assert len(walked) >= 10  # the package and every module in it
+    for module in ("core.world", "utils.map", "policy.ctf.heuristic", "ops.sampling",
+                   "envs.ctf", "ops.ctf_slab", "parallel.vector"):
+        assert f"gym_multigrid_tpu_torch.{module}" in walked, module
