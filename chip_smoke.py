@@ -11,18 +11,28 @@ without them.  Phases, each of which fails the run on any fault:
    the Collect step kernel over 100 chained steps at B = 8192 (the main
    config, the 1-agent even config and the 15x15 quadrants config, with the
    invalid action ids -1, 4 and 7 mixed in), the Collect reset kernel on
-   every layout and under a random ``done`` mask, and the CtF step kernel
-   over 100 chained steps at B = 8192 on four configs (CTF_MAIN; 2v2
+   every layout and under a random ``done`` mask, the CtF step kernel over
+   100 chained steps at B = 8192 on four configs (CTF_MAIN; 2v2
    patrol/patrol_fight with an obstacle penalty; 1v1 fight; 3v3
-   capture/patrol/rw), finished envs respawned by ``reset_spec`` under the
+   capture/patrol/rw), the Maze step kernel over 100 chained steps at
+   B = 8192 on MAZE_MAIN and on the same map with an obstacle penalty (the
+   ids -1, 5 and 9 mixed in), and the Wildfire step kernel over 100 chained
+   steps at B = 8192 on WF_MAIN, on a 10x10 4-agent config with a step
+   penalty and on a 32x32 config that spreads to every neighbour and never
+   burns out, plus one call on random boards with stacked agents.
+   Finished envs are respawned by each family's ``reset_batch`` under the
    ``done`` mask.
 3. Drive each path, with every launch count set to 0 just before it and
    read just after: Collect (``make_collect_batch`` of the
    respawn-clustered config at B = 8192, ``reset(seed=0)``, ``rollout`` of
-   500 steps) and CtF (``make_ctf_batch(CTF_MAIN, 8192)``,
-   ``reset(seed=0)``, ``rollout`` of 400 steps).  Check each rollout's
-   invariants; then, after untimed calls until the time per call settles,
-   time it, each kernel and its plain version.
+   500 steps), CtF (``make_ctf_batch(CTF_MAIN, 8192)``, ``reset(seed=0)``,
+   ``rollout`` of 400 steps), Maze (``make_maze_batch(MAZE_MAIN, 8192)``,
+   ``rollout`` of 1000 steps) and Wildfire
+   (``make_wildfire_batch(WF_MAIN, 8192)``, ``rollout`` of 400 steps).  Each
+   path launches its own step kernel once a step and no other kernel of
+   the port.  Check each rollout's invariants; then, after untimed calls
+   until the time per call settles, time it, each kernel and its plain
+   version.
 4. Profile 50 steps of each rollout: device time by kernel and idle share.
 
 Prints the timing lines, one JSON line of kernel records, the card's name
@@ -46,7 +56,15 @@ if not torch.cuda.is_available():
 
 from gym_multigrid_tpu_torch.envs.collect import AGENT, BALL, CollectConfig  # noqa: E402
 from gym_multigrid_tpu_torch.envs.ctf import CtfConfig, CtfState, PolicySpec  # noqa: E402
-from gym_multigrid_tpu_torch.ops import _build, ctf_slab  # noqa: E402
+from gym_multigrid_tpu_torch.envs.maze import (  # noqa: E402
+    BACKGROUND,
+    FLAG,
+    M_OBSTACLE,
+    MazeConfig,
+    MazeState,
+)
+from gym_multigrid_tpu_torch.envs.wildfire import FIRE, TREE, WildfireConfig, WildfireState  # noqa: E402
+from gym_multigrid_tpu_torch.ops import _build, ctf_slab, maze_slab, wildfire_slab  # noqa: E402
 from gym_multigrid_tpu_torch.ops.collect_slab import (  # noqa: E402
     collect_reset_slab,
     collect_step_slab,
@@ -56,9 +74,13 @@ from gym_multigrid_tpu_torch.ops.collect_slab import (  # noqa: E402
     step_spec,
 )
 from gym_multigrid_tpu_torch.ops.ctf_slab import ctf_step_slab  # noqa: E402
+from gym_multigrid_tpu_torch.ops.maze_slab import maze_step_slab  # noqa: E402
+from gym_multigrid_tpu_torch.ops.wildfire_slab import wildfire_step_slab  # noqa: E402
 from gym_multigrid_tpu_torch.parallel.vector import (  # noqa: E402
     make_collect_batch,
     make_ctf_batch,
+    make_maze_batch,
+    make_wildfire_batch,
 )
 
 B = 8192
@@ -90,6 +112,18 @@ CTF_3V3 = CtfConfig.from_map_path(
     enemy_policies=(PolicySpec("capture"), PolicySpec("patrol"), PolicySpec("rw")),
 )
 
+# Maze and Wildfire: the configs the repo's family bench drives
+# (bench_all.py:165-178), 1000 and 400 steps per rollout call
+# (bench_all.py:84).
+MAZE_MAP = str(Path(__file__).resolve().parent / "tests" / "assets" / "board_maze.txt")
+MAZE_STEPS_PER_CALL = 1000
+MAZE_MAIN = MazeConfig.from_map_path(MAZE_MAP, max_steps=100)
+MAZE_PENALTY = MazeConfig.from_map_path(MAZE_MAP, max_steps=100, obstacle_penalty_ratio=0.5)
+WF_STEPS_PER_CALL = 400
+WF_MAIN = WildfireConfig(size=16, max_steps=100)
+WF_FOUR = WildfireConfig(size=10, num_agents=4, agents_index=(1, 2, 4, 5), step_penalty=0.01)
+WF_SPREAD = WildfireConfig(size=32, p_spread=1.0, p_burnout=0.0)
+
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 rate, and
 # int32 ALU ops on the CUDA cores (132 SMs x 64 int32 lanes x 1.98 GHz).
 MEM_BYTES_PER_S = 3.35e12
@@ -118,10 +152,24 @@ CTF_POLICY_OPS = 4
 CTF_ASTAR_OPS = 6
 CTF_BORDER_OPS = 9
 CTF_BATTLE_OPS = 16
-# Untimed rollout calls at most before the timed ones: Collect's are cut to
-# 10 to keep the whole run near a minute and a half.
+# The Maze step, per env: the action's clip and deltas 4, the bounds 4, a
+# cell lookup (clip both coordinates, index, read) 6 and the move's
+# selects 4, then two lookups for the flag and the obstacle and 4 for the
+# reward: 36.
+MAZE_OPS = 36
+# The Wildfire step: per cell, the extinguish test (1 compare per agent
+# and the fire test), the neighbour count (4 edge tests, 4 bit reads, 3
+# adds), the threshold's select 4, the ignite and burnout compares 4, the
+# new cell's select 2 and the counts' ballots 3: 25 + A.  Per env, the
+# move order's decode 8 and per mover MOVE_OPS plus 2 per agent it checks.
+WF_CELL_OPS = 25
+# Untimed rollout calls at most before the timed ones: Collect's, Maze's
+# and Wildfire's are cut to 10 to keep the whole run near two and a half
+# minutes.
 COLLECT_WARMUP_MAX = 10
 CTF_WARMUP_MAX = 20
+MAZE_WARMUP_MAX = 10
+WF_WARMUP_MAX = 10
 DEV = torch.device("cuda", 0)
 
 
@@ -266,6 +314,102 @@ def ctf_step_ops(t, n_border):
     return B * per_env
 
 
+def maze_actions(gen):
+    """Ids 0..4 with the invalid ids -1, 5 and 9 mixed in (a fifth); they
+    clip to stay and up."""
+    acts = torch.randint(0, 5, (B, 1), generator=gen, device=DEV, dtype=torch.int32)
+    bad = torch.rand((B, 1), generator=gen, device=DEV) < 0.2
+    ids = torch.tensor([-1, 5, 9], dtype=torch.int32, device=DEV)
+    pick = torch.randint(0, 3, (B, 1), generator=gen, device=DEV)
+    return torch.where(bad, ids[pick], acts)
+
+
+def check_maze_step_kernel(cfg, name, steps, seed):
+    """``maze_step_slab`` against ``step_spec`` over chained steps from the
+    batch reset; finished envs respawn under the done mask.  Counts the
+    steps that end on a flag and on an obstacle."""
+    slab = maze_slab.make_maze_slab(cfg, DEV)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    states = maze_slab.reset_batch(slab, B, generator=gen)
+    fm = torch.as_tensor(cfg.field_map, device=DEV)
+    err, flags, obstacles, episodes = 0.0, 0, 0, 0
+    for _ in range(steps):
+        args = (slab.t, states.pos, states.dir.reshape(B, 1), maze_actions(gen), slab.cells)
+        got = maze_step_slab(*args)
+        err = max(err, max_abs_err(got, maze_slab.step_spec(*args)))
+        pos, dirs, _, term = got
+        on = fm[pos[:, 0].long(), pos[:, 1].long()]
+        flags += int((on == FLAG).sum())
+        obstacles += int((on == M_OBSTACLE).sum())
+        step_count = states.step_count + 1
+        done = (term[:, 0] == 1) | (step_count >= cfg.max_steps)
+        episodes += int(done.sum())
+        states = maze_slab.reset_batch(slab, B, generator=gen, done=done,
+                                       states=MazeState(pos, dirs[:, 0], step_count))
+    check(flags > 0, f"{name}: no flag reached")
+    check((obstacles > 0) == (cfg.obstacle_penalty != 0),
+          f"{name}: {obstacles} steps on an obstacle with penalty {cfg.obstacle_penalty}")
+    log(f"maze_step kernel == step_spec: {name}, {steps} steps at B={B}: {flags} flags "
+        f"reached, {obstacles} obstacle cells entered, {episodes} episodes ended, "
+        f"max_abs_err {err}")
+    return err
+
+
+def wildfire_args(slab, states, acts, rnd):
+    """The step's inputs from a batch state, as ``step_batch`` passes them."""
+    B = states.cells.shape[0]
+    return (slab.t, states.cells.reshape(B, -1), states.agent_pos.reshape(B, -1), acts, rnd)
+
+
+def check_wildfire_step_kernel(cfg, name, steps, seed):
+    """``wildfire_step_slab`` against ``step_spec`` over chained steps from
+    the batch reset, action ids -2..7 (the invalid ones clip); finished envs
+    get fresh boards under the done mask."""
+    slab = wildfire_slab.make_wildfire_slab(cfg, DEV)
+    t = slab.t
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    states = wildfire_slab.reset_batch(slab, B, generator=gen)
+    err, put_out, ignited, episodes = 0.0, 0, 0, 0
+    for _ in range(steps):
+        acts = torch.randint(-2, 8, (B, t.n_agents), generator=gen, device=DEV, dtype=torch.int32)
+        rnd = torch.rand((B, slab.step_draws), generator=gen, device=DEV)
+        args = wildfire_args(slab, states, acts, rnd)
+        got = wildfire_step_slab(*args)
+        err = max(err, max_abs_err(got, wildfire_slab.step_spec(*args)))
+        cells, pos, _, n_ext, term = got
+        put_out += int(n_ext.sum())
+        ignited += int(((args[1] == TREE) & (cells == FIRE)).sum())
+        step_count = states.step_count + 1
+        done = (term[:, 0] == 1) | (step_count >= t.max_steps)
+        episodes += int(done.sum())
+        new = WildfireState(cells.reshape(states.cells.shape), pos.reshape(states.agent_pos.shape),
+                            step_count, states.extinguished + n_ext[:, 0])
+        states = wildfire_slab.reset_batch(slab, B, generator=gen, done=done, states=new)
+    check(put_out > 0 and ignited > 0, f"{name}: {put_out} fires put out, {ignited} ignitions")
+    log(f"wildfire_step kernel == step_spec: {name}, {steps} steps at B={B}: {put_out} fires "
+        f"put out, {ignited} trees ignited, {episodes} episodes ended, max_abs_err {err}")
+    return err
+
+
+def check_wildfire_stacked(seed):
+    """One call on random boards of every cell type with, in every other
+    env, both agents on one cell: a stacked pair puts out one fire."""
+    slab = wildfire_slab.make_wildfire_slab(WF_MAIN, DEV)
+    t = slab.t
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    cells = torch.randint(0, 4, (B, t.n_cells), generator=gen, device=DEV, dtype=torch.int32)
+    pos = torch.randint(0, WF_MAIN.size, (B, 2 * t.n_agents), generator=gen, device=DEV,
+                        dtype=torch.int32)
+    pos[::2, 2:] = pos[::2, :2].repeat(1, t.n_agents - 1)
+    acts = torch.randint(0, 5, (B, t.n_agents), generator=gen, device=DEV, dtype=torch.int32)
+    rnd = torch.rand((B, slab.step_draws), generator=gen, device=DEV)
+    args = (t, cells, pos, acts, rnd)
+    err = max_abs_err(wildfire_step_slab(*args), wildfire_slab.step_spec(*args))
+    log(f"wildfire_step kernel == step_spec: random boards, stacked agents in every other env, "
+        f"B={B}: max_abs_err {err}")
+    return err
+
+
 def time_ms(fn, iters, windows=5):
     """ms per call over ``windows`` windows of ``iters`` calls: CUDA events
     around each window, queued behind a device sleep so that host launch
@@ -314,18 +458,30 @@ def bound(nbytes, ops):
     return max(t_bytes, t_ops), by, t_bytes, t_ops
 
 
+#: Each kernel's wrapper, whose ``launches`` counts its launches.
+WRAPPERS = {"collect_step": collect_step_slab, "collect_reset": collect_reset_slab,
+            "ctf_step": ctf_step_slab, "maze_step": maze_step_slab,
+            "wildfire_step": wildfire_step_slab}
+
+
 def run_counted(drive):
     """Set every kernel's launch count to 0, run ``drive``, synchronise,
     and return (the counts it left, what it returned)."""
-    collect_step_slab.launches = collect_reset_slab.launches = 0
-    ctf_step_slab.launches = 0
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
     result = drive()
     torch.cuda.synchronize()
-    counts = {"collect_step": collect_step_slab.launches,
-              "collect_reset": collect_reset_slab.launches,
-              "ctf_step": ctf_step_slab.launches}
+    counts = {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
     log(f"launches on this path: {counts}")
     return counts, result
+
+
+def check_launches(counts, want, path):
+    """Each kernel launched ``want[name]`` times on this path, and every
+    kernel not in ``want`` never."""
+    for name, n in counts.items():
+        check(n == want.get(name, 0),
+              f"{path} path: {name} launched {n} times, expected {want.get(name, 0)}")
 
 
 def collect_main_path():
@@ -361,9 +517,9 @@ def check_collect_path(env, states, obs, metrics):
     return states
 
 
-def distinct_cells(states):
-    """True where no two agents of an env share a cell."""
-    p = states.pos[:, :, 0] * 1024 + states.pos[:, :, 1]
+def distinct_cells(pos):
+    """True where no two agents of an env share a cell; pos (B, A, 2)."""
+    p = pos[:, :, 0] * 1024 + pos[:, :, 1]
     return ~(p[:, :, None] == p[:, None, :]).triu(diagonal=1).any(dim=(1, 2))
 
 
@@ -392,25 +548,101 @@ def check_ctf_path(env, first, obs, states, metrics):
         t = terr[a >= nb]
         inside = ((states0.pos[:, a, :1] == t[0]) & (states0.pos[:, a, 1:] == t[1])).any(dim=1)
         check(bool(inside.all()), f"agent {a} spawned outside its territory")
-    check(bool(distinct_cells(states0).all()), "spawns overlap")
+    check(bool(distinct_cells(states0.pos).all()), "spawns overlap")
     # flattened: positions, flags, the three cell lists, terminated flags
     A = CTF_MAIN.num_agents
     cells = env.slab.bterr.shape[1] + env.slab.rterr.shape[1] + int((env.slab.cells[3] > 0).sum())
     check(obs.dtype == torch.int32 and tuple(obs.shape) == (B, 2 * A + 4 + 2 * cells + A),
           f"obs {obs.dtype} {tuple(obs.shape)}")
+    check_episode_metrics(metrics, CTF_STEPS_PER_CALL, "ctf")
+    check(bool(distinct_cells(states.pos).all()), "two agents share a cell")
+    check(bool((states.pos >= 0).all() and (states.pos < 10).all()), "agent off the board")
+    check(bool((states.step_count < CTF_MAIN.max_steps).all()), "episode past max_steps")
+
+
+def check_episode_metrics(metrics, steps, name):
+    """episodes > 0, finite sums, and the completed episodes' returns plus
+    the running ones equal the sum of all rewards: the same rewards summed
+    in another order, so up to the float32 rounding of ``steps``
+    accumulations into each sum (2**-24 of its magnitude each)."""
     episodes = int(metrics["episodes"])
     reward_sum = float(metrics["reward_sum"])
     ep_return_sum = float(metrics["ep_return_sum"])
     run_sum = float(metrics["run_return"].double().sum())
-    check(math.isfinite(reward_sum) and episodes > 0, f"episodes {episodes}, reward {reward_sum}")
-    # Sums of the same rewards in another order: float32 rounding only.
-    check(abs(ep_return_sum + run_sum - reward_sum) <= 1e-5 * max(1.0, abs(reward_sum)) + 1e-2,
-          f"ep_return_sum {ep_return_sum} + run_return {run_sum} != reward_sum {reward_sum}")
-    check(bool(distinct_cells(states).all()), "two agents share a cell")
-    check(bool((states.pos >= 0).all() and (states.pos < 10).all()), "agent off the board")
-    check(bool((states.step_count < CTF_MAIN.max_steps).all()), "episode past max_steps")
-    log(f"ctf rollout: {episodes} episodes, reward_sum {reward_sum}, "
+    check(math.isfinite(reward_sum) and math.isfinite(ep_return_sum) and episodes > 0,
+          f"{name}: episodes {episodes}, reward {reward_sum}, episode returns {ep_return_sum}")
+    scale = max(1.0, abs(reward_sum), abs(ep_return_sum), abs(run_sum))
+    check(abs(ep_return_sum + run_sum - reward_sum) <= steps * 2.0**-23 * scale + 1e-2,
+          f"{name}: ep_return_sum {ep_return_sum} + run_return {run_sum} != reward_sum {reward_sum}")
+    log(f"{name} rollout: {episodes} episodes, reward_sum {reward_sum}, "
         f"ep_return_sum {ep_return_sum}, run_return sum {run_sum}")
+
+
+def maze_main_path():
+    """The Maze path: MAZE_MAIN at B = 8192, reset(seed=0) and one
+    1000-step rollout.  Returns (env, first states, obs, final states,
+    metrics)."""
+    env = make_maze_batch(MAZE_MAIN, B)
+    first, obs = env.reset(seed=0)
+    states, metrics = env.rollout(first, MAZE_STEPS_PER_CALL)
+    return env, first, obs, states, metrics
+
+
+def check_maze_path(env, first, obs, states, metrics):
+    """The Maze path's invariants: a second reset(seed=0) gives the same
+    state, spawns lie on the background, the map obs has its shape, and
+    after the rollout the metrics agree and every agent is on the board and
+    off the obstacles (no obstacle penalty: they block)."""
+    again, _ = env.reset(seed=0)
+    check(all(torch.equal(getattr(first, f), getattr(again, f))
+              for f in ("pos", "dir", "step_count")), "reset(seed=0) twice differs")
+    fm = torch.as_tensor(MAZE_MAIN.field_map, device=DEV)
+    S0, S1 = fm.shape
+    check(bool((fm[first.pos[:, 0].long(), first.pos[:, 1].long()] == BACKGROUND).all()),
+          "spawn off the background")
+    check(obs.dtype == torch.float32 and tuple(obs.shape) == (B, S0, S1),
+          f"obs {obs.dtype} {tuple(obs.shape)}")
+    check_episode_metrics(metrics, MAZE_STEPS_PER_CALL, "maze")
+    pos = states.pos
+    check(bool(((pos[:, 0] >= 0) & (pos[:, 0] < S0) & (pos[:, 1] >= 0) & (pos[:, 1] < S1)).all()),
+          "agent off the board")
+    check(not bool((fm[pos[:, 0].long(), pos[:, 1].long()] == M_OBSTACLE).any()),
+          "agent on an obstacle")
+    check(bool((states.step_count < MAZE_MAIN.max_steps).all()), "episode past max_steps")
+
+
+def wildfire_main_path():
+    """The Wildfire path: WF_MAIN at B = 8192, reset(seed=0) and one
+    400-step rollout.  Returns (env, first states, obs, final states,
+    metrics)."""
+    env = make_wildfire_batch(WF_MAIN, B)
+    first, obs = env.reset(seed=0)
+    states, metrics = env.rollout(first, WF_STEPS_PER_CALL)
+    return env, first, obs, states, metrics
+
+
+def check_wildfire_path(env, first, obs, states, metrics):
+    """The Wildfire path's invariants: a second reset(seed=0) gives the same
+    state, fresh boards hold min(num_initial_fires, trees) fires and distinct
+    agents, the obs has its shape, and after the rollout the metrics agree,
+    no two agents share a cell and every cell is empty, tree, fire or
+    burnt."""
+    again, _ = env.reset(seed=0)
+    check(all(torch.equal(getattr(first, f), getattr(again, f))
+              for f in ("cells", "agent_pos", "step_count", "extinguished")),
+          "reset(seed=0) twice differs")
+    fires = (first.cells == FIRE).sum(dim=(1, 2))
+    grown = (first.cells == TREE).sum(dim=(1, 2)) + fires
+    check(bool((fires == grown.clamp(max=WF_MAIN.num_initial_fires)).all()), "initial fires")
+    check(bool(distinct_cells(first.agent_pos).all()), "spawns overlap")
+    size = WF_MAIN.size
+    check(obs.dtype == torch.uint8 and tuple(obs.shape) == (B, size, size, 3),
+          f"obs {obs.dtype} {tuple(obs.shape)}")
+    check_episode_metrics(metrics, WF_STEPS_PER_CALL, "wildfire")
+    check(bool(distinct_cells(states.agent_pos).all()), "two agents share a cell")
+    check(bool(((states.agent_pos >= 0) & (states.agent_pos < size)).all()), "agent off the board")
+    check(bool(((states.cells >= 0) & (states.cells <= 3)).all()), "cell value outside 0..3")
+    check(bool((states.step_count < WF_MAIN.max_steps).all()), "episode past max_steps")
 
 
 def time_rollout(env, states, steps, agents, warmup_max):
@@ -476,7 +708,9 @@ def profile_rollout(env, states, name, steps=50):
             f"({sum(r[2] for r in rows) / steps:.1f} launches per step), idle share "
             f"{1 - busy_us / wall_us:.3f}")
         for rank, (key, dev_us, count) in enumerate(rows):
-            if rank < 12 or key.startswith(("void collect::", "void ctf::")):
+            # A template kernel's name starts with its return type.
+            if rank < 12 or key.startswith(("void collect::", "void ctf::", "maze::",
+                                            "void wildfire::")):
                 log(f"  #{rank + 1:<3d} {dev_us:9.1f} us  {count:5d}x  {key[:90]}")
     else:
         log(f"profile of {name}: no device time recorded (device busy share not measured)")
@@ -511,12 +745,21 @@ def main():
         check_ctf_step_kernel(CTF_1V1, "1v1 fight, obstacle penalty", 100, seed=32),
         check_ctf_step_kernel(CTF_3V3, "3v3 capture/patrol/rw", 100, seed=33),
     )
+    maze_err = max(
+        check_maze_step_kernel(MAZE_MAIN, "MAZE_MAIN", 100, seed=40),
+        check_maze_step_kernel(MAZE_PENALTY, "MAZE_MAIN map, obstacle penalty 0.5", 100, seed=41),
+    )
+    wf_err = max(
+        check_wildfire_step_kernel(WF_MAIN, "WF_MAIN", 100, seed=50),
+        check_wildfire_step_kernel(WF_FOUR, "10x10, 4 agents, step penalty", 100, seed=51),
+        check_wildfire_step_kernel(WF_SPREAD, "32x32, p_spread 1, p_burnout 0", 100, seed=52),
+        check_wildfire_stacked(seed=53),
+    )
 
     # Phase 3: each path, with the launch counts of its own run.
     launches, (env, *result) = run_counted(collect_main_path)
-    check(launches["collect_step"] == STEPS_PER_CALL, "step kernel launches")
-    check(launches["collect_reset"] == STEPS_PER_CALL + 1, "reset kernel launches")
-    check(launches["ctf_step"] == 0, "CtF kernel launched on the Collect path")
+    check_launches(launches, {"collect_step": STEPS_PER_CALL,
+                              "collect_reset": STEPS_PER_CALL + 1}, "Collect")
     states = check_collect_path(env, *result)
     states = time_rollout(env, states, STEPS_PER_CALL, MAIN.num_agents, COLLECT_WARMUP_MAX)
 
@@ -566,9 +809,7 @@ def main():
 
     # The CtF path.
     ctf_launches, (ctf_env, *ctf_result) = run_counted(ctf_main_path)
-    check(ctf_launches["ctf_step"] == CTF_STEPS_PER_CALL, "CtF step kernel launches")
-    check(ctf_launches["collect_step"] == ctf_launches["collect_reset"] == 0,
-          "Collect kernels launched on the CtF path")
+    check_launches(ctf_launches, {"ctf_step": CTF_STEPS_PER_CALL}, "CtF")
     check_ctf_path(ctf_env, *ctf_result)
     ctf_states = ctf_result[2]
     ctf_states = time_rollout(ctf_env, ctf_states, CTF_STEPS_PER_CALL, CTF_MAIN.num_agents,
@@ -594,11 +835,67 @@ def main():
         f"step_spec {ctf_plain_ms * 1e3:.1f} us {us(ctf_plain_all)}; "
         f"ctf reset_spec (plain PyTorch, no kernel) {ctf_reset_ms * 1e3:.1f} us "
         f"{us(ctf_reset_all)}")
+
+    # The Maze path.
+    maze_launches, (maze_env, *maze_result) = run_counted(maze_main_path)
+    check_launches(maze_launches, {"maze_step": MAZE_STEPS_PER_CALL}, "Maze")
+    check_maze_path(maze_env, *maze_result)
+    maze_states = time_rollout(maze_env, maze_result[2], MAZE_STEPS_PER_CALL, 1, MAZE_WARMUP_MAX)
+
+    mslab = maze_env.slab
+    gen = torch.Generator(device=DEV).manual_seed(60)
+    maze_args = (mslab.t, maze_states.pos, maze_states.dir.reshape(B, 1), maze_actions(gen),
+                 mslab.cells)
+    maze_ms, maze_all = time_ms(lambda: maze_step_slab(*maze_args), 200)
+    maze_plain_ms, maze_plain_all = time_ms(lambda: maze_slab.step_spec(*maze_args), 20)
+    maze_bytes = sum(x.numel() * x.element_size() for x in maze_args[1:]) + sum(
+        x.numel() * x.element_size() for x in maze_step_slab(*maze_args))
+    maze_bound, maze_by, *maze_parts = bound(maze_bytes, B * MAZE_OPS)
+    maze_reset_ms, maze_reset_all = time_ms(
+        lambda: maze_slab.reset_batch(mslab, B, generator=gen, done=none_done,
+                                      states=maze_states), 20)
+    log(f"maze_step: {maze_ms * 1e3:.2f} us/launch (median of windows {us(maze_all)}), "
+        f"bound {maze_bound * 1e3:.2f} us ({maze_by}; {maze_bytes} bytes take "
+        f"{maze_parts[0] * 1e3:.2f} us, {B * MAZE_OPS} operations {maze_parts[1] * 1e3:.2f} us), "
+        f"step_spec {maze_plain_ms * 1e3:.1f} us {us(maze_plain_all)}; "
+        f"the rollout's masked reset_batch (plain PyTorch, no kernel) "
+        f"{maze_reset_ms * 1e3:.1f} us {us(maze_reset_all)}")
+
+    # The Wildfire path.
+    wf_launches, (wf_env, *wf_result) = run_counted(wildfire_main_path)
+    check_launches(wf_launches, {"wildfire_step": WF_STEPS_PER_CALL}, "Wildfire")
+    check_wildfire_path(wf_env, *wf_result)
+    wf_states = time_rollout(wf_env, wf_result[2], WF_STEPS_PER_CALL, WF_MAIN.num_agents,
+                             WF_WARMUP_MAX)
+
+    wslab = wf_env.slab
+    wt = wslab.t
+    w_acts = torch.randint(0, 5, (B, wt.n_agents), generator=gen, device=DEV, dtype=torch.int32)
+    w_rnd = torch.rand((B, wslab.step_draws), generator=gen, device=DEV)
+    wf_args = wildfire_args(wslab, wf_states, w_acts, w_rnd)
+    wf_ms, wf_all = time_ms(lambda: wildfire_step_slab(*wf_args), 200)
+    wf_plain_ms, wf_plain_all = time_ms(lambda: wildfire_slab.step_spec(*wf_args), 20)
+    wf_bytes = sum(x.numel() * x.element_size() for x in wf_args[1:]) + sum(
+        x.numel() * x.element_size() for x in wildfire_step_slab(*wf_args))
+    A = wt.n_agents
+    wf_ops = B * (wt.n_cells * (WF_CELL_OPS + A) + 8 + A * (MOVE_OPS + 2 * A))
+    wf_bound, wf_by, *wf_parts = bound(wf_bytes, wf_ops)
+    wf_reset_ms, wf_reset_all = time_ms(
+        lambda: wildfire_slab.reset_batch(wslab, B, generator=gen, done=none_done,
+                                          states=wf_states), 20)
+    log(f"wildfire_step: {wf_ms * 1e3:.2f} us/launch (median of windows {us(wf_all)}), "
+        f"bound {wf_bound * 1e3:.2f} us ({wf_by}; {wf_bytes} bytes take "
+        f"{wf_parts[0] * 1e3:.2f} us, {wf_ops} operations {wf_parts[1] * 1e3:.2f} us), "
+        f"step_spec {wf_plain_ms * 1e3:.1f} us {us(wf_plain_all)}; "
+        f"the rollout's masked reset_batch (plain PyTorch, no kernel: "
+        f"{wslab.reset_draws} uniforms an env) {wf_reset_ms * 1e3:.1f} us {us(wf_reset_all)}")
     log("library_ms: null for every kernel (no single PyTorch call computes any)")
 
     # Phase 4: where each rollout's time goes.
     profile_rollout(env, states, "Collect")
     profile_rollout(ctf_env, ctf_states, "CtF")
+    profile_rollout(maze_env, maze_states, "Maze")
+    profile_rollout(wf_env, wf_states, "Wildfire")
 
     record = {"kernels": [
         {"name": "collect_step", "route": "cuda",
@@ -619,6 +916,18 @@ def main():
          "launches": ctf_launches["ctf_step"], "max_abs_err": ctf_err,
          "ms": ctf_ms, "plain_ms": ctf_plain_ms, "bound_ms": ctf_bound,
          "bound_by": ctf_by, "library_ms": None},
+        {"name": "maze_step", "route": "cuda",
+         "source": "gym_multigrid_tpu_torch/csrc/maze_step.cu",
+         "replaces": "gym_multigrid_tpu/ops/pallas_maze.py:41",
+         "launches": maze_launches["maze_step"], "max_abs_err": maze_err,
+         "ms": maze_ms, "plain_ms": maze_plain_ms, "bound_ms": maze_bound,
+         "bound_by": maze_by, "library_ms": None},
+        {"name": "wildfire_step", "route": "cuda",
+         "source": "gym_multigrid_tpu_torch/csrc/wildfire_step.cu",
+         "replaces": "gym_multigrid_tpu/ops/pallas_wildfire.py:50",
+         "launches": wf_launches["wildfire_step"], "max_abs_err": wf_err,
+         "ms": wf_ms, "plain_ms": wf_plain_ms, "bound_ms": wf_bound,
+         "bound_by": wf_by, "library_ms": None},
     ]}
     log(json.dumps(record))
     smi = subprocess.run(

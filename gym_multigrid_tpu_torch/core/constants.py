@@ -1,7 +1,7 @@
 """Color tables and direction vectors (PyTorch port).
 
 Counterpart of ``gym_multigrid_tpu/core/constants.py``; only the tables the
-Collect and CtF paths read are carried over.  They are plain numpy arrays and dicts
+Collect, CtF, Maze and Wildfire paths read are carried over.  They are plain numpy arrays and dicts
 so the rest of the port can build device tensors from them.
 """
 
@@ -40,6 +40,21 @@ CTF_COLORS: dict[str, np.ndarray] = {
     "blue_grey": np.array([140, 146, 172]),
 }
 
+# Maze palette: the CtF one without the defeated greys.
+MAZE_COLORS: dict[str, np.ndarray] = {
+    "red": np.array([228, 3, 3]),
+    "orange": np.array([255, 140, 0]),
+    "yellow": np.array([255, 237, 0]),
+    "green": np.array([0, 128, 38]),
+    "blue": np.array([0, 77, 255]),
+    "purple": np.array([117, 7, 135]),
+    "brown": np.array([120, 79, 23]),
+    "grey": np.array([100, 100, 100]),
+    "light_red": np.array([255, 228, 225]),
+    "light_blue": np.array([240, 248, 255]),
+    "white": np.array([255, 250, 250]),
+}
+
 COLOR_TO_IDX: dict[str, int] = {key: i for i, key in enumerate(COLORS)}
 
 # Agent direction -> (dx, dy): right, down, left, up.
@@ -50,7 +65,8 @@ COLLECT_ACTION_TO_VEC = np.array(
     [(0, -1), (1, 0), (0, 1), (-1, 0)], dtype=np.int32
 )
 
-# CtF action -> position delta: stay, left, down, right, up.
+# CtF, Maze and Wildfire action -> position delta: stay, left, down, right,
+# up.
 CTF_ACTION_TO_VEC = np.array(
     [(0, 0), (0, -1), (-1, 0), (0, 1), (1, 0)], dtype=np.int32
 )

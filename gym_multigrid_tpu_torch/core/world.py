@@ -2,8 +2,7 @@
 
 Counterpart of ``gym_multigrid_tpu/core/world.py``.  The object
 vocabularies are the observation spec, so their names and index values
-must match the reference exactly.  Only the Collect and CtF worlds are
-needed so far.
+must match the reference exactly.
 """
 
 from __future__ import annotations
@@ -12,7 +11,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from gym_multigrid_tpu_torch.core.constants import COLORS, CTF_COLORS
+from gym_multigrid_tpu_torch.core.constants import COLORS, CTF_COLORS, MAZE_COLORS
 
 
 @dataclass(frozen=True)
@@ -57,3 +56,9 @@ CtfWorld = _schema(
     "blue_territory", "red_territory", "blue_agent", "red_agent",
     "blue_flag", "red_flag", "obstacle",
 )
+
+#: Maze: background/agent/flag/obstacle = 0..3
+MazeWorld = _schema(3, MAZE_COLORS, "background", "agent", "flag", "obstacle")
+
+#: Wildfire: empty/tree/fire/burnt/agent = 0..4
+WildfireWorld = _schema(3, COLORS, "empty", "tree", "fire", "burnt", "agent")

@@ -1,1 +1,1 @@
-"""Env families of the port: Collect and Capture-the-Flag so far."""
+"""Env families of the port: Collect, Capture-the-Flag, Maze and Wildfire."""

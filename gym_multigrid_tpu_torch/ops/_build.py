@@ -36,7 +36,7 @@ def _build_dir() -> Path:
 
 BUILD_DIR = _build_dir()
 # No --use_fast_math: the kernels must round their float32 products and
-# sums (the respawn and move-order picks, the CtF reward) as the plain
+# sums (the respawn and move-order picks, the rewards) as the plain
 # versions do.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -51,6 +51,8 @@ ENTRY_POINTS = {
     "collect_step.cu": ("collect_step", [_P] * 12 + [_I] * 9 + [_P]),
     "collect_reset.cu": ("collect_reset", [_P] * 9 + [_I] * 10 + [_P]),
     "ctf_step.cu": ("ctf_step", [_P] * 21 + [_I] * 17 + [_F] * 7 + [_P]),
+    "maze_step.cu": ("maze_step", [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P]),
+    "wildfire_step.cu": ("wildfire_step", [_P] * 9 + [_I] * 4 + [_F] * 8 + [_P]),
 }
 
 

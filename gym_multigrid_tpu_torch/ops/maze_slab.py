@@ -1,0 +1,301 @@
+"""Maze slab math: one transition and one spawn draw for a batch of envs
+(PyTorch port).
+
+Counterpart of the slab functions of ``gym_multigrid_tpu/envs/maze.py``
+and of ``gym_multigrid_tpu/ops/pallas_maze.py``: the Pallas kernel
+``maze_step_slab`` is the hand-written CUDA kernel
+``gym_multigrid_tpu_torch/csrc/maze_step.cu``, its plain body
+``maze_step_math`` is :func:`step_spec` here, and ``maze_reset_math`` is
+:func:`reset_spec`.
+
+* :func:`maze_step_slab` takes the plain version for tensors on the CPU and
+  launches the kernel for CUDA tensors.  On the card the kernel is the only
+  implementation: there is no fallback.
+* The reset has no kernel, here as in the JAX package: :func:`reset_spec`
+  runs as PyTorch tensor ops on whatever device its inputs are on.  It
+  reads the spawn cell with a gather; JAX's one-hot reduce over a packed
+  ``row | col << 8`` word is a TPU workaround and is not carried over.
+* :func:`step_batch` / :func:`reset_batch` are the batch glue of
+  ``make_maze_step_batch`` and of the auto-reset in ``_maze_ms_math``.
+  The step draws no randomness; the reset's uniforms come from a
+  ``torch.Generator``, or from an ``rnd`` tensor used as is (which is how
+  the tests hold it to JAX bit for bit).
+
+Every float constant of the step is a double rounded to float32 once,
+where the JAX package's weakly typed Python floats meet a float32 array.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from gym_multigrid_tpu_torch.core.constants import CTF_ACTION_TO_VEC
+from gym_multigrid_tpu_torch.envs.maze import (
+    BACKGROUND,
+    FLAG,
+    M_OBSTACLE,
+    NUM_ACTIONS,
+    SPAWN_DIR,
+    MazeConfig,
+    MazeState,
+    encode,
+    info,
+)
+from gym_multigrid_tpu_torch.ops import _build
+
+# The render direction of each action: stay/left/down/right/up.
+_A2DIR = (3, 3, 2, 1, 0)
+
+
+class MazeTables(NamedTuple):
+    """Static per-config tables of the step (the JAX ``MazeTables``)."""
+
+    s0: int
+    s1: int
+    n_cells: int
+    flag_reward: float
+    obstacle_penalty: float
+    step_penalty: float
+    max_steps: int
+    action_d0: tuple[int, ...]  # row (pos[0]) deltas per action
+    action_d1: tuple[int, ...]
+
+
+def maze_tables(cfg: MazeConfig) -> MazeTables:
+    fm = cfg.field_map
+    return MazeTables(
+        s0=int(fm.shape[0]),
+        s1=int(fm.shape[1]),
+        n_cells=int(fm.size),
+        flag_reward=float(cfg.flag_reward),
+        obstacle_penalty=float(cfg.obstacle_penalty),
+        step_penalty=float(cfg.step_penalty),
+        max_steps=int(cfg.max_steps),
+        action_d0=tuple(int(v[0]) for v in CTF_ACTION_TO_VEC),
+        action_d1=tuple(int(v[1]) for v in CTF_ACTION_TO_VEC),
+    )
+
+
+def maze_static_inputs(cfg: MazeConfig, device="cpu"):
+    """(cells (3, N), bg (2, n_bg)) int32 on ``device``.
+
+    cells rows: can_enter, flag, obstacle, flat index ``row * S1 + col``;
+    every cell can be entered when the obstacle penalty is on.  bg is the
+    background cells as (row; col) rows, row-major."""
+    fm = cfg.field_map
+    cells = np.zeros((3, fm.size), dtype=np.int32)
+    if cfg.obstacle_penalty != 0:
+        cells[0] = 1
+    else:
+        cells[0] = (fm != M_OBSTACLE).reshape(-1)
+    cells[1] = (fm == FLAG).reshape(-1)
+    cells[2] = (fm == M_OBSTACLE).reshape(-1)
+    bg = np.argwhere(fm == BACKGROUND).astype(np.int32).T.copy()
+    return torch.as_tensor(cells, device=device), torch.as_tensor(bg, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Step
+# ---------------------------------------------------------------------------
+
+
+def step_spec(t: MazeTables, pos, dirs, acts, cells):
+    """One Maze transition for a batch, in plain PyTorch.
+
+    pos: (B, 2) int32; dirs, acts: (B, 1) int32 (ids outside 0..4 are
+    clipped); cells: (3, N) int32 rows of :func:`maze_static_inputs`.
+    Returns (pos, dirs, reward (B, 1) float32, terminated (B, 1) int32).
+    """
+    dev = pos.device
+
+    def f32(v):
+        """A double rounded to float32 once, kept as a Python float: a
+        float32 tensor op takes it without another rounding."""
+        return float(np.float32(v))
+
+    def cell_flag(row, c0, c1):  # static cell flag at the clipped position
+        q = c0.clamp(0, t.s0 - 1) * t.s1 + c1.clamp(0, t.s1 - 1)
+        return cells[row][q.long()] > 0
+
+    p0, p1 = pos[:, 0:1], pos[:, 1:2]
+    acts = acts.clamp(0, NUM_ACTIONS - 1).long()
+    n0 = p0 + torch.tensor(t.action_d0, dtype=torch.int32, device=dev)[acts]
+    n1 = p1 + torch.tensor(t.action_d1, dtype=torch.int32, device=dev)[acts]
+    inb = (n0 >= 0) & (n1 >= 0) & (n0 < t.s0) & (n1 < t.s1)
+    # stay never moves; a blocked move keeps position and direction
+    can_move = inb & cell_flag(0, n0, n1) & (acts != 0)
+    p0 = torch.where(can_move, n0, p0)
+    p1 = torch.where(can_move, n1, p1)
+    new_dir = torch.tensor(_A2DIR, dtype=torch.int32, device=dev)[acts]
+    dirs = torch.where(can_move, new_dir, dirs)
+
+    on_flag = cell_flag(1, p0, p1)
+    reward = f32(t.flag_reward) * on_flag.to(torch.float32)
+    terminated = on_flag
+    if t.obstacle_penalty != 0:
+        on_obs = cell_flag(2, p0, p1)
+        reward = reward - f32(t.obstacle_penalty) * on_obs.to(torch.float32)
+        terminated = terminated | on_obs
+    reward = reward - f32(t.step_penalty)
+    return torch.cat([p0, p1], dim=1), dirs, reward, terminated.to(torch.int32)
+
+
+def maze_step_slab(t: MazeTables, pos, dirs, acts, cells):
+    """One transition of the batch: :func:`step_spec` for CPU tensors, the
+    CUDA kernel ``csrc/maze_step.cu`` for CUDA tensors (new output tensors;
+    the inputs are not changed).  Same arguments and results as
+    :func:`step_spec`."""
+    if pos.device.type == "cpu":
+        return step_spec(t, pos, dirs, acts, cells)
+    if pos.device.type != "cuda":
+        raise ValueError(f"no Maze step for tensors on {pos.device}")
+    B = pos.shape[0]
+    if B < 1:
+        raise ValueError("an empty batch has nothing to step")
+    dev = pos.device
+    for name, x, dtype, shape in (
+        ("pos", pos, torch.int32, (B, 2)),
+        ("dirs", dirs, torch.int32, (B, 1)),
+        ("acts", acts, torch.int32, (B, 1)),
+        ("cells", cells, torch.int32, (3, t.n_cells)),
+    ):
+        _build.check_arg(name, x, dtype, shape, dev)
+    outs = (
+        torch.empty_like(pos), torch.empty_like(dirs),
+        torch.empty((B, 1), dtype=torch.float32, device=dev),
+        torch.empty((B, 1), dtype=torch.int32, device=dev),
+    )
+    # Float constants: doubles rounded to float32 once, as the plain
+    # version's f32() does; ctypes passes each as a C float.
+    kernels = _build.load()
+    with torch.cuda.device(dev):
+        err = kernels.maze_step(
+            pos.data_ptr(), dirs.data_ptr(), acts.data_ptr(), cells.data_ptr(),
+            *(o.data_ptr() for o in outs),
+            B, t.s0, t.s1, int(t.obstacle_penalty != 0),
+            t.flag_reward, t.obstacle_penalty, t.step_penalty,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"maze_step kernel launch failed: CUDA error {err}")
+    maze_step_slab.launches += 1
+    return outs
+
+
+#: Launches of the step kernel since the count was last set to 0.
+maze_step_slab.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Reset (no kernel: plain PyTorch on the batch's device)
+# ---------------------------------------------------------------------------
+
+
+def reset_spec(t: MazeTables, rnd, bg):
+    """Spawn cells uniform over the background: the
+    ``min(floor(u * n_bg), n_bg - 1)``-th background cell, float32 product
+    truncated.  rnd: (B, 1) float32; bg: (2, n_bg) int32.  Returns
+    (pos (B, 2) int32, dirs (B, 1) int32, all ``SPAWN_DIR``)."""
+    n_bg = bg.shape[1]
+    j = ((rnd * n_bg).to(torch.int32)).clamp(max=n_bg - 1)
+    pos = bg[:, j[:, 0].long()].T.contiguous()
+    return pos, torch.full_like(j, SPAWN_DIR)
+
+
+# ---------------------------------------------------------------------------
+# Batch glue
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True, eq=False)
+class MazeSlab:
+    """Everything the batch glue needs for one config on one device."""
+
+    cfg: MazeConfig
+    device: torch.device
+    t: MazeTables
+    cells: torch.Tensor  # (3, N) int32
+    bg: torch.Tensor  # (2, n_bg) int32
+
+    #: Uniforms one env's reset takes; the step takes none.
+    reset_draws = 1
+
+
+def make_maze_slab(cfg: MazeConfig, device) -> MazeSlab:
+    """The slab of ``cfg`` on ``device``.  The kernel takes any map: it
+    reads the cell rows through the read-only cache, so there is no
+    envelope to check."""
+    device = torch.device(device)
+    cells, bg = maze_static_inputs(cfg, device)
+    if bg.shape[1] == 0:
+        raise ValueError("the map has no background cell to spawn on")
+    return MazeSlab(cfg, device, maze_tables(cfg), cells, bg)
+
+
+def step_batch(
+    slab: MazeSlab,
+    states: MazeState,
+    actions: torch.Tensor,
+    *,
+    generator: torch.Generator | None = None,
+    encode_obs: bool = True,
+    with_info: bool = True,
+):
+    """Batch-level Maze step.  ``actions`` (B,) ids; the step draws no
+    randomness, so ``generator`` is not used (it is taken for the batch
+    env's common step interface).
+
+    Returns (states', obs, reward (B,) float32, terminated (B,),
+    truncated (B,), info).  ``encode_obs=False`` and ``with_info=False``
+    return None for the obs and the info."""
+    B = states.pos.shape[0]
+    pos, dirs, reward, term = maze_step_slab(
+        slab.t,
+        states.pos,
+        states.dir.reshape(B, 1),
+        actions.reshape(B, 1).to(torch.int32).contiguous(),
+        slab.cells,
+    )
+    step_count = states.step_count + 1
+    new_states = MazeState(pos=pos, dir=dirs.reshape(B), step_count=step_count)
+    obs = encode(slab.cfg, new_states) if encode_obs else None
+    step_info = info(slab.cfg, new_states) if with_info else None
+    return (
+        new_states, obs, reward[:, 0], term[:, 0].to(torch.bool),
+        step_count >= slab.t.max_steps, step_info,
+    )
+
+
+def reset_batch(
+    slab: MazeSlab,
+    num_envs: int,
+    *,
+    generator: torch.Generator | None = None,
+    rnd: torch.Tensor | None = None,
+    done: torch.Tensor | None = None,
+    states: MazeState | None = None,
+) -> MazeState:
+    """Batch reset: a spawn cell from :func:`reset_spec`, direction
+    ``SPAWN_DIR``, step count 0.
+
+    ``rnd`` (num_envs, 1) is used as is when given, else drawn from
+    ``generator``.  With ``done`` (num_envs,) bool, the result is
+    ``states`` with the rows where it is True reset, in new tensors:
+    ``states`` itself is not changed."""
+    if rnd is None:
+        rnd = torch.rand((num_envs, slab.reset_draws), generator=generator, device=slab.device)
+    pos, dirs = reset_spec(slab.t, rnd, slab.bg)
+    if done is None:
+        return MazeState(
+            pos=pos, dir=dirs[:, 0],
+            step_count=torch.zeros((num_envs,), dtype=torch.int32, device=slab.device),
+        )
+    return MazeState(
+        pos=torch.where(done[:, None], pos, states.pos),
+        dir=states.dir.masked_fill(done, SPAWN_DIR),
+        step_count=states.step_count.masked_fill(done, 0),
+    )

@@ -48,6 +48,13 @@ class PickState(NamedTuple):
     lane: torch.Tensor  # (1, C) int32: the cell index
 
     @classmethod
+    def make(cls, mask: torch.Tensor) -> "PickState":
+        """The cells set in the (B, C) bool ``mask`` free: one prefix sum."""
+        cum = prefix_sum(mask)
+        lane = torch.arange(mask.shape[1], dtype=torch.int32, device=mask.device)[None, :]
+        return cls(mask, cum, cum[:, -1:], lane)
+
+    @classmethod
     def full(cls, B: int, C: int, device) -> "PickState":
         """Every cell free: the prefix sum is ``lane + 1``."""
         lane = torch.arange(C, dtype=torch.int32, device=device)[None, :]

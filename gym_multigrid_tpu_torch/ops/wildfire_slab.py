@@ -1,0 +1,370 @@
+"""Wildfire slab math: one transition and one fresh board for a batch of
+envs (PyTorch port).
+
+Counterpart of the slab functions of ``gym_multigrid_tpu/envs/wildfire.py``
+and of ``gym_multigrid_tpu/ops/pallas_wildfire.py``: the Pallas kernel
+``wildfire_step_slab`` is the hand-written CUDA kernel
+``gym_multigrid_tpu_torch/csrc/wildfire_step.cu``, its plain body
+``wf_step_math`` is :func:`step_spec` here, and ``wf_reset_math`` is
+:func:`reset_spec`.
+
+* :func:`wildfire_step_slab` takes the plain version for tensors on the
+  CPU and launches the kernel for CUDA tensors.  On the card the kernel is
+  the only implementation: there is no fallback.
+* The spread counts burning neighbours with four shifted copies of the
+  board (:func:`neighbor_fires`, JAX's ``_neighbor_fires``).  JAX's other
+  form, a (C, C) adjacency matmul, exists for the TPU's matrix unit and is
+  not carried over: the step takes no ``adj``.
+* The reset has no kernel, here as in the JAX package: :func:`reset_spec`
+  runs as PyTorch tensor ops (``PickState``) on whatever device its inputs
+  are on.
+* :func:`step_batch` / :func:`reset_batch` are the batch glue of
+  ``make_wildfire_step_batch`` and of the auto-reset in ``_ms_math``.
+  Their uniforms come from a ``torch.Generator``, or from an ``rnd`` tensor
+  used as is (which is how the tests hold them to JAX bit for bit).
+
+Every float constant of the step is a double rounded to float32 once,
+where the JAX package's weakly typed Python floats meet a float32 array;
+the ignition thresholds are formed on the host from the numpy float32
+survival table, as JAX forms them (:func:`ignite_thresholds`).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from gym_multigrid_tpu_torch.envs.wildfire import (
+    BURNT,
+    EMPTY,
+    FIRE,
+    MAX_AGENTS,
+    NUM_ACTIONS,
+    TREE,
+    WfTables,
+    WildfireConfig,
+    WildfireState,
+    encode,
+    ignite_thresholds,
+    reset_rnd_width,
+    step_rnd_width,
+    wf_tables,
+)
+from gym_multigrid_tpu_torch.ops import _build
+from gym_multigrid_tpu_torch.ops.sampling import PickState
+
+#: Largest board the step kernel takes: a lane of the env's warp holds 32
+#: cells.  32x32 is 1024 cells.
+MAX_CELLS = 1024
+
+
+def _f32(v) -> float:
+    """A double rounded to float32 once, kept as a Python float: a float32
+    tensor op takes it without another rounding, and no tensor is copied to
+    the device (a copy from the host would wait for the device)."""
+    return float(np.float32(v))
+
+
+# ---------------------------------------------------------------------------
+# Step
+# ---------------------------------------------------------------------------
+
+
+def neighbor_fires(t: WfTables, cells):
+    """Per-cell count of burning 4-neighbours of a (B, C) flat board
+    (``y * width + x``), with no wrap at the edges; in the cells' dtype."""
+    C, w = cells.shape[1], t.width
+    f = (cells == FIRE).to(cells.dtype)
+    col = torch.arange(C, device=cells.device) % w
+    pad = torch.nn.functional.pad
+    north = pad(f, (w, 0))[:, :C]
+    south = pad(f, (0, w))[:, w:]
+    west = pad(f, (1, 0))[:, :C] * (col != 0)
+    east = pad(f, (0, 1))[:, 1:] * (col != w - 1)
+    return north + south + west + east
+
+
+def move_agents(t: WfTables, pos, acts, u_perm):
+    """Sequential moves in a random order for a (B, 2A) position slab.
+
+    The order is ``perms[min(floor(u_perm * A!), A! - 1)]`` (every agent
+    is slot 0's mover where that index is negative, as JAX's select chain
+    gives).  A mover's target is clipped to the board and is blocked when
+    any agent stands on it, earlier movers at their new cells.  Returns
+    (xs, ys), each (B, A) int32."""
+    A, dev = t.n_agents, pos.device
+    n_perms = len(t.perms)
+    pidx = (u_perm * n_perms).to(torch.int32).clamp(max=n_perms - 1)
+    perms = torch.tensor(t.perms, dtype=torch.int32, device=dev)
+    order = torch.where(pidx >= 0, perms[pidx[:, 0].clamp(min=0).long()], 0)  # (B, A)
+    xs, ys = pos[:, 0::2].clone(), pos[:, 1::2].clone()
+    acts = acts.clamp(0, NUM_ACTIONS - 1).long()
+    dx_of = torch.tensor(t.action_dx, dtype=torch.int32, device=dev)
+    dy_of = torch.tensor(t.action_dy, dtype=torch.int32, device=dev)
+    agent = torch.arange(A, device=dev)[None, :]
+    for slot in range(A):
+        i_vec = order[:, slot : slot + 1].long()
+        mine = agent == i_vec
+        act = acts.gather(1, i_vec)
+        px, py = xs.gather(1, i_vec), ys.gather(1, i_vec)
+        nx = (px + dx_of[act]).clamp(0, t.width - 1)
+        ny = (py + dy_of[act]).clamp(0, t.height - 1)
+        occupied = ((xs == nx) & (ys == ny)).any(dim=1, keepdim=True)
+        moved = ~occupied & ((nx != px) | (ny != py))
+        xs = torch.where(mine, torch.where(moved, nx, px), xs)
+        ys = torch.where(mine, torch.where(moved, ny, py), ys)
+    return xs, ys
+
+
+def step_spec(t: WfTables, cells, pos, acts, rnd):
+    """One Wildfire transition for a batch, in plain PyTorch.
+
+    cells: (B, C) int32 flat board (``y * width + x``)
+    pos:   (B, 2A) int32 [a0 x, a0 y, a1 x, ...]
+    acts:  (B, A) int32; ids outside 0..4 are clipped
+    rnd:   (B, 1 + C) float32 uniforms [move order, one per cell]
+
+    Returns (cells, pos, reward (B, 1) float32 team reward, extinguished
+    (B, 1) int32, terminated (B, 1) int32).
+    """
+    B, C = cells.shape
+    dev = cells.device
+    w = t.width
+    u_perm, field = rnd[:, 0:1], rnd[:, 1:]
+    xs, ys = move_agents(t, pos, acts, u_perm)
+
+    # Extinguish: a fire cell under any agent (a cell, not an agent, counts).
+    lane = torch.arange(C, dtype=torch.int32, device=dev)[None, :]
+    occ = (lane[:, :, None] == (ys * w + xs)[:, None, :]).any(dim=2)
+    put_out = occ & (cells == FIRE)
+    n_ext = put_out.sum(dim=1, keepdim=True, dtype=torch.int32)
+    cells = torch.where(put_out, BURNT, cells)
+
+    # Spread on the post-extinguish board, then burnout on the same field.
+    p_ig = torch.tensor(ignite_thresholds(t), dtype=torch.float32, device=dev)
+    p_ig = p_ig[neighbor_fires(t, cells).long()]
+    ignite = (cells == TREE) & (field < p_ig)
+    n_ignited = ignite.sum(dim=1, keepdim=True, dtype=torch.int32)
+    burnout = (cells == FIRE) & (field < _f32(t.p_burnout))
+    cells = torch.where(burnout, BURNT, torch.where(ignite, FIRE, cells))
+
+    reward = (
+        _f32(t.ext_reward) * n_ext.to(torch.float32)
+        - _f32(t.burn_penalty) * n_ignited.to(torch.float32)
+        - _f32(t.step_penalty)
+    )
+    terminated = ~(cells == FIRE).any(dim=1, keepdim=True)
+    pos_out = torch.stack([xs, ys], dim=2).reshape(B, 2 * t.n_agents)
+    return cells, pos_out, reward, n_ext, terminated.to(torch.int32)
+
+
+def check_envelope(t: WfTables):
+    """Raise unless the step kernel takes this config: at most
+    ``MAX_AGENTS`` agents and ``MAX_CELLS`` cells."""
+    if t.n_agents > MAX_AGENTS:
+        raise ValueError(
+            f"the Wildfire step kernel takes at most {MAX_AGENTS} agents, got {t.n_agents}"
+        )
+    if t.n_cells > MAX_CELLS:
+        raise ValueError(
+            f"the Wildfire step kernel takes boards of at most {MAX_CELLS} cells, "
+            f"got {t.width}x{t.height}"
+        )
+
+
+def wildfire_step_slab(t: WfTables, cells, pos, acts, rnd):
+    """One transition of the batch: :func:`step_spec` for CPU tensors, the
+    CUDA kernel ``csrc/wildfire_step.cu`` for CUDA tensors (new output
+    tensors; the inputs are not changed).  Same arguments and results as
+    :func:`step_spec`."""
+    if cells.device.type == "cpu":
+        return step_spec(t, cells, pos, acts, rnd)
+    if cells.device.type != "cuda":
+        raise ValueError(f"no Wildfire step for tensors on {cells.device}")
+    check_envelope(t)
+    B, C, A = cells.shape[0], t.n_cells, t.n_agents
+    if B < 1:
+        raise ValueError("an empty batch has nothing to step")
+    dev = cells.device
+    for name, x, dtype, shape in (
+        ("cells", cells, torch.int32, (B, C)),
+        ("pos", pos, torch.int32, (B, 2 * A)),
+        ("acts", acts, torch.int32, (B, A)),
+        ("rnd", rnd, torch.float32, (B, step_rnd_width(t))),
+    ):
+        _build.check_arg(name, x, dtype, shape, dev)
+    outs = (
+        torch.empty_like(cells), torch.empty_like(pos),
+        torch.empty((B, 1), dtype=torch.float32, device=dev),
+        torch.empty((B, 1), dtype=torch.int32, device=dev),
+        torch.empty((B, 1), dtype=torch.int32, device=dev),
+    )
+    # Float constants: the ignition thresholds are float32 values already;
+    # the rest are doubles rounded to float32 once, as _f32 does.  ctypes
+    # passes each as a C float.
+    kernels = _build.load()
+    with torch.cuda.device(dev):
+        err = kernels.wildfire_step(
+            cells.data_ptr(), pos.data_ptr(), acts.data_ptr(), rnd.data_ptr(),
+            *(o.data_ptr() for o in outs),
+            B, t.width, t.height, A,
+            *ignite_thresholds(t)[1:], t.p_burnout,
+            t.ext_reward, t.burn_penalty, t.step_penalty,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"wildfire_step kernel launch failed: CUDA error {err}")
+    wildfire_step_slab.launches += 1
+    return outs
+
+
+#: Launches of the step kernel since the count was last set to 0.
+wildfire_step_slab.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Reset (no kernel: plain PyTorch on the batch's device)
+# ---------------------------------------------------------------------------
+
+
+def reset_spec(t: WfTables, rnd):
+    """Fresh boards from (B, C + n_fires + A) float32 uniforms: a tree on
+    each cell whose draw is below ``tree_density``, then the initial fires
+    uniform among the trees without replacement (fewer where there are
+    fewer trees), then the agents uniform among all cells without
+    replacement.  Returns (cells (B, C) int32, pos (B, 2A) int32)."""
+    B, C, dev = rnd.shape[0], t.n_cells, rnd.device
+    trees = rnd[:, :C] < _f32(t.tree_density)
+    picks = rnd[:, C:]
+    cells = torch.where(trees, TREE, EMPTY).to(torch.int32)
+    ps = PickState.make(trees)
+    for j in range(t.n_fires):
+        hit, _, ps = ps.pick(picks[:, j : j + 1])
+        cells = torch.where(hit, FIRE, cells)
+    ps = PickState.full(B, C, dev)
+    cols = []
+    for i in range(t.n_agents):
+        _, idx, ps = ps.pick(picks[:, t.n_fires + i : t.n_fires + i + 1])
+        cols += [idx % t.width, idx // t.width]
+    return cells, torch.cat(cols, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Batch glue
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True, eq=False)
+class WildfireSlab:
+    """Everything the batch glue needs for one config on one device."""
+
+    cfg: WildfireConfig
+    device: torch.device
+    t: WfTables
+
+    @property
+    def step_draws(self) -> int:
+        """Uniforms one env's step takes."""
+        return step_rnd_width(self.t)
+
+    @property
+    def reset_draws(self) -> int:
+        """Uniforms one env's reset takes."""
+        return reset_rnd_width(self.t)
+
+
+def make_wildfire_slab(cfg: WildfireConfig, device) -> WildfireSlab:
+    """The slab of ``cfg`` on ``device``.  A CUDA slab must fit the step
+    kernel's envelope (:func:`check_envelope`); the plain version on the
+    CPU takes any board."""
+    device = torch.device(device)
+    t = wf_tables(cfg)
+    if device.type == "cuda":
+        check_envelope(t)
+    return WildfireSlab(cfg, device, t)
+
+
+def step_batch(
+    slab: WildfireSlab,
+    states: WildfireState,
+    actions: torch.Tensor,
+    *,
+    generator: torch.Generator | None = None,
+    rnd: torch.Tensor | None = None,
+    encode_obs: bool = True,
+    with_info: bool = True,
+):
+    """Batch-level Wildfire step.
+
+    Returns (states', obs, rewards (B, A) float32, terminated (B,),
+    truncated (B,), info): every agent gets the team reward divided by A.
+    ``rnd`` (B, ``slab.step_draws``) is used as is when given, else drawn
+    from ``generator``.  ``encode_obs=False`` and ``with_info=False`` return
+    None for the obs and the info."""
+    t, cfg = slab.t, slab.cfg
+    B, C, A = states.cells.shape[0], t.n_cells, t.n_agents
+    if rnd is None:
+        rnd = torch.rand((B, slab.step_draws), generator=generator, device=slab.device)
+    cells, pos, reward, n_ext, term = wildfire_step_slab(
+        t,
+        states.cells.reshape(B, C),
+        states.agent_pos.reshape(B, 2 * A),
+        actions.reshape(B, A).to(torch.int32).contiguous(),
+        rnd,
+    )
+    step_count = states.step_count + 1
+    new_states = WildfireState(
+        cells=cells.reshape(B, cfg.height, cfg.width),
+        agent_pos=pos.reshape(B, A, 2),
+        step_count=step_count,
+        extinguished=states.extinguished + n_ext[:, 0],
+    )
+    obs = encode(cfg, new_states) if encode_obs else None
+    step_info = None
+    if with_info:
+        step_info = {
+            "extinguished": new_states.extinguished,
+            "burning": (cells == FIRE).sum(dim=1, dtype=torch.int32),
+            "burnt": (cells == BURNT).sum(dim=1, dtype=torch.int32),
+        }
+    return (
+        new_states, obs, (reward / A).repeat(1, A), term[:, 0].to(torch.bool),
+        step_count >= t.max_steps, step_info,
+    )
+
+
+def reset_batch(
+    slab: WildfireSlab,
+    num_envs: int,
+    *,
+    generator: torch.Generator | None = None,
+    rnd: torch.Tensor | None = None,
+    done: torch.Tensor | None = None,
+    states: WildfireState | None = None,
+) -> WildfireState:
+    """Batch reset: fresh boards and spawns from :func:`reset_spec`, step
+    count and extinguished count 0.
+
+    ``rnd`` (num_envs, ``slab.reset_draws``) is used as is when given, else
+    drawn from ``generator``.  With ``done`` (num_envs,) bool, the result is
+    ``states`` with the rows where it is True reset, in new tensors:
+    ``states`` itself is not changed."""
+    cfg, A = slab.cfg, slab.t.n_agents
+    if rnd is None:
+        rnd = torch.rand((num_envs, slab.reset_draws), generator=generator, device=slab.device)
+    cells, pos = reset_spec(slab.t, rnd)
+    cells = cells.reshape(num_envs, cfg.height, cfg.width)
+    pos = pos.reshape(num_envs, A, 2)
+    if done is None:
+        zeros = torch.zeros((num_envs,), dtype=torch.int32, device=slab.device)
+        return WildfireState(cells=cells, agent_pos=pos, step_count=zeros,
+                             extinguished=zeros.clone())
+    rows = done[:, None, None]
+    return WildfireState(
+        cells=torch.where(rows, cells, states.cells),
+        agent_pos=torch.where(rows, pos, states.agent_pos),
+        step_count=states.step_count.masked_fill(done, 0),
+        extinguished=states.extinguished.masked_fill(done, 0),
+    )

@@ -1,14 +1,14 @@
 """Batched lockstep envs with auto-reset (PyTorch port).
 
-Counterpart of ``BatchedEnv``, ``make_collect_batch`` and
-``make_ctf_batch`` in ``gym_multigrid_tpu/parallel/vector.py``.  The batch
-runs in lockstep on one device; every step of the whole batch is one
-kernel launch on a CUDA device (``ops/collect_slab.py``,
-``ops/ctf_slab.py``).  Finished envs are reset under a ``done`` mask (in
-place by the Collect reset kernel; into new tensors by the CtF spawn draw,
-which is plain PyTorch), so neither ``step`` nor ``rollout`` waits on the device inside
-its loop.  Randomness comes from the env's ``torch.Generator``, seeded by
-``reset(seed)``.
+Counterpart of ``BatchedEnv`` and the ``make_*_batch`` functions in
+``gym_multigrid_tpu/parallel/vector.py``, for Collect, CtF, Maze and
+Wildfire.  The batch runs in lockstep on one device; every step of the
+whole batch is one kernel launch on a CUDA device (``ops/*_slab.py``).
+Finished envs are reset under a ``done`` mask (in place by the Collect
+reset kernel; into new tensors by the other families' resets, which are
+plain PyTorch), so neither ``step`` nor ``rollout`` waits on the device
+inside its loop.  Randomness comes from the env's ``torch.Generator``,
+seeded by ``reset(seed)``.
 """
 
 from __future__ import annotations
@@ -20,8 +20,8 @@ from typing import Callable
 import torch
 
 from gym_multigrid_tpu_torch.core.constants import COLLECT_ACTION_TO_VEC
-from gym_multigrid_tpu_torch.envs import collect, ctf
-from gym_multigrid_tpu_torch.ops import collect_slab, ctf_slab
+from gym_multigrid_tpu_torch.envs import collect, ctf, maze, wildfire
+from gym_multigrid_tpu_torch.ops import collect_slab, ctf_slab, maze_slab, wildfire_slab
 
 
 @dataclass(frozen=True, eq=False)
@@ -35,10 +35,11 @@ class BatchedEnv:
     finished; the obs and rewards it returns are the *pre-reset* ones
     (gymnasium's autoreset convention: the final step is visible, and the
     next step starts from the reset state).  Rewards are (B, A) per agent
-    for Collect and (B,) per env for CtF.
+    for Collect and Wildfire and (B,) per env for CtF and Maze.
     """
 
-    slab: collect_slab.CollectSlab | ctf_slab.CtfSlab
+    slab: (collect_slab.CollectSlab | ctf_slab.CtfSlab | maze_slab.MazeSlab
+           | wildfire_slab.WildfireSlab)
     num_envs: int
     generator: torch.Generator
     # The family's batch functions: step_batch(slab, states, actions, *,
@@ -47,9 +48,17 @@ class BatchedEnv:
     step_batch: Callable
     reset_batch: Callable
     encode: Callable
-    #: Action space of one env: ids 0..num_actions-1, action_cols of them.
+    #: Action space of one env: ids 0..num_actions-1, action_cols of them,
+    #: or one id with no action axis when action_cols is None (Maze).
     num_actions: int
-    action_cols: int
+    action_cols: int | None
+
+    @property
+    def actions_shape(self) -> tuple[int, ...]:
+        """Shape of the batch's actions."""
+        if self.action_cols is None:
+            return (self.num_envs,)
+        return (self.num_envs, self.action_cols)
 
     @property
     def cfg(self):
@@ -67,10 +76,9 @@ class BatchedEnv:
 
     def step(self, states, actions):
         actions = torch.as_tensor(actions, device=self.device)
-        if tuple(actions.shape) != (self.num_envs, self.action_cols):
+        if tuple(actions.shape) != self.actions_shape:
             raise ValueError(
-                f"actions must have shape ({self.num_envs}, "
-                f"{self.action_cols}), got {tuple(actions.shape)}"
+                f"actions must have shape {self.actions_shape}, got {tuple(actions.shape)}"
             )
         return self._step(states, actions, encode_obs=True)
 
@@ -115,7 +123,7 @@ class BatchedEnv:
         run_ret = run_return
         for _ in range(num_steps):
             actions = torch.randint(
-                0, self.num_actions, (B, self.action_cols), generator=self.generator,
+                0, self.num_actions, self.actions_shape, generator=self.generator,
                 device=dev, dtype=torch.int32,
             )
             states, _, rewards, term, trunc = self._step(
@@ -195,4 +203,47 @@ def make_ctf_batch(
         encode=ctf.encode,
         num_actions=ctf.NUM_ACTIONS,
         action_cols=cfg.num_blue_agents,
+    )
+
+
+def make_maze_batch(
+    cfg: maze.MazeConfig,
+    num_envs: int,
+    device: str | torch.device | None = None,
+) -> BatchedEnv:
+    """A batch of ``num_envs`` Maze envs on ``device`` (default and CPU as
+    for :func:`make_collect_batch`).  Actions are (num_envs,) ids 0..4, one
+    per env with no agent axis; rewards are (num_envs,)."""
+    device = _device(device, "make_maze_batch")
+    return BatchedEnv(
+        slab=maze_slab.make_maze_slab(cfg, device),
+        num_envs=num_envs,
+        generator=torch.Generator(device=device),
+        step_batch=functools.partial(maze_slab.step_batch, with_info=False),
+        reset_batch=maze_slab.reset_batch,
+        encode=maze.encode,
+        num_actions=maze.NUM_ACTIONS,
+        action_cols=None,
+    )
+
+
+def make_wildfire_batch(
+    cfg: wildfire.WildfireConfig,
+    num_envs: int,
+    device: str | torch.device | None = None,
+) -> BatchedEnv:
+    """A batch of ``num_envs`` Wildfire envs on ``device`` (default and CPU
+    as for :func:`make_collect_batch`).  Actions are (num_envs, num_agents)
+    ids 0..4; rewards are (num_envs, num_agents), the team reward split
+    evenly."""
+    device = _device(device, "make_wildfire_batch")
+    return BatchedEnv(
+        slab=wildfire_slab.make_wildfire_slab(cfg, device),
+        num_envs=num_envs,
+        generator=torch.Generator(device=device),
+        step_batch=functools.partial(wildfire_slab.step_batch, with_info=False),
+        reset_batch=wildfire_slab.reset_batch,
+        encode=wildfire.encode,
+        num_actions=wildfire.NUM_ACTIONS,
+        action_cols=cfg.num_agents,
     )

@@ -136,5 +136,6 @@ print(" ".join(n for n in sys.modules if n.startswith("gym_multigrid_tpu_torch")
     walked = set(out.stdout.split())
     assert len(walked) >= 10  # the package and every module in it
     for module in ("core.world", "utils.map", "policy.ctf.heuristic", "ops.sampling",
-                   "envs.ctf", "ops.ctf_slab", "parallel.vector"):
+                   "envs.ctf", "ops.ctf_slab", "envs.maze", "ops.maze_slab",
+                   "envs.wildfire", "ops.wildfire_slab", "parallel.vector"):
         assert f"gym_multigrid_tpu_torch.{module}" in walked, module
