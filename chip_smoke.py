@@ -6,7 +6,8 @@ Needs one CUDA device and ``nvcc``; exits non-zero, printing no result,
 without them.  Phases, each of which fails the run on any fault:
 
 1. Build the CUDA kernels from ``gym_multigrid_tpu_torch/csrc/``, one
-   ``nvcc`` per source, all at once.
+   ``nvcc`` per source, all at once; print each variant's registers, shared
+   memory and spills, and the Wildfire ring's dynamic shared memory.
 2. Hold each kernel to its plain PyTorch version on the card, bit for bit:
    the Collect step kernel over 100 chained steps at B = 8192 (the main
    config, the 1-agent even config and the 15x15 quadrants config, with the
@@ -19,9 +20,11 @@ without them.  Phases, each of which fails the run on any fault:
    ids -1, 5 and 9 mixed in), and the Wildfire step kernel over 100 chained
    steps at B = 8192 on WF_MAIN, on a 10x10 4-agent config with a step
    penalty and on a 32x32 config that spreads to every neighbour and never
-   burns out, plus one call on random boards with stacked agents.
+   burns out, plus one call on random boards with stacked agents.  Both
+   CtF and Wildfire also run on the ragged batches B = 8189 and B = 5,
+   neither a multiple of the Wildfire tile nor of the CtF lane group.
    Finished envs are respawned by each family's ``reset_batch`` under the
-   ``done`` mask.
+   ``done`` mask.  Misaligned Wildfire uniforms are refused, not copied.
 3. Drive each path, with every launch count set to 0 just before it and
    read just after: Collect (``make_collect_batch`` of the
    respawn-clustered config at B = 8192, ``reset(seed=0)``, ``rollout`` of
@@ -84,6 +87,9 @@ from gym_multigrid_tpu_torch.parallel.vector import (  # noqa: E402
 )
 
 B = 8192
+# Batches that are no multiple of the Wildfire tile (8, or 4 at 32x32) nor
+# of the CtF envs per block (64, or 32 above 4 agents).
+RAGGED = (8189, 5)
 STEPS_PER_CALL = 500  # ten lockstep 50-step episodes
 MAIN = CollectConfig(layout="quadrants_respawn", respawn=True, max_steps=50)
 SINGLE = CollectConfig(agents_index=(3,), layout="even", respawn=False)
@@ -244,52 +250,53 @@ def check_reset_kernel(cfg, seed):
 
 
 def ctf_step_args(slab, states, blue_actions, rnd):
-    """The step's inputs from a batch state, as ``step_batch`` passes them."""
+    """The step's inputs from a batch state, as ``step_batch`` passes them:
+    bool terminated/collided and the slab's flag byte per cell."""
     B = states.pos.shape[0]
-    return (slab.t, states.pos.reshape(B, -1), states.dir,
-            states.terminated.to(torch.int32), states.collided.to(torch.int32),
-            blue_actions, rnd, slab.cells, slab.border, slab.pool)
+    return (slab.t, states.pos.reshape(B, -1), states.dir, states.terminated,
+            states.collided, blue_actions, rnd, slab.flags, slab.border, slab.pool)
 
 
-def check_ctf_step_kernel(cfg, name, steps, seed):
-    """``ctf_step_slab`` against ``step_spec`` over chained steps from
+def check_ctf_step_kernel(cfg, name, steps, seed, n=B, need_events=True):
+    """``ctf_step_slab`` against ``step_spec`` (cast to the kernel's bool
+    interface by ``step_spec_bool``) over chained steps of ``n`` envs from
     random cells, a tenth of the agents terminated and a tenth collided;
     finished envs are respawned by ``reset_spec`` under the done mask, so
     live episodes keep battling.  Blue ids include the out-of-range -2, -1,
-    5 and 6, which both clamp."""
+    5 and 6, which both clamp.  ``need_events``: fail unless battles, flag
+    captures and (with an MvN obstacle penalty) collisions happened."""
     slab = ctf_slab.make_ctf_slab(cfg, DEV)
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    states = ctf_slab.reset_batch(slab, B, generator=gen)
+    states = ctf_slab.reset_batch(slab, n, generator=gen)
     A, (s0, s1) = cfg.num_agents, cfg.field_map.shape
     states.pos = torch.stack([
-        torch.randint(0, s0, (B, A), generator=gen, device=DEV, dtype=torch.int32),
-        torch.randint(0, s1, (B, A), generator=gen, device=DEV, dtype=torch.int32),
+        torch.randint(0, s0, (n, A), generator=gen, device=DEV, dtype=torch.int32),
+        torch.randint(0, s1, (n, A), generator=gen, device=DEV, dtype=torch.int32),
     ], dim=2)
-    states.terminated = torch.rand((B, A), generator=gen, device=DEV) < 0.1
-    states.collided = torch.rand((B, A), generator=gen, device=DEV) < 0.1
+    states.terminated = torch.rand((n, A), generator=gen, device=DEV) < 0.1
+    states.collided = torch.rand((n, A), generator=gen, device=DEV) < 0.1
     err, battles, flags, bumps, episodes = 0.0, 0, 0, 0, 0
     for _ in range(steps):
-        ba = torch.randint(-2, 7, (B, cfg.num_blue_agents), generator=gen,
+        ba = torch.randint(-2, 7, (n, cfg.num_blue_agents), generator=gen,
                            device=DEV, dtype=torch.int32)
-        rnd = torch.rand((B, slab.step_draws), generator=gen, device=DEV)
+        rnd = torch.rand((n, slab.step_draws), generator=gen, device=DEV)
         args = ctf_step_args(slab, states, ba, rnd)
         got = ctf_step_slab(*args)
-        err = max(err, max_abs_err(got, ctf_slab.step_spec(*args)))
+        err = max(err, max_abs_err(got, ctf_slab.step_spec_bool(*args)))
         pos, dirs, term, coll, _, ep_term, rfc, bfc, bbl, brl = got
         battles += int(bbl.sum() + brl.sum())
         flags += int(rfc.sum() + bfc.sum())
-        bumps += int((coll > args[4]).sum())
+        bumps += int((coll & ~args[4]).sum())
         step_count = states.step_count + 1
-        done = (ep_term[:, 0] == 1) | (step_count >= cfg.max_steps)
+        done = ep_term[:, 0] | (step_count >= cfg.max_steps)
         episodes += int(done.sum())
-        states = CtfState(pos.reshape(states.pos.shape), dirs, term.bool(),
-                          coll.bool(), step_count)
-        states = ctf_slab.reset_batch(slab, B, generator=gen, done=done, states=states)
-    check(battles > 0, f"{name}: no battles")
-    check(flags > 0, f"{name}: no flag captures")
-    check(cfg.obstacle_penalty == 0 or cfg.variant != "mvn" or bumps > 0,
+        states = CtfState(pos.reshape(states.pos.shape), dirs, term, coll, step_count)
+        states = ctf_slab.reset_batch(slab, n, generator=gen, done=done, states=states)
+    check(not need_events or battles > 0, f"{name}: no battles")
+    check(not need_events or flags > 0, f"{name}: no flag captures")
+    check(not need_events or cfg.obstacle_penalty == 0 or cfg.variant != "mvn" or bumps > 0,
           f"{name}: no collisions")
-    log(f"ctf_step kernel == step_spec: {name}, {steps} steps at B={B}: "
+    log(f"ctf_step kernel == step_spec: {name}, {steps} steps at B={n}: "
         f"{battles} battles lost, {flags} flag captures, {bumps} new collisions, "
         f"{episodes} episodes ended, max_abs_err {err}")
     return err
@@ -361,18 +368,19 @@ def wildfire_args(slab, states, acts, rnd):
     return (slab.t, states.cells.reshape(B, -1), states.agent_pos.reshape(B, -1), acts, rnd)
 
 
-def check_wildfire_step_kernel(cfg, name, steps, seed):
-    """``wildfire_step_slab`` against ``step_spec`` over chained steps from
-    the batch reset, action ids -2..7 (the invalid ones clip); finished envs
-    get fresh boards under the done mask."""
+def check_wildfire_step_kernel(cfg, name, steps, seed, n=B, need_events=True):
+    """``wildfire_step_slab`` against ``step_spec`` over chained steps of
+    ``n`` envs from the batch reset, action ids -2..7 (the invalid ones
+    clip); finished envs get fresh boards under the done mask.
+    ``need_events``: fail unless fires were put out and trees ignited."""
     slab = wildfire_slab.make_wildfire_slab(cfg, DEV)
     t = slab.t
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    states = wildfire_slab.reset_batch(slab, B, generator=gen)
+    states = wildfire_slab.reset_batch(slab, n, generator=gen)
     err, put_out, ignited, episodes = 0.0, 0, 0, 0
     for _ in range(steps):
-        acts = torch.randint(-2, 8, (B, t.n_agents), generator=gen, device=DEV, dtype=torch.int32)
-        rnd = torch.rand((B, slab.step_draws), generator=gen, device=DEV)
+        acts = torch.randint(-2, 8, (n, t.n_agents), generator=gen, device=DEV, dtype=torch.int32)
+        rnd = torch.rand((n, slab.step_draws), generator=gen, device=DEV)
         args = wildfire_args(slab, states, acts, rnd)
         got = wildfire_step_slab(*args)
         err = max(err, max_abs_err(got, wildfire_slab.step_spec(*args)))
@@ -384,9 +392,10 @@ def check_wildfire_step_kernel(cfg, name, steps, seed):
         episodes += int(done.sum())
         new = WildfireState(cells.reshape(states.cells.shape), pos.reshape(states.agent_pos.shape),
                             step_count, states.extinguished + n_ext[:, 0])
-        states = wildfire_slab.reset_batch(slab, B, generator=gen, done=done, states=new)
-    check(put_out > 0 and ignited > 0, f"{name}: {put_out} fires put out, {ignited} ignitions")
-    log(f"wildfire_step kernel == step_spec: {name}, {steps} steps at B={B}: {put_out} fires "
+        states = wildfire_slab.reset_batch(slab, n, generator=gen, done=done, states=new)
+    check(not need_events or (put_out > 0 and ignited > 0),
+          f"{name}: {put_out} fires put out, {ignited} ignitions")
+    log(f"wildfire_step kernel == step_spec: {name}, {steps} steps at B={n}: {put_out} fires "
         f"put out, {ignited} trees ignited, {episodes} episodes ended, max_abs_err {err}")
     return err
 
@@ -408,6 +417,23 @@ def check_wildfire_stacked(seed):
     log(f"wildfire_step kernel == step_spec: random boards, stacked agents in every other env, "
         f"B={B}: max_abs_err {err}")
     return err
+
+
+def check_misaligned_refused():
+    """No fallback on the card: the Wildfire kernel refuses uniforms off a
+    16-byte boundary (its bulk copies' rule) rather than copy them."""
+    n = 64
+    slab = wildfire_slab.make_wildfire_slab(WF_MAIN, DEV)
+    states = wildfire_slab.reset_batch(slab, n, generator=torch.Generator(device=DEV).manual_seed(0))
+    acts = torch.zeros((n, slab.t.n_agents), dtype=torch.int32, device=DEV)
+    rnd = torch.rand(n * slab.step_draws + 1, device=DEV)[1:].view(n, slab.step_draws)
+    try:
+        wildfire_step_slab(*wildfire_args(slab, states, acts, rnd))
+    except ValueError as e:
+        check("aligned" in str(e), f"misaligned Wildfire uniforms: {e}")
+        log("misaligned Wildfire uniforms: refused")
+        return
+    raise AssertionError("misaligned Wildfire uniforms were taken")
 
 
 def time_ms(fn, iters, windows=5):
@@ -726,6 +752,10 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"  {source}: {line.strip()}")
+    for cfg in (WF_FOUR, WF_MAIN, WF_SPREAD):  # the Wildfire ring's dynamic shared memory
+        C = cfg.size * cfg.size
+        log(f"  wildfire_step.cu: {cfg.size}x{cfg.size}: tiles of {wildfire_slab.tile_envs(C)} "
+            f"envs, ring {wildfire_slab.ring_bytes(C)} bytes of dynamic shared memory a block")
 
     # Phase 2: kernels against their plain versions on the card.
     step_err = max(
@@ -744,6 +774,14 @@ def main():
         check_ctf_step_kernel(CTF_PATROL, "2v2 patrol/patrol_fight, obstacle penalty", 100, seed=31),
         check_ctf_step_kernel(CTF_1V1, "1v1 fight, obstacle penalty", 100, seed=32),
         check_ctf_step_kernel(CTF_3V3, "3v3 capture/patrol/rw", 100, seed=33),
+        # Ragged batches: 8189 and 5 are no multiple of the lane group's
+        # envs per warp or block.
+        check_ctf_step_kernel(CTF_MAIN, "CTF_MAIN, ragged", 10, seed=34, n=RAGGED[0]),
+        check_ctf_step_kernel(CTF_3V3, "3v3, ragged", 10, seed=35, n=RAGGED[0]),
+        check_ctf_step_kernel(CTF_PATROL, "2v2 patrol, ragged", 10, seed=36, n=RAGGED[1],
+                              need_events=False),
+        check_ctf_step_kernel(CTF_1V1, "1v1, ragged", 10, seed=37, n=RAGGED[1],
+                              need_events=False),
     )
     maze_err = max(
         check_maze_step_kernel(MAZE_MAIN, "MAZE_MAIN", 100, seed=40),
@@ -754,7 +792,17 @@ def main():
         check_wildfire_step_kernel(WF_FOUR, "10x10, 4 agents, step penalty", 100, seed=51),
         check_wildfire_step_kernel(WF_SPREAD, "32x32, p_spread 1, p_burnout 0", 100, seed=52),
         check_wildfire_stacked(seed=53),
+        # Ragged batches: 8189 leaves a tail of 5 envs after 1023 full
+        # tiles of 8 (32x32: 2047 tiles of 4 and a tail of 1); 5 is a tail
+        # and no full tile at 16x16, and one tile and a tail of 1 at 32x32.
+        check_wildfire_step_kernel(WF_MAIN, "WF_MAIN, ragged", 10, seed=54, n=RAGGED[0]),
+        check_wildfire_step_kernel(WF_SPREAD, "32x32 spread, ragged", 10, seed=55, n=RAGGED[0]),
+        check_wildfire_step_kernel(WF_MAIN, "WF_MAIN, ragged", 10, seed=56, n=RAGGED[1],
+                                   need_events=False),
+        check_wildfire_step_kernel(WF_SPREAD, "32x32 spread, ragged", 10, seed=57, n=RAGGED[1],
+                                   need_events=False),
     )
+    check_misaligned_refused()
 
     # Phase 3: each path, with the launch counts of its own run.
     launches, (env, *result) = run_counted(collect_main_path)
@@ -820,7 +868,7 @@ def main():
     rnd_c = torch.rand((B, cslab.step_draws), device=DEV)
     ctf_args = ctf_step_args(cslab, ctf_states, ba, rnd_c)
     ctf_ms, ctf_all = time_ms(lambda: ctf_step_slab(*ctf_args), 200)
-    ctf_plain_ms, ctf_plain_all = time_ms(lambda: ctf_slab.step_spec(*ctf_args), 20)
+    ctf_plain_ms, ctf_plain_all = time_ms(lambda: ctf_slab.step_spec_bool(*ctf_args), 20)
     ctf_out = ctf_step_slab(*ctf_args)
     ctf_bytes = sum(x.numel() * x.element_size() for x in ctf_args[1:]) + sum(
         x.numel() * x.element_size() for x in ctf_out)

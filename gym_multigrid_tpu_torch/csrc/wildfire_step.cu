@@ -7,27 +7,47 @@
 // step_spec in gym_multigrid_tpu_torch/ops/wildfire_slab.py and the two agree
 // bit for bit.
 //
-// What bounds it on this card: memory.  An env's step reads its board and
-// one uniform per cell and writes the board back, about 12 bytes per cell
-// (3,128 bytes per env at 16x16 with 2 agents, 25.6 MB for a batch of
-// 8192), against a few integer operations per cell.  The design:
-// - one warp per env, 8 envs to a block of 256 threads.  Lane l holds cells
-//   l, l + 32, l + 64, ... of the board in registers (NK words of 32 cells,
-//   NK a power of two, up to 32 for a 32x32 board), so every load and store
-//   of a row, and of its uniforms, is a run of consecutive words;
-// - the agents' moves (at most 4, one after another, each seeing the moves
-//   before it) run in every lane alike on the same values, with the agents
-//   in fixed-size register arrays indexed only by unrolled loop counters.
-//   The move order is the j-th permutation of the A! table in lexicographic
-//   order (itertools.permutations), decoded digit by digit (factorial
-//   number system) with no table, as csrc/ctf_step.cu does;
-// - the spread stencil reads its neighbours from the board's fire cells
-//   after the extinguish, staged as one bit per cell in shared memory (one
-//   __ballot_sync per word, NK words per warp), with no wrap at the edges.
-//   The TPU kernel's (C, C) adjacency matmul fed the TPU's matrix unit and
-//   is not carried over;
-// - the counts (fires put out, trees ignited) are __popc of ballots, and
-//   "no fire left" one __any_sync per word;
+// What bounds it on this card: memory, once the instructions per cell are
+// few enough.  An env's step reads its board and one uniform per cell and
+// writes the board back, about 12 bytes per cell (3,128 bytes per env at
+// 16x16 with 2 agents, 25.6 MB for a batch of 8192), against a few integer
+// operations per cell.  The design:
+// - persistent blocks, as many as fit on the SMs at once (one wave, sized
+//   by the occupancy calculator), each walking over tiles of T consecutive
+//   envs (tile_envs: 8, or 4 above 512 cells), one warp per env;
+// - a two-stage ring of tiles in shared memory fed by the Tensor Memory
+//   Accelerator: one thread issues two 1-D bulk copies per tile (its boards,
+//   4 T C bytes, and its uniforms, 4 T (C + 1) bytes, both contiguous in the
+//   batch) that complete on the stage's mbarrier.  A block issues its next
+//   tile as soon as the current one has landed, so the next tile's bytes
+//   are in flight while this one computes, and the first tiles of all
+//   blocks, requested alone, arrive first.  With T a multiple of 4
+//   every span's size and offset is a multiple of 16 bytes, as the bulk copy
+//   needs; the wrapper checks that the tensors are 16-byte aligned
+//   (ops.wildfire_slab.tile_spans lists the same spans).  The last B mod T
+//   envs, the ragged tail, take plain loads and stores;
+// - the moves need only pos, acts and the move-order uniform, which each
+//   warp loads before it waits on the tile's barrier, so that the serial
+//   move chain overlaps the copy.  The agents (at most 4, one after
+//   another, each seeing the moves before it) move in every lane alike, in
+//   registers; the order is the j-th permutation of the A! table in
+//   lexicographic order, read from csrc/move_order.cuh's table;
+// - lane l holds cells l, l + 32, l + 64, ... (NK words of 32 cells) read
+//   from shared memory, and writes the new cells back in place; the tile's
+//   boards then leave in one bulk copy from shared to global memory;
+// - the spread stencil works on words: the post-extinguish fire cells are
+//   one ballot word per 32 cells, kept by lane k for word k; each lane
+//   shifts its word and its neighbours' (fetched by __shfl_sync) into the
+//   four neighbour words (north and south by the board's width, west and
+//   east by one, the board's edge columns masked out, with no wrap) and
+//   adds them into three bit planes of the neighbour count, so a cell's
+//   count is three bits and its ignition threshold three selects.  Every
+//   load of a tile's cells and uniforms comes before the first store, so no
+//   loop waits on memory.  The TPU kernel's (C, C) adjacency matmul fed the
+//   TPU's matrix unit and is not carried over;
+// - the counts (fires put out, trees ignited) are summed per lane and
+//   reduced once per env (__reduce_add_sync), "no fire left" one
+//   __any_sync;
 // - the ignition thresholds 1 - (1 - p_spread)^n arrive as float arguments
 //   formed on the host from the numpy float32 table, as the plain version
 //   forms them (no powf here), and the reward is formed with
@@ -37,25 +57,55 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "move_order.cuh"
+
 namespace wildfire {
 namespace {
 
+using move_order::kMoveOrders;
+using move_order::kNumOrders;
+
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarpsPerBlock = 8;
-constexpr int kMaxAgents = 4;
+constexpr int kMaxAgents = 4;    // the move-order table's (csrc/move_order.cuh)
 constexpr int kMaxCells = 1024;  // NK = 32 words; ops.wildfire_slab.MAX_CELLS
 constexpr int kNumActions = 5;
+constexpr int kMaxDevices = 64;
 // Actions: stay (0), left, down, right, up (rows of CTF_ACTION_TO_VEC,
 // applied as x += vec[1], y += vec[0]).
 constexpr int kLeft = 1, kDown = 2, kRight = 3, kUp = 4;
 // WildfireWorld cell types, as in gym_multigrid_tpu_torch/core/world.py.
 constexpr int kEmpty = 0, kTree = 1, kFire = 2, kBurnt = 3;
 
+// Envs per tile (and warps per block): 8, or 4 for boards above 512 cells,
+// so that two stages of a 32x32 tile take 64 KB of shared memory.
+// ops.wildfire_slab.tile_envs gives the same.
+template <int NK>
+__host__ __device__ constexpr int tile_envs() {
+  return NK > 16 ? 4 : 8;
+}
+
 struct Params {
   int B, w, h, n_agents;
   // Ignition probability by burning-neighbour count 1..4 (0 for none).
   float p_ig1, p_ig2, p_ig3, p_ig4;
   float p_burnout, ext_reward, burn_penalty, step_penalty;
+};
+
+// The per-env outputs; the cells leave through their own pointer.
+struct Outputs {
+  int* pos;
+  float* reward;
+  int* n_ext;
+  int* term;
+};
+
+// Lane k's words of the board's geometry: bit l of word k is cell
+// 32 k + l, set if that cell lies in the board's first (left) or last
+// (right) column.  The same for every env, found once per block.
+struct EdgeWords {
+  unsigned left, right;
 };
 
 __device__ __forceinline__ int dx_of(int a) {
@@ -65,22 +115,110 @@ __device__ __forceinline__ int dy_of(int a) {
   return a == kDown ? -1 : (a == kUp ? 1 : 0);
 }
 
-template <int NK>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-step_kernel(const int* __restrict__ cells, const int* __restrict__ pos,
-            const int* __restrict__ acts, const float* __restrict__ rnd,
-            int* __restrict__ cells_out, int* __restrict__ pos_out,
-            float* __restrict__ reward_out, int* __restrict__ ext_out,
-            int* __restrict__ term_out, const Params p) {
-  __shared__ unsigned s_fire[kWarpsPerBlock][NK];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarpsPerBlock + warp;
-  if (b >= p.B) return;  // the whole warp: it owns one env
-  const int C = p.w * p.h, A = p.n_agents;
-  const int* row = cells + (size_t)b * C;
-  const float* u = rnd + (size_t)b * (C + 1);
+// ---- mbarriers and bulk copies (PTX) ----
 
-  // ---- moves, in every lane alike ----
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Waits for the completion of the barrier's phase of the given parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// Global -> shared, completing `bytes` of the barrier's transaction count.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Shared -> global; bulk_stores_read() waits until every such copy has
+// read its shared memory.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(src),
+               "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_stores_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// ---- one env, by one warp ----
+
+// The AA agents move one after another in `order`'s slots, each target
+// clipped to the board and blocked by any agent on it, the mover included.
+template <int AA>
+__device__ __forceinline__ void move_agents(unsigned order, const int (&act)[kMaxAgents],
+                                            int (&xs)[kMaxAgents], int (&ys)[kMaxAgents],
+                                            int w, int h) {
+#pragma unroll
+  for (int slot = 0; slot < AA; ++slot) {
+    const int mover = (order >> (4 * slot)) & 15u;
+    int a = 0, px = 0, py = 0;
+#pragma unroll
+    for (int i = 0; i < AA; ++i)
+      if (i == mover) {
+        a = act[i];
+        px = xs[i];
+        py = ys[i];
+      }
+    const int nx = min(max(px + dx_of(a), 0), w - 1);
+    const int ny = min(max(py + dy_of(a), 0), h - 1);
+    bool occupied = false;
+#pragma unroll
+    for (int i = 0; i < AA; ++i) occupied |= xs[i] == nx && ys[i] == ny;
+    if (!occupied && (nx != px || ny != py)) {
+#pragma unroll
+      for (int i = 0; i < AA; ++i)
+        if (i == mover) {
+          xs[i] = nx;
+          ys[i] = ny;
+        }
+    }
+  }
+}
+
+// `wait` is called after the moves and before `row` and `u_cell` are read:
+// for a tile it waits on the ring's barrier.  u_cell[c] is cell c's
+// uniform; row_out may alias row.  Every load of row and u_cell comes
+// before the first store to row_out, and the words the stencil needs move
+// between lanes by shuffles, so nothing in the cell loops waits on memory
+// that an earlier store might have changed.
+template <int NK, typename Wait>
+__device__ __forceinline__ void step_env(int b, int lane, const Params& p, const int* pos,
+                                         const int* acts, const float* rnd, Wait wait,
+                                         const int* row, const float* u_cell, int* row_out,
+                                         const unsigned* orders, EdgeWords edge,
+                                         const Outputs& out) {
+  const int C = p.w * p.h, A = p.n_agents;
+
+  // ---- moves, in every lane alike, on loads issued before the wait ----
   int xs[kMaxAgents], ys[kMaxAgents], act[kMaxAgents];
 #pragma unroll
   for (int i = 0; i < kMaxAgents; ++i) {
@@ -91,83 +229,64 @@ step_kernel(const int* __restrict__ cells, const int* __restrict__ pos,
       act[i] = min(max(acts[(size_t)b * A + i], 0), kNumActions - 1);
     }
   }
-  int fact = 1;
-  for (int k = 2; k <= A; ++k) fact *= k;
-  int perm_j = min(__float2int_rz(__fmul_rn(u[0], (float)fact)), fact - 1);
+  const float u0 = rnd[(size_t)b * (C + 1)];
+  const int fact = move_order::num_orders(A);
+  const int perm_j = min(__float2int_rz(__fmul_rn(u0, (float)fact)), fact - 1);
   // A negative index selects no permutation: agent 0 moves in every slot.
-  const bool shuffled = perm_j >= 0;
-  int radix = fact;  // (A - slot)! before slot's digit is taken
-  unsigned taken = 0u;
+  const unsigned order = perm_j >= 0 ? orders[move_order::move_order_base(A) + perm_j] : 0u;
+  switch (A) {
+    case 1: move_agents<1>(order, act, xs, ys, p.w, p.h); break;
+    case 2: move_agents<2>(order, act, xs, ys, p.w, p.h); break;
+    case 3: move_agents<3>(order, act, xs, ys, p.w, p.h); break;
+    default: move_agents<4>(order, act, xs, ys, p.w, p.h); break;
+  }
+
+  wait();
+
+  // ---- the env's cells and uniforms, lane l holding cells l + 32 k ----
+  int v[NK];
+  float uc[NK];
 #pragma unroll
-  for (int slot = 0; slot < kMaxAgents; ++slot) {
-    if (slot >= A) continue;
-    int mover = 0;
-    if (shuffled) {
-      // The r-th agent (0-based) that has not moved yet moves now: r is the
-      // slot's digit of j in the factorial number system.
-      radix /= A - slot;
-      const int r_pick = perm_j / radix;
-      perm_j -= r_pick * radix;
-      int cnt = 0;
-#pragma unroll
-      for (int i = 0; i < kMaxAgents; ++i) {
-        const bool free_i = i < A && !((taken >> i) & 1u);
-        if (free_i && cnt == r_pick) mover = i;
-        cnt += free_i;
-      }
-      taken |= 1u << mover;
-    }
-    int a = 0, px = 0, py = 0;
-#pragma unroll
-    for (int i = 0; i < kMaxAgents; ++i)
-      if (i == mover) {
-        a = act[i];
-        px = xs[i];
-        py = ys[i];
-      }
-    // Clipped to the board; blocked by any agent on the target, the mover
-    // itself included.
-    const int nx = min(max(px + dx_of(a), 0), p.w - 1);
-    const int ny = min(max(py + dy_of(a), 0), p.h - 1);
-    bool occupied = false;
-#pragma unroll
-    for (int i = 0; i < kMaxAgents; ++i) occupied |= i < A && xs[i] == nx && ys[i] == ny;
-    if (!occupied && (nx != px || ny != py)) {
-#pragma unroll
-      for (int i = 0; i < kMaxAgents; ++i)
-        if (i == mover) {
-          xs[i] = nx;
-          ys[i] = ny;
-        }
-    }
+  for (int k = 0; k < NK; ++k) {
+    const int c = 32 * k + lane;
+    v[k] = c < C ? row[c] : kEmpty;  // a slot past the board is never fire
+    uc[k] = c < C ? u_cell[c] : 1.f;
   }
 
   // ---- extinguish: a fire cell under any agent becomes burnt ----
   int under[kMaxAgents];
 #pragma unroll
   for (int i = 0; i < kMaxAgents; ++i) under[i] = i < A ? ys[i] * p.w + xs[i] : -1;
-  int v[NK];
   int n_ext = 0;
+  unsigned fire = 0u;  // lane k < NK: word k of the post-extinguish fire cells
 #pragma unroll
   for (int k = 0; k < NK; ++k) {
     const int c = 32 * k + lane;
-    v[k] = c < C ? row[c] : kEmpty;  // a slot past the board is never fire
     bool occ = false;
 #pragma unroll
     for (int i = 0; i < kMaxAgents; ++i) occ |= under[i] == c;
-    const bool put_out = c < C && occ && v[k] == kFire;
-    n_ext += __popc(__ballot_sync(kFull, put_out));
+    const bool put_out = occ && v[k] == kFire;
+    n_ext += put_out;
     if (put_out) v[k] = kBurnt;
+    const unsigned word = __ballot_sync(kFull, v[k] == kFire);
+    if (lane == k) fire = word;
   }
 
-  // ---- the post-extinguish fire cells, one bit each, shared by the warp ----
-#pragma unroll
-  for (int k = 0; k < NK; ++k) {
-    const unsigned word = __ballot_sync(kFull, v[k] == kFire);
-    if (lane == 0) s_fire[warp][k] = word;
-  }
-  __syncwarp();
-  auto fire_at = [&](int c) -> int { return (s_fire[warp][c >> 5] >> (c & 31)) & 1u; };
+  // ---- neighbour counts as bit planes, lane k for word k ----
+  // Word j of the fire cells, 0 off either end of the board.
+  auto fire_word = [&](int j) -> unsigned {
+    const unsigned w = __shfl_sync(kFull, fire, j & 31);
+    return j >= 0 && j < NK ? w : 0u;
+  };
+  const int q = p.w >> 5, r = p.w & 31;
+  const unsigned north = __funnelshift_l(fire_word(lane - q - 1), fire_word(lane - q), r);
+  const unsigned south = __funnelshift_r(fire_word(lane + q), fire_word(lane + q + 1), r);
+  const unsigned west = __funnelshift_l(fire_word(lane - 1), fire, 1) & ~edge.left;
+  const unsigned east = __funnelshift_r(fire, fire_word(lane + 1), 1) & ~edge.right;
+  // north + south + west + east, bit-sliced: t1 + 2 c1 + t2 + 2 c2.
+  const unsigned t1 = north ^ south, c1 = north & south;
+  const unsigned t2 = west ^ east, c2 = west & east;
+  const unsigned plane0 = t1 ^ t2, plane1 = (c1 ^ c2) | (t1 & t2), plane2 = c1 & c2;
 
   // ---- spread and burnout on one uniform per cell ----
   int n_ig = 0;
@@ -175,34 +294,32 @@ step_kernel(const int* __restrict__ cells, const int* __restrict__ pos,
 #pragma unroll
   for (int k = 0; k < NK; ++k) {
     const int c = 32 * k + lane;
-    bool ignite = false;
+    const bool b0 = (__shfl_sync(kFull, plane0, k) >> lane) & 1u;
+    const bool b1 = (__shfl_sync(kFull, plane1, k) >> lane) & 1u;
+    const bool b2 = (__shfl_sync(kFull, plane2, k) >> lane) & 1u;
     if (c < C) {
-      const int x = c % p.w;
-      const int nb = (c >= p.w ? fire_at(c - p.w) : 0) + (c + p.w < C ? fire_at(c + p.w) : 0) +
-                     (x != 0 ? fire_at(c - 1) : 0) + (x != p.w - 1 ? fire_at(c + 1) : 0);
-      const float p_ig = nb == 1 ? p.p_ig1
-                         : nb == 2 ? p.p_ig2
-                         : nb == 3 ? p.p_ig3
-                         : nb == 4 ? p.p_ig4
-                                   : 0.f;
-      const float uc = u[1 + c];
-      ignite = v[k] == kTree && uc < p_ig;
-      const bool burnout = v[k] == kFire && uc < p.p_burnout;
-      const int out = burnout ? kBurnt : (ignite ? kFire : v[k]);
-      cells_out[(size_t)b * C + c] = out;
-      burning |= out == kFire;
+      // The threshold for b0 + 2 b1 + 4 b2 burning neighbours (0 for none).
+      const float p01 = b0 ? p.p_ig1 : 0.f, p23 = b0 ? p.p_ig3 : p.p_ig2;
+      const float p_ig = b2 ? p.p_ig4 : (b1 ? p23 : p01);
+      const bool ignite = v[k] == kTree && uc[k] < p_ig;
+      const bool burnout = v[k] == kFire && uc[k] < p.p_burnout;
+      const int cell = burnout ? kBurnt : (ignite ? kFire : v[k]);
+      row_out[c] = cell;
+      n_ig += ignite;
+      burning |= cell == kFire;
     }
-    n_ig += __popc(__ballot_sync(kFull, ignite));
   }
+  n_ext = __reduce_add_sync(kFull, n_ext);
+  n_ig = __reduce_add_sync(kFull, n_ig);
   const bool any_fire = __any_sync(kFull, burning);
 
   if (lane == 0) {
     const float reward = __fsub_rn(
         __fsub_rn(__fmul_rn(p.ext_reward, (float)n_ext), __fmul_rn(p.burn_penalty, (float)n_ig)),
         p.step_penalty);
-    reward_out[b] = reward;
-    ext_out[b] = n_ext;
-    term_out[b] = !any_fire;
+    out.reward[b] = reward;
+    out.n_ext[b] = n_ext;
+    out.term[b] = !any_fire;
   }
   if (lane < A) {
     int x = 0, y = 0;
@@ -212,18 +329,134 @@ step_kernel(const int* __restrict__ cells, const int* __restrict__ pos,
         x = xs[i];
         y = ys[i];
       }
-    pos_out[(size_t)b * 2 * A + 2 * lane] = x;
-    pos_out[(size_t)b * 2 * A + 2 * lane + 1] = y;
+    out.pos[(size_t)b * 2 * A + 2 * lane] = x;
+    out.pos[(size_t)b * 2 * A + 2 * lane + 1] = y;
   }
 }
 
+// ---- the persistent kernel ----
+
 template <int NK>
-cudaError_t launch(const void* const* in, void* const* out, const Params& p,
+__global__ void __launch_bounds__(tile_envs<NK>() * 32)
+step_kernel(const int* __restrict__ cells, const int* __restrict__ pos,
+            const int* __restrict__ acts, const float* __restrict__ rnd,
+            int* __restrict__ cells_out, const Outputs out, const Params p) {
+  constexpr int T = tile_envs<NK>();
+  // Two stages, each [T boards of C int32][T rows of C + 1 float32].
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ __align__(8) unsigned long long full_bar[2];
+  __shared__ unsigned s_orders[kNumOrders];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int C = p.w * p.h;
+  const int n_full = p.B / T;
+  const uint32_t cells_bytes = 4u * T * C, rnd_bytes = 4u * T * (C + 1);
+  const uint32_t stage_bytes = cells_bytes + rnd_bytes;
+  const uint32_t ring0 = smem_addr(ring);
+  const uint32_t bar0 = smem_addr(&full_bar[0]), bar1 = smem_addr(&full_bar[1]);
+
+  // One thread sets up the barriers and issues the block's first tile; the
+  // block writes its tables meanwhile.
+  auto issue = [&](int tile, int stage) {
+    const uint32_t bar = stage ? bar1 : bar0, dst = ring0 + stage * stage_bytes;
+    mbar_expect_tx(bar, stage_bytes);
+    bulk_load(dst, cells + (size_t)tile * T * C, cells_bytes, bar);
+    bulk_load(dst + cells_bytes, rnd + (size_t)tile * T * (C + 1), rnd_bytes, bar);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if ((int)blockIdx.x < n_full) issue(blockIdx.x, 0);
+  }
+  for (int i = threadIdx.x; i < kNumOrders; i += blockDim.x) s_orders[i] = kMoveOrders[i];
+  EdgeWords edge{0u, 0u};
+#pragma unroll
+  for (int k = 0; k < NK; ++k) {
+    const int x = (32 * k + lane) % p.w;
+    const unsigned first = __ballot_sync(kFull, x == 0), last = __ballot_sync(kFull, x == p.w - 1);
+    if (lane == k) edge = EdgeWords{first, last};
+  }
+  __syncthreads();
+
+  int use = 0;  // tiles this block has taken; stage use & 1, its parity (use >> 1) & 1
+  for (int tile = blockIdx.x; tile < n_full; tile += gridDim.x, ++use) {
+    const int stage = use & 1;
+    unsigned char* base = ring + stage * stage_bytes;
+    int* s_row = reinterpret_cast<int*>(base) + warp * C;
+    const float* s_u = reinterpret_cast<const float*>(base + cells_bytes) + warp * (C + 1) + 1;
+    const uint32_t bar = stage ? bar1 : bar0, parity = (use >> 1) & 1;
+    // Once this tile has landed, the next one goes into the other stage,
+    // as soon as the bulk store of that stage's last tile has read it: one
+    // tile in flight ahead, so that the first tiles of all blocks arrive
+    // first, and no wait on a store until its stage is needed again.
+    auto wait = [&] {
+      mbar_wait(bar, parity);
+      if (threadIdx.x == 0 && tile + (int)gridDim.x < n_full) {
+        bulk_stores_read();
+        issue(tile + gridDim.x, stage ^ 1);
+      }
+    };
+    step_env<NK>(tile * T + warp, lane, p, pos, acts, rnd, wait, s_row, s_u, s_row, s_orders, edge,
+                 out);
+    // The new cells were written through the generic proxy; the bulk store
+    // reads them through the async proxy.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0)
+      bulk_store(cells_out + (size_t)tile * T * C, ring0 + stage * stage_bytes, cells_bytes);
+  }
+
+  // The ragged tail, with plain loads, by the block that would take the
+  // next tile.
+  const int b = n_full * T + warp;
+  if (blockIdx.x == n_full % gridDim.x && b < p.B) {
+    const int* row = cells + (size_t)b * C;
+    const float* u = rnd + (size_t)b * (C + 1) + 1;
+    step_env<NK>(b, lane, p, pos, acts, rnd, [] {}, row, u, cells_out + (size_t)b * C, s_orders,
+                 edge, out);
+  }
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+template <int NK>
+cudaError_t launch(const void* const* in, int* cells_out, const Outputs& out, const Params& p,
                    cudaStream_t stream) {
-  const int blocks = (p.B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  step_kernel<NK><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-      (const int*)in[0], (const int*)in[1], (const int*)in[2], (const float*)in[3],
-      (int*)out[0], (int*)out[1], (float*)out[2], (int*)out[3], (int*)out[4], p);
+  constexpr int T = tile_envs<NK>();
+  auto kernel = step_kernel<NK>;
+  const int C = p.w * p.h;
+  const int ring_bytes = 2 * 4 * T * (2 * C + 1);
+  // Per device: the SM count, the dynamic shared memory this variant was
+  // allowed, and the blocks that fit on an SM for the last board size.
+  static int sms[kMaxDevices], allowed[kMaxDevices], fit_C[kMaxDevices], fit[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  if (allowed[dev] < ring_bytes) {
+    // The variant's largest ring: its widest board.
+    const int most = 2 * 4 * T * (2 * 32 * NK + 1);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err != cudaSuccess) return err;
+    allowed[dev] = most;
+  }
+  if (fit_C[dev] != C) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit[dev], kernel, T * 32, ring_bytes);
+    if (err != cudaSuccess) return err;
+    if (fit[dev] < 1) return cudaErrorInvalidConfiguration;
+    fit_C[dev] = C;
+  }
+  // One wave, with the tiles spread evenly over its blocks.
+  const int n_full = p.B / T;
+  const int most_blocks = sms[dev] * fit[dev];
+  const int per_block = (n_full + most_blocks - 1) / most_blocks;
+  const int blocks = n_full == 0 ? 1 : (n_full + per_block - 1) / per_block;
+  kernel<<<blocks, T * 32, ring_bytes, stream>>>((const int*)in[0], (const int*)in[1],
+                                                  (const int*)in[2], (const float*)in[3],
+                                                  cells_out, out, p);
   return cudaGetLastError();
 }
 
@@ -232,15 +465,17 @@ cudaError_t launch(const void* const* in, void* const* out, const Params& p,
 
 // cells (B, width * height) int32, flat index y * width + x; pos (B, 2A)
 // int32 [x0, y0, x1, ...]; acts (B, A) int32; rnd (B, 1 + width * height)
-// float32 [move order, one per cell].  Outputs: cells and pos of the same
-// shapes, reward (B, 1) float32, n_ext and term (B, 1) int32.  p_ig1..4:
-// ignition probability by burning-neighbour count.  Launches on `stream`
-// and returns the launch's cudaError_t.
+// float32 [move order, one per cell].  cells, rnd and cells_out must be
+// 16-byte aligned (the bulk copies' rule), and `tile` must be the envs per
+// tile of this board (ops.wildfire_slab.tile_envs).  Outputs: cells and pos
+// of the same shapes, reward (B, 1) float32, n_ext and term (B, 1) int32.
+// p_ig1..4: ignition probability by burning-neighbour count.  Launches on
+// `stream` and returns the launch's cudaError_t.
 extern "C" int wildfire_step(const void* cells, const void* pos, const void* acts,
                              const void* rnd, void* cells_out, void* pos_out,
                              void* reward, void* n_ext, void* term, int B,
-                             int width, int height, int n_agents, float p_ig1,
-                             float p_ig2, float p_ig3, float p_ig4,
+                             int width, int height, int n_agents, int tile,
+                             float p_ig1, float p_ig2, float p_ig3, float p_ig4,
                              float p_burnout, float ext_reward,
                              float burn_penalty, float step_penalty,
                              void* stream) {
@@ -249,16 +484,22 @@ extern "C" int wildfire_step(const void* cells, const void* pos, const void* act
   if (B < 1 || n_agents < 1 || n_agents > kMaxAgents || width < 1 || height < 1 ||
       C > kMaxCells)
     return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)cells | (uintptr_t)rnd | (uintptr_t)cells_out) & 15u)
+    return (int)cudaErrorMisalignedAddress;
   const Params p{B, width, height, n_agents, p_ig1, p_ig2, p_ig3, p_ig4,
                  p_burnout, ext_reward, burn_penalty, step_penalty};
   const void* in[] = {cells, pos, acts, rnd};
-  void* out[] = {cells_out, pos_out, reward, n_ext, term};
+  const Outputs out{(int*)pos_out, (float*)reward, (int*)n_ext, (int*)term};
   const int words = (C + 31) / 32;
-  auto run = words <= 1    ? launch<1>
-             : words <= 2  ? launch<2>
-             : words <= 4  ? launch<4>
-             : words <= 8  ? launch<8>
-             : words <= 16 ? launch<16>
-                           : launch<32>;
-  return (int)run(in, out, p, (cudaStream_t)stream);
+  const int nk = words <= 1 ? 1 : words <= 2 ? 2 : words <= 4 ? 4 : words <= 8 ? 8
+               : words <= 16 ? 16 : 32;
+  const int want_tile = nk > 16 ? tile_envs<32>() : tile_envs<16>();
+  if (tile != want_tile) return (int)cudaErrorInvalidValue;
+  auto run = nk == 1    ? launch<1>
+             : nk == 2  ? launch<2>
+             : nk == 4  ? launch<4>
+             : nk == 8  ? launch<8>
+             : nk == 16 ? launch<16>
+                        : launch<32>;
+  return (int)run(in, (int*)cells_out, out, p, (cudaStream_t)stream);
 }

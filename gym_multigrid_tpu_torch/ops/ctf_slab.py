@@ -9,7 +9,11 @@ Counterpart of ``gym_multigrid_tpu/ops/pallas_ctf.py``: its Pallas kernel
 
 * :func:`ctf_step_slab` takes the plain version for tensors on the CPU and
   launches the kernel for CUDA tensors.  On the card the kernel is the
-  only implementation: there is no fallback.
+  only implementation: there is no fallback.  It takes and returns the
+  batch state's own types (``terminated``/``collided`` and every flag as
+  bool) and the board as one flag byte per cell (:func:`cell_flags`,
+  built once per slab); :func:`step_spec` keeps the JAX step's int32
+  interface, and :func:`step_spec_bool` casts around it.
 * The reset has no kernel, here as in the JAX package (which has one
   ``pallas_call``, the step): :func:`reset_spec` runs as PyTorch tensor
   ops on whatever device its inputs are on.
@@ -135,6 +139,25 @@ def ctf_static_inputs(cfg: CtfConfig, device="cpu"):
         torch.as_tensor(np.ascontiguousarray(x), device=device)
         for x in (cells, border.T, pool.T)
     )
+
+
+#: Weight of each row of ``cells`` (can_enter, blue_mask, red_mask,
+#: obstacle_mask) in the step kernel's flag byte (its kCanEnter, kBlueOwn,
+#: kRedOwn, kObstacle).
+CELL_FLAG_BITS = (1, 2, 4, 8)
+
+
+def cell_flags(cells):
+    """(N,) uint8: one flag byte per cell from the (4, N) ``cells`` rows,
+    bit ``CELL_FLAG_BITS[r]`` set where row r is positive."""
+    weights = torch.tensor(CELL_FLAG_BITS, dtype=torch.uint8, device=cells.device)
+    return ((cells > 0).to(torch.uint8) * weights[:, None]).sum(dim=0, dtype=torch.uint8)
+
+
+def cell_planes(flags):
+    """The (4, N) int32 0/1 ``cells`` rows back from :func:`cell_flags`."""
+    weights = torch.tensor(CELL_FLAG_BITS, dtype=torch.uint8, device=flags.device)
+    return ((flags[None, :] & weights[:, None]) != 0).to(torch.int32)
 
 
 def n_perm_draws(t: CtfKTables) -> int:
@@ -367,6 +390,17 @@ def step_spec(t: CtfKTables, pos, dirs, term, coll, blue_actions, rnd, cells, bo
     )
 
 
+def step_spec_bool(t: CtfKTables, pos, dirs, term, coll, blue_actions, rnd, flags, border, pool):
+    """:func:`step_spec` with the kernel's interface: ``term``/``coll``
+    (B, A) bool and the flag bytes of :func:`cell_flags` in; every flag out
+    (term, coll, episode_term, rfc, bfc, bbl, brl) bool."""
+    out = step_spec(t, pos, dirs, term.to(torch.int32), coll.to(torch.int32), blue_actions,
+                    rnd, cell_planes(flags), border, pool)
+    pos, dirs, term, coll, reward, *rest = out
+    return (pos, dirs, term.to(torch.bool), coll.to(torch.bool), reward,
+            *(x.to(torch.bool) for x in rest))
+
+
 def check_envelope(t: CtfKTables, n_border: int = 0, n_pool: int = 0):
     """Raise unless the step kernel takes this config: 2 to 8 agents,
     known policy kinds, a board of at most ``MAX_CELLS`` cells, and patrol
@@ -398,13 +432,13 @@ def _policy_arrays(t: CtfKTables, device: torch.device):
     return kinds.to(device), p_opt.to(device)
 
 
-def ctf_step_slab(t: CtfKTables, pos, dirs, term, coll, blue_actions, rnd, cells, border, pool):
-    """One transition of the batch: :func:`step_spec` for CPU tensors, the
-    CUDA kernel ``csrc/ctf_step.cu`` for CUDA tensors (new output tensors;
-    the inputs are not changed).  Same arguments and results as
-    :func:`step_spec`."""
+def ctf_step_slab(t: CtfKTables, pos, dirs, term, coll, blue_actions, rnd, flags, border, pool):
+    """One transition of the batch: :func:`step_spec_bool` for CPU tensors,
+    the CUDA kernel ``csrc/ctf_step.cu`` for CUDA tensors (new output
+    tensors; the inputs are not changed).  Same arguments and results as
+    :func:`step_spec_bool`."""
     if pos.device.type == "cpu":
-        return step_spec(t, pos, dirs, term, coll, blue_actions, rnd, cells, border, pool)
+        return step_spec_bool(t, pos, dirs, term, coll, blue_actions, rnd, flags, border, pool)
     if pos.device.type != "cuda":
         raise ValueError(f"no CtF step for tensors on {pos.device}")
     B, A, nb, nr = pos.shape[0], t.n_blue + t.n_red, t.n_blue, t.n_red
@@ -417,11 +451,11 @@ def ctf_step_slab(t: CtfKTables, pos, dirs, term, coll, blue_actions, rnd, cells
     for name, x, dtype, shape in (
         ("pos", pos, torch.int32, (B, 2 * A)),
         ("dirs", dirs, torch.int32, (B, A)),
-        ("term", term, torch.int32, (B, A)),
-        ("coll", coll, torch.int32, (B, A)),
+        ("term", term, torch.bool, (B, A)),
+        ("coll", coll, torch.bool, (B, A)),
         ("blue_actions", blue_actions, torch.int32, (B, nb)),
         ("rnd", rnd, torch.float32, (B, R)),
-        ("cells", cells, torch.int32, (4, t.s0 * t.s1)),
+        ("flags", flags, torch.uint8, (t.s0 * t.s1,)),
         ("border", border, torch.int32, (2, n_border)),
         ("pool", pool, torch.int32, (2, n_pool)),
     ):
@@ -431,9 +465,9 @@ def ctf_step_slab(t: CtfKTables, pos, dirs, term, coll, blue_actions, rnd, cells
         torch.empty_like(pos), torch.empty_like(dirs), torch.empty_like(term),
         torch.empty_like(coll),
         torch.empty((B, 1), dtype=torch.float32, device=dev),
-        *(torch.empty((B, 1), dtype=torch.int32, device=dev) for _ in range(3)),
-        torch.empty((B, nb), dtype=torch.int32, device=dev),
-        torch.empty((B, nr), dtype=torch.int32, device=dev),
+        *(torch.empty((B, 1), dtype=torch.bool, device=dev) for _ in range(3)),
+        torch.empty((B, nb), dtype=torch.bool, device=dev),
+        torch.empty((B, nr), dtype=torch.bool, device=dev),
     )
     # Float constants: doubles rounded to float32 once, as the plain
     # version's f32() does; ctypes passes each as a C float.
@@ -441,7 +475,7 @@ def ctf_step_slab(t: CtfKTables, pos, dirs, term, coll, blue_actions, rnd, cells
     with torch.cuda.device(dev):
         err = kernels.ctf_step(
             pos.data_ptr(), dirs.data_ptr(), term.data_ptr(), coll.data_ptr(),
-            blue_actions.data_ptr(), rnd.data_ptr(), cells.data_ptr(),
+            blue_actions.data_ptr(), rnd.data_ptr(), flags.data_ptr(),
             border.data_ptr(), pool.data_ptr(), kinds.data_ptr(), p_opt.data_ptr(),
             *(o.data_ptr() for o in outs),
             B, nb, nr, int(t.mvn), t.s0, t.s1, t.bound0, t.bound1,
@@ -525,6 +559,7 @@ class CtfSlab:
     device: torch.device
     t: CtfKTables
     cells: torch.Tensor  # (4, N) int32
+    flags: torch.Tensor  # (N,) uint8, cell_flags(cells): what the step reads
     border: torch.Tensor  # (2, nb) int32
     pool: torch.Tensor  # (2, np) int32
     bterr: torch.Tensor  # (2, n_bt) int32
@@ -555,8 +590,9 @@ def make_ctf_slab(cfg: CtfConfig, device) -> CtfSlab:
     if device.type == "cuda":
         check_envelope(t, border.shape[1], pool.shape[1])
     bterr, rterr = ctf_reset_inputs(cfg, device)
-    return CtfSlab(cfg, device, t, cells.to(device), border.to(device), pool.to(device),
-                   bterr, rterr)
+    cells = cells.to(device)
+    return CtfSlab(cfg, device, t, cells, cell_flags(cells), border.to(device),
+                   pool.to(device), bterr, rterr)
 
 
 def step_batch(
@@ -584,11 +620,11 @@ def step_batch(
         t,
         states.pos.reshape(B, 2 * A),
         states.dir,
-        states.terminated.to(torch.int32),
-        states.collided.to(torch.int32),
+        states.terminated,
+        states.collided,
         blue_actions.reshape(B, -1).to(torch.int32).contiguous(),
         rnd,
-        slab.cells,
+        slab.flags,
         slab.border,
         slab.pool,
     )
@@ -596,8 +632,8 @@ def step_batch(
     new_states = CtfState(
         pos=pos.reshape(B, A, 2),
         dir=dirs,
-        terminated=term.to(torch.bool),
-        collided=coll.to(torch.bool),
+        terminated=term,
+        collided=coll,
         step_count=step_count,
     )
     obs = encode(slab.cfg, new_states) if encode_obs else None
@@ -605,14 +641,14 @@ def step_batch(
     if with_info:
         step_info = dict(
             info(slab.cfg, new_states),
-            red_flag_captured=rfc[:, 0].to(torch.bool),
-            blue_flag_captured=bfc[:, 0].to(torch.bool),
+            red_flag_captured=rfc[:, 0],
+            blue_flag_captured=bfc[:, 0],
             agent_terminated=new_states.terminated,
-            battle_blue_lost=bbl.to(torch.bool),
-            battle_red_lost=brl.to(torch.bool),
+            battle_blue_lost=bbl,
+            battle_red_lost=brl,
         )
     return (
-        new_states, obs, reward[:, 0], ep_term[:, 0].to(torch.bool),
+        new_states, obs, reward[:, 0], ep_term[:, 0],
         step_count >= t.max_steps, step_info,
     )
 

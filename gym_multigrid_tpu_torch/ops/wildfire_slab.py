@@ -10,7 +10,10 @@ and of ``gym_multigrid_tpu/ops/pallas_wildfire.py``: the Pallas kernel
 
 * :func:`wildfire_step_slab` takes the plain version for tensors on the
   CPU and launches the kernel for CUDA tensors.  On the card the kernel is
-  the only implementation: there is no fallback.
+  the only implementation: there is no fallback.  The kernel copies tiles
+  of :func:`tile_envs` consecutive envs into shared memory in bulk
+  (:func:`tile_spans`), so ``cells`` and ``rnd`` must be 16-byte aligned;
+  the wrapper raises on a tensor that is not.
 * The spread counts burning neighbours with four shifted copies of the
   board (:func:`neighbor_fires`, JAX's ``_neighbor_fires``).  JAX's other
   form, a (C, C) adjacency matmul, exists for the TPU's matrix unit and is
@@ -160,6 +163,33 @@ def step_spec(t: WfTables, cells, pos, acts, rnd):
     return cells, pos_out, reward, n_ext, terminated.to(torch.int32)
 
 
+def tile_envs(n_cells: int) -> int:
+    """Envs in one tile of the step kernel (its ``tile_envs<NK>``): 8, or 4
+    for boards above 512 cells, so that two stages of a 32x32 tile fit in
+    64 KB of shared memory.  A multiple of 4, so that every span of
+    :func:`tile_spans` is a multiple of 16 bytes."""
+    return 4 if n_cells > 512 else 8
+
+
+def ring_bytes(n_cells: int) -> int:
+    """Shared memory of the kernel's two-stage ring: per stage, a tile's
+    boards (int32) and its uniforms (float32, ``1 + C`` per env)."""
+    return 2 * 4 * tile_envs(n_cells) * (2 * n_cells + 1)
+
+
+def tile_spans(n_cells: int, B: int):
+    """The step kernel's bulk copies for a batch of ``B`` boards of
+    ``n_cells`` cells: ``(spans, tail)``, where ``spans[i]`` is full tile
+    i's ``(cells byte offset, cells bytes, rnd byte offset, rnd bytes)``
+    into the ``(B, C)`` int32 boards and the ``(B, 1 + C)`` float32
+    uniforms, and ``tail`` the envs past the last full tile, which the
+    kernel reads with plain loads."""
+    T, C = tile_envs(n_cells), n_cells
+    full = B // T
+    spans = [(4 * i * T * C, 4 * T * C, 4 * i * T * (C + 1), 4 * T * (C + 1)) for i in range(full)]
+    return spans, B - full * T
+
+
 def check_envelope(t: WfTables):
     """Raise unless the step kernel takes this config: at most
     ``MAX_AGENTS`` agents and ``MAX_CELLS`` cells."""
@@ -178,7 +208,8 @@ def wildfire_step_slab(t: WfTables, cells, pos, acts, rnd):
     """One transition of the batch: :func:`step_spec` for CPU tensors, the
     CUDA kernel ``csrc/wildfire_step.cu`` for CUDA tensors (new output
     tensors; the inputs are not changed).  Same arguments and results as
-    :func:`step_spec`."""
+    :func:`step_spec`; on the card ``cells`` and ``rnd`` must be 16-byte
+    aligned, as every tensor PyTorch allocates is."""
     if cells.device.type == "cpu":
         return step_spec(t, cells, pos, acts, rnd)
     if cells.device.type != "cuda":
@@ -195,6 +226,12 @@ def wildfire_step_slab(t: WfTables, cells, pos, acts, rnd):
         ("rnd", rnd, torch.float32, (B, step_rnd_width(t))),
     ):
         _build.check_arg(name, x, dtype, shape, dev)
+    for name, x in (("cells", cells), ("rnd", rnd)):
+        if x.data_ptr() % 16:
+            raise ValueError(
+                f"{name}: the Wildfire step kernel copies tiles in bulk and needs a "
+                f"16-byte aligned tensor, got address {x.data_ptr():#x}"
+            )
     outs = (
         torch.empty_like(cells), torch.empty_like(pos),
         torch.empty((B, 1), dtype=torch.float32, device=dev),
@@ -209,7 +246,7 @@ def wildfire_step_slab(t: WfTables, cells, pos, acts, rnd):
         err = kernels.wildfire_step(
             cells.data_ptr(), pos.data_ptr(), acts.data_ptr(), rnd.data_ptr(),
             *(o.data_ptr() for o in outs),
-            B, t.width, t.height, A,
+            B, t.width, t.height, A, tile_envs(C),
             *ignite_thresholds(t)[1:], t.p_burnout,
             t.ext_reward, t.burn_penalty, t.step_penalty,
             torch.cuda.current_stream(dev).cuda_stream,

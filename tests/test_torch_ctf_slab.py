@@ -147,12 +147,49 @@ def test_step_spec_matches_pallas_kernel_in_interpret_mode(name):
     want = jpc.ctf_step_slab(
         jt, *(jnp.asarray(x) for x in (*state, ba, rnd)), cells, (border, pool), True
     )
-    # On CPU tensors the wrapper runs the plain version.
+    # On CPU tensors the wrapper runs the plain version, with the kernel's
+    # interface: bool term/coll and flags, one flag byte per cell.
+    pos, dirs, term, coll = (torch.from_numpy(x) for x in state)
+    tcells, tborder, tpool = tslab.ctf_static_inputs(tcfg)
     got = tslab.ctf_step_slab(
-        tt, *(torch.from_numpy(x) for x in (*state, ba, rnd)), *tslab.ctf_static_inputs(tcfg)
+        tt, pos, dirs, term.bool(), coll.bool(), torch.from_numpy(ba), torch.from_numpy(rnd),
+        tslab.cell_flags(tcells), tborder, tpool,
     )
-    for g, w in zip(got, want):
-        _eq(g, w)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i in (0, 1, 4):  # pos, dirs, reward
+            _eq(g, w)
+        else:
+            assert g.dtype == torch.bool
+            _eq(g.to(torch.int32), w)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_wrapper_on_bool_state_equals_step_spec_on_int32(name):
+    """``ctf_step_slab`` on the CPU, given bool term/coll and the flag
+    bytes, returns what ``step_spec`` returns on the int32 state and the
+    four cell planes, its flags cast to bool; over chained steps, so that
+    collided and terminated agents come in."""
+    _, tcfg = cfg_pair(name)
+    slab = tslab.make_ctf_slab(tcfg, "cpu")
+    tt = slab.t
+    rng = np.random.default_rng(40 + sorted(CONFIGS).index(name))
+    n = 32
+    pos, dirs, term, coll = (torch.from_numpy(x) for x in _start(rng, tt, n))
+    for _ in range(4):
+        ba = torch.from_numpy(_blue_actions(rng, n, tt.n_blue))
+        rnd = torch.from_numpy(rng.random((n, slab.step_draws), dtype=np.float32))
+        want = tslab.step_spec(tt, pos, dirs, term, coll, ba, rnd, slab.cells, slab.border,
+                               slab.pool)
+        got = tslab.ctf_step_slab(tt, pos, dirs, term.bool(), coll.bool(), ba, rnd, slab.flags,
+                                  slab.border, slab.pool)
+        assert len(got) == len(want) == 10
+        for i, (g, w) in enumerate(zip(got, want)):
+            if i in (0, 1, 4):  # pos, dirs, reward
+                _eq(g, w)
+            else:
+                assert g.dtype == torch.bool and set(w.unique().tolist()) <= {0, 1}
+                assert torch.equal(g, w.to(torch.bool))
+        pos, dirs, term, coll = want[:4]
 
 
 @pytest.mark.parametrize("name", ["a_main", "c_1v1", "d_3v3"])

@@ -135,6 +135,22 @@ def test_tables_equal_jax(name):
     assert tslab.n_perm_draws(t) == jpc.n_perm_draws(jt_k)
 
 
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_cell_flag_bytes_equal_the_bits_of_the_four_planes(name):
+    """The flag byte per cell that the step kernel reads, cached on the
+    slab, holds bit ``CELL_FLAG_BITS[r]`` exactly where ``cells`` row r is
+    positive, and unpacks back to the planes."""
+    _, tcfg = _pair(name)
+    slab = tslab.make_ctf_slab(tcfg, "cpu")
+    cells, flags = slab.cells, slab.flags
+    assert flags.dtype == torch.uint8 and tuple(flags.shape) == (cells.shape[1],)
+    assert torch.equal(flags, tslab.cell_flags(tslab.ctf_static_inputs(tcfg)[0]))
+    for r, bit in enumerate(tslab.CELL_FLAG_BITS):
+        assert torch.equal((flags & bit) != 0, cells[r] > 0), r
+    assert int(flags.max()) < 16
+    assert torch.equal(tslab.cell_planes(flags), (cells > 0).to(torch.int32))
+
+
 def test_static_inputs_without_patrol_are_the_dummy_lists():
     jcfg, tcfg = cfg_pair(num_blue_agents=2, policies=("fight", "rw"))
     cells, border, pool = tslab.ctf_static_inputs(tcfg)
@@ -212,3 +228,5 @@ def test_kernel_constants_equal_python_tables():
     assert consts["kNumActions"] == tctf.NUM_ACTIONS
     assert consts["kMaxAgents"] == tslab.MAX_AGENTS
     assert consts["kMaxCells"] == tslab.MAX_CELLS
+    flag_bits = [consts[n] for n in ("kCanEnter", "kBlueOwn", "kRedOwn", "kObstacle")]
+    assert tuple(flag_bits) == tslab.CELL_FLAG_BITS

@@ -9,6 +9,8 @@ equal the Python tables, since no CUDA compiler runs with these tests.
 """
 
 import dataclasses
+import itertools
+import math
 import re
 from pathlib import Path
 
@@ -129,6 +131,37 @@ def test_ctypes_argtypes_match_c_entry_points(source):
             want = _build._F if param.startswith("float ") else _build._I
             assert param.startswith(("int ", "float ")), param
         assert argtype is want, (param, argtype)
+
+
+def _ternary_table(text, fn):
+    """{A: value} of a ``constexpr int fn(int A)`` written as a chain of
+    ``A == n ? value :`` tests, and its last value under key None."""
+    body = re.search(rf"constexpr int {fn}\(int A\) \{{\s*return ([^;]*);", text).group(1)
+    table = {int(a): int(v) for a, v in re.findall(r"A == (\d+) \? (\d+)", body)}
+    table[None] = int(re.search(r": (\d+)\)*$", body).group(1))
+    return table
+
+
+def test_move_order_table_is_the_lexicographic_permutations():
+    """csrc/move_order.cuh, which the CtF and Wildfire step kernels read the
+    move order from: permutation j of A agents, in itertools.permutations
+    order, packed 4 bits a slot at move_order_base(A) + j."""
+    text = (_build.CSRC / "move_order.cuh").read_text()
+    body = re.search(r"kMoveOrders\[kNumOrders\] = \{([^}]*)\}", text).group(1)
+    table = [int(v, 16) for v in re.findall(r"0x[0-9a-f]+", body)]
+    n = int(re.search(r"constexpr int kNumOrders = (\d+);", text).group(1))
+    base = _ternary_table(text, "move_order_base")
+    count = _ternary_table(text, "num_orders")
+    assert len(table) == n == sum(math.factorial(a) for a in range(1, 5))
+    for A in range(1, 5):
+        perms = list(itertools.permutations(range(A)))
+        start = base.get(A, base[None])
+        assert start == sum(math.factorial(a) for a in range(1, A))
+        assert count.get(A, count[None]) == len(perms)
+        for j, perm in enumerate(perms):
+            packed = table[start + j]
+            assert [(packed >> (4 * s)) & 15 for s in range(A)] == list(perm), (A, j)
+            assert packed >> (4 * A) == 0
 
 
 def test_kernel_constants_equal_python_tables():

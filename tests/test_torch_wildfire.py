@@ -313,6 +313,42 @@ def test_a_board_above_1024_cells_is_refused_on_cuda_only():
         _eq(g, w)
 
 
+@pytest.mark.parametrize("size", [10, 16, 32])
+@pytest.mark.parametrize("B", [1, 5, 8, 12, 8189, 8192])
+def test_tile_spans_are_aligned_and_cover_the_batch(size, B):
+    """The step kernel's bulk copies for the boards its checks use (10x10,
+    16x16, 32x32), on batches that are and are not a multiple of the tile:
+    every span's offset and size a multiple of 16 bytes, the spans
+    back to back over the full tiles' rows of both tensors, the rest a
+    ragged tail under one tile, and two stages within shared memory."""
+    C = size * size
+    T = tslab.tile_envs(C)
+    assert T % 4 == 0 and T * 32 <= 1024
+    spans, tail = tslab.tile_spans(C, B)
+    assert len(spans) == B // T and tail == B % T and 0 <= tail < T
+    cells_end = rnd_end = 0
+    for cells_off, cells_bytes, rnd_off, rnd_bytes in spans:
+        for v in (cells_off, cells_bytes, rnd_off, rnd_bytes):
+            assert v % 16 == 0, (size, B, v)
+        assert (cells_off, cells_bytes) == (cells_end, 4 * T * C)
+        assert (rnd_off, rnd_bytes) == (rnd_end, 4 * T * (C + 1))
+        cells_end, rnd_end = cells_off + cells_bytes, rnd_off + rnd_bytes
+    # The tail starts where the last span ends, in both tensors.
+    assert cells_end == 4 * (B - tail) * C and rnd_end == 4 * (B - tail) * (C + 1)
+    assert tslab.ring_bytes(C) == 2 * (4 * T * C + 4 * T * (C + 1)) <= 227 * 1024
+
+
+def test_tile_size_follows_the_kernel_variants():
+    """8 envs a tile up to 512 cells (the NK <= 16 variants), 4 above, in
+    Python as in the kernel's tile_envs<NK>."""
+    assert [tslab.tile_envs(c) for c in (1, 100, 256, 512, 513, 1024)] == [8, 8, 8, 8, 4, 4]
+    text = (_build.CSRC / "wildfire_step.cu").read_text()
+    nk_above, wide, narrow = map(int, re.search(
+        r"constexpr int tile_envs\(\) \{\s*return NK > (\d+) \? (\d+) : (\d+);", text).groups())
+    for words in (1, 2, 4, 8, 16, 32):  # the kernel's NK variants, words of 32 cells
+        assert tslab.tile_envs(32 * words) == (wide if words > nk_above else narrow), words
+
+
 def test_kernel_constants_equal_python_tables():
     text = (_build.CSRC / "wildfire_step.cu").read_text()
     consts = {
