@@ -22,21 +22,31 @@ without them.  Phases, each of which fails the run on any fault:
    penalty and on a 32x32 config that spreads to every neighbour and never
    burns out, plus one call on random boards with stacked agents.  Both
    CtF and Wildfire also run on the ragged batches B = 8189 and B = 5,
-   neither a multiple of the Wildfire tile nor of the CtF lane group.
-   Finished envs are respawned by each family's ``reset_batch`` under the
-   ``done`` mask.  Misaligned Wildfire uniforms are refused, not copied.
+   neither a multiple of the Wildfire tile nor of the CtF lane group, and
+   the Collect reset on them too.  The Maze K-step entry ``maze_steps`` is
+   held to ``ms_spec`` over 100 steps with the auto-reset, as four chunks
+   of 25 and as one of 100, on both Maze configs at B = 8192 and on the
+   ragged batches.  Finished envs are respawned by each family's
+   ``reset_batch`` under the ``done`` mask.  Misaligned Wildfire uniforms
+   are refused, not copied.
 3. Drive each path, with every launch count set to 0 just before it and
    read just after: Collect (``make_collect_batch`` of the
    respawn-clustered config at B = 8192, ``reset(seed=0)``, ``rollout`` of
    500 steps), CtF (``make_ctf_batch(CTF_MAIN, 8192)``, ``reset(seed=0)``,
    ``rollout`` of 400 steps), Maze (``make_maze_batch(MAZE_MAIN, 8192)``,
    ``rollout`` of 1000 steps) and Wildfire
-   (``make_wildfire_batch(WF_MAIN, 8192)``, ``rollout`` of 400 steps).  Each
-   path launches its own step kernel once a step and no other kernel of
-   the port.  Check each rollout's invariants; then, after untimed calls
+   (``make_wildfire_batch(WF_MAIN, 8192)``, ``rollout`` of 400 steps), each
+   of which launches its own step kernel once a step and no other kernel of
+   the port; then the two episode paths, the Collect one
+   (``make_collect_episode_rollout`` of the same config, ``reset(seed=0)``
+   and 500 steps: one step launch a step and one all-rows reset an
+   episode) and the Maze one (``make_maze_episode_rollout(MAZE_MAIN, 8192,
+   chunk=100)``, ``reset(seed=0)`` and 1000 steps: ten ``maze_steps``
+   launches).  Check each rollout's invariants; then, after untimed calls
    until the time per call settles, time it, each kernel and its plain
    version.
-4. Profile 50 steps of each rollout: device time by kernel and idle share.
+4. Profile 50 steps of each ``BatchedEnv`` rollout and 100 of each episode
+   path: device time by kernel and idle share.
 
 Prints the timing lines, one JSON line of kernel records, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -71,13 +81,18 @@ from gym_multigrid_tpu_torch.ops import _build, ctf_slab, maze_slab, wildfire_sl
 from gym_multigrid_tpu_torch.ops.collect_slab import (  # noqa: E402
     collect_reset_slab,
     collect_step_slab,
+    make_collect_episode_rollout,
     make_collect_slab,
     reset_batch,
     reset_spec,
     step_spec,
 )
 from gym_multigrid_tpu_torch.ops.ctf_slab import ctf_step_slab  # noqa: E402
-from gym_multigrid_tpu_torch.ops.maze_slab import maze_step_slab  # noqa: E402
+from gym_multigrid_tpu_torch.ops.maze_slab import (  # noqa: E402
+    make_maze_episode_rollout,
+    maze_ms_slab,
+    maze_step_slab,
+)
 from gym_multigrid_tpu_torch.ops.wildfire_slab import wildfire_step_slab  # noqa: E402
 from gym_multigrid_tpu_torch.parallel.vector import (  # noqa: E402
     make_collect_batch,
@@ -163,6 +178,15 @@ CTF_BATTLE_OPS = 16
 # selects 4, then two lookups for the flag and the obstacle and 4 for the
 # reward: 36.
 MAZE_OPS = 36
+# The Maze K-step entry, per env and step, with the move tabulated (the
+# table is built once per config): the action's clip 2, the entry's index
+# and read 2, the direction's decode and selects 3, the reward's read 1,
+# the step count and done 4, the three sums and the episode count 5, the
+# running return's select 1, and the spawn (multiply, convert, clip, read
+# and three selects) 7: 25.
+MAZE_MS_OPS = 25
+# Steps a Maze episode-path launch runs (bench_all.py's chunk).
+MAZE_CHUNK = 100
 # The Wildfire step: per cell, the extinguish test (1 compare per agent
 # and the fire test), the neighbour count (4 edge tests, 4 bit reads, 3
 # adds), the threshold's select 4, the ignite and burnout compares 4, the
@@ -231,21 +255,21 @@ def check_step_kernel(cfg, steps, seed):
     return err
 
 
-def check_reset_kernel(cfg, seed):
+def check_reset_kernel(cfg, seed, n=B):
     slab = make_collect_slab(cfg, DEV)
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    rnd = torch.rand((B, slab.reset_draws), generator=gen, device=DEV)
+    rnd = torch.rand((n, slab.reset_draws), generator=gen, device=DEV)
     ra = slab.reset_arrays
     want = reset_spec(slab.rt, ra.wall, ra.ball_rects, rnd)
     err = max_abs_err(collect_reset_slab(slab.rt, rnd, ra), want)
     # Under a done mask: only done rows change, in place.
-    done = torch.rand((B,), generator=gen, device=DEV) < 0.3
+    done = torch.rand((n,), generator=gen, device=DEV) < 0.3
     old = [torch.randint(-5, 50, w.shape, generator=gen, device=DEV, dtype=torch.int32) for w in want]
     out = [o.clone() for o in old]
     collect_reset_slab(slab.rt, rnd, ra, done=done, out=out)
     err = max(err, max_abs_err(out, [torch.where(done[:, None], w, o) for w, o in zip(want, old)]))
-    log(f"reset kernel == reset_spec: size {cfg.size} layout {cfg.layout} "
-        f"(unmasked and {int(done.sum())}/{B} rows masked), max_abs_err {err}")
+    log(f"reset kernel == reset_spec: size {cfg.size} layout {cfg.layout} at B={n} "
+        f"(unmasked and {int(done.sum())}/{n} rows masked), max_abs_err {err}")
     return err
 
 
@@ -359,6 +383,33 @@ def check_maze_step_kernel(cfg, name, steps, seed):
     log(f"maze_step kernel == step_spec: {name}, {steps} steps at B={B}: {flags} flags "
         f"reached, {obstacles} obstacle cells entered, {episodes} episodes ended, "
         f"max_abs_err {err}")
+    return err
+
+
+def check_maze_steps_kernel(cfg, name, seed, n=B, steps=100, chunks=(25, 100)):
+    """``maze_ms_slab`` (the kernel entry ``maze_steps``) against ``ms_spec``
+    over ``steps`` steps with the auto-reset from the batch reset, once as
+    launches of each chunk size in ``chunks``, every launch compared.
+    Action ids -1..9 (the invalid ones clip); random running returns."""
+    slab = maze_slab.make_maze_slab(cfg, DEV)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    start = maze_slab.reset_batch(slab, n, generator=gen)
+    run0 = torch.rand((n,), generator=gen, device=DEV) - 0.5
+    acts = torch.randint(-1, 10, (steps, n), generator=gen, device=DEV, dtype=torch.int32)
+    rnd = torch.rand((steps, n), generator=gen, device=DEV)
+    err, episodes = 0.0, 0
+    for chunk in chunks:
+        state = (start.pos, start.dir, start.step_count, run0)
+        for k0 in range(0, steps, chunk):
+            args = (*state, acts[k0:k0 + chunk], rnd[k0:k0 + chunk])
+            got = maze_ms_slab(slab, *args)
+            err = max(err, max_abs_err(got, maze_slab.ms_spec(
+                slab.t, args[4].shape[0], *args, slab.cells, slab.bg)))
+            state = got[:4]
+            episodes += int(got[6].sum()) if chunk == chunks[0] else 0
+    check(n < 64 or episodes >= n, f"{name}: {episodes} episodes ended")
+    log(f"maze_steps kernel == ms_spec: {name}, {steps} steps at B={n} as launches of "
+        f"{' and of '.join(map(str, chunks))}: {episodes} episodes ended, max_abs_err {err}")
     return err
 
 
@@ -487,7 +538,7 @@ def bound(nbytes, ops):
 #: Each kernel's wrapper, whose ``launches`` counts its launches.
 WRAPPERS = {"collect_step": collect_step_slab, "collect_reset": collect_reset_slab,
             "ctf_step": ctf_step_slab, "maze_step": maze_step_slab,
-            "wildfire_step": wildfire_step_slab}
+            "maze_steps": maze_ms_slab, "wildfire_step": wildfire_step_slab}
 
 
 def run_counted(drive):
@@ -671,11 +722,50 @@ def check_wildfire_path(env, first, obs, states, metrics):
     check(bool((states.step_count < WF_MAIN.max_steps).all()), "episode past max_steps")
 
 
-def time_rollout(env, states, steps, agents, warmup_max):
-    """Warm-up calls until three in a row lie within 5% of each other (at
-    most ``warmup_max``), each logged with the host's share of it and the card's
-    clocks, then 11 timed calls; logs agent-steps/s (median, slowest,
-    fastest).  Returns the final states."""
+def collect_episode_path():
+    """The Collect episode path: the main config's episode rollout at
+    B = 8192, reset(seed=0) and one 500-step call.  Returns (rollout,
+    states, obs, metrics)."""
+    roll = make_collect_episode_rollout(MAIN, B)
+    states, obs = roll.reset(seed=0)
+    states, metrics = roll(states, STEPS_PER_CALL)
+    return roll, states, obs, metrics
+
+
+def check_collect_episode_path(roll, states, obs, metrics):
+    """Ten lockstep episodes of every env, all reward in finished episodes,
+    and fresh boards after the last one: every ball back, two agents a
+    board, the counters zero.  Returns the states."""
+    check(obs.shape == (B, 10, 10, 3) and obs.dtype == torch.uint8, "obs shape")
+    episodes = int(metrics["episodes"])
+    reward_sum = float(metrics["reward_sum"])
+    check(episodes == B * STEPS_PER_CALL // MAIN.max_steps, f"episodes {episodes}")
+    check(reward_sum > 0 and float(metrics["ep_return_sum"]) == reward_sum, "episode returns")
+    check(bool((metrics["run_return"] == 0).all()), "run_return after lockstep truncation")
+    for f in ("step_count", "collected", "info_counts"):
+        check(not bool(getattr(states, f).any()), f"{f} after the episode boundary")
+    check(bool(((states.grid_obj == BALL).sum(1) == MAIN.num_balls).all()), "balls on a fresh board")
+    check(bool(((states.grid_obj == AGENT).sum(1) == 2).all()), "agents per board")
+    log(f"collect episode rollout: {episodes} episodes, reward_sum {reward_sum}, "
+        f"reward per agent-step {reward_sum / (B * STEPS_PER_CALL * 2)}")
+    return states
+
+
+def maze_episode_path():
+    """The Maze episode path: MAZE_MAIN at B = 8192, chunks of 100 steps,
+    reset(seed=0) and one 1000-step call.  Returns (rollout, first states,
+    obs, final states, metrics)."""
+    roll = make_maze_episode_rollout(MAZE_MAIN, B, chunk=MAZE_CHUNK)
+    first, obs = roll.reset(seed=0)
+    states, metrics = roll(first, MAZE_STEPS_PER_CALL)
+    return roll, first, obs, states, metrics
+
+
+def time_rollout(rollout, name, states, steps, agents, warmup_max):
+    """Warm-up calls of ``rollout(states, steps)`` until three in a row lie
+    within 5% of each other (at most ``warmup_max``), each logged with the
+    host's share of it and the card's clocks, then 11 timed calls; logs
+    agent-steps/s (median, slowest, fastest).  Returns the final states."""
     agent_steps = B * steps * agents
 
     def timed_rollout():
@@ -684,7 +774,7 @@ def time_rollout(env, states, steps, agents, warmup_max):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         w0, c0 = time.perf_counter(), time.process_time()
         start.record()
-        states, _ = env.rollout(states, steps)
+        states, _ = rollout(states, steps)
         end.record()
         end.synchronize()
         return (start.elapsed_time(end), (time.perf_counter() - w0) * 1e3,
@@ -702,7 +792,7 @@ def time_rollout(env, states, steps, agents, warmup_max):
     calls = [timed_rollout() for _ in range(11)]
     windows = [c[0] for c in calls]
     median = sorted(windows)[len(windows) // 2]
-    log(f"{type(env.slab).__name__} rollout of {steps} steps at B={B}, {len(windows)} calls "
+    log(f"{name} rollout of {steps} steps at B={B}, {len(windows)} calls "
         f"after the warm-up: ms per call {windows}; host CPU ms "
         f"{[round(c[2], 1) for c in calls]}; "
         f"agent-steps/s {agent_steps / (median / 1e3)} (median), "
@@ -711,15 +801,15 @@ def time_rollout(env, states, steps, agents, warmup_max):
     return states
 
 
-def profile_rollout(env, states, name, steps=50):
-    """Device time by kernel and the idle share over ``steps`` rollout
-    steps under ``torch.profiler``: the twelve longest kernels, and the
-    port's own kernels wherever they rank."""
+def profile_rollout(rollout, states, name, steps=50):
+    """Device time by kernel and the idle share over ``steps`` steps of
+    ``rollout(states, steps)`` under ``torch.profiler``: the twelve longest
+    kernels, and the port's own kernels wherever they rank."""
     torch.cuda.synchronize()
     kinds = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=kinds) as prof:
         t0 = time.perf_counter()
-        env.rollout(states, steps)
+        rollout(states, steps)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = sorted(
@@ -767,7 +857,10 @@ def main():
         check_reset_kernel(CollectConfig(layout=layout), seed=10 + i)
         for i, layout in enumerate(("even", "quadrants", "rooms", "quadrants_respawn"))
     )
-    reset_err = max(reset_err, check_reset_kernel(QUADRANTS15, seed=20))
+    reset_err = max(reset_err, check_reset_kernel(QUADRANTS15, seed=20),
+                    # Ragged batches: 8189 and 5 are no multiple of a block's 64 envs.
+                    check_reset_kernel(MAIN, seed=21, n=RAGGED[0]),
+                    check_reset_kernel(QUADRANTS15, seed=22, n=RAGGED[1]))
 
     ctf_err = max(
         check_ctf_step_kernel(CTF_MAIN, "CTF_MAIN", 100, seed=30),
@@ -786,6 +879,13 @@ def main():
     maze_err = max(
         check_maze_step_kernel(MAZE_MAIN, "MAZE_MAIN", 100, seed=40),
         check_maze_step_kernel(MAZE_PENALTY, "MAZE_MAIN map, obstacle penalty 0.5", 100, seed=41),
+    )
+    maze_ms_err = max(
+        check_maze_steps_kernel(MAZE_MAIN, "MAZE_MAIN", seed=42),
+        check_maze_steps_kernel(MAZE_PENALTY, "MAZE_MAIN map, obstacle penalty 0.5", seed=43),
+        # Ragged batches: 8189 and 5 are no multiple of a block's 64 envs.
+        check_maze_steps_kernel(MAZE_MAIN, "MAZE_MAIN, ragged", seed=44, n=RAGGED[0]),
+        check_maze_steps_kernel(MAZE_PENALTY, "obstacle penalty, ragged", seed=45, n=RAGGED[1]),
     )
     wf_err = max(
         check_wildfire_step_kernel(WF_MAIN, "WF_MAIN", 100, seed=50),
@@ -809,7 +909,8 @@ def main():
     check_launches(launches, {"collect_step": STEPS_PER_CALL,
                               "collect_reset": STEPS_PER_CALL + 1}, "Collect")
     states = check_collect_path(env, *result)
-    states = time_rollout(env, states, STEPS_PER_CALL, MAIN.num_agents, COLLECT_WARMUP_MAX)
+    states = time_rollout(env.rollout, "CollectSlab", states, STEPS_PER_CALL, MAIN.num_agents,
+                          COLLECT_WARMUP_MAX)
 
     slab, C, A = env.slab, MAIN.num_cells, MAIN.num_agents
     pos = states.agent_pos.reshape(B, -1)
@@ -835,7 +936,7 @@ def main():
     out = collect_reset_slab(slab.rt, rnd_r, ra)
     masked_ms, masked_all = time_ms(
         lambda: collect_reset_slab(slab.rt, rnd_r, ra, done=none_done, out=out), 200)
-    reset_bytes = sum(x.numel() * x.element_size() for x in (rnd_r, *ra)) + (
+    reset_bytes = sum(x.numel() * x.element_size() for x in (rnd_r, ra.words, ra.program)) + (
         3 * B * C * 4 + B * 2 * A * 4)
     # Every ball is a masked pick; agents are one only when placed uniformly.
     uniform_agents = 0 if slab.rt.agent_fixed or slab.rt.agent_choice else A
@@ -848,9 +949,12 @@ def main():
         f"{step_parts[0] * 1e3:.2f} us, {step_ops} operations ({respawns} respawns) "
         f"{step_parts[1] * 1e3:.2f} us), step_spec {step_plain_ms * 1e3:.1f} us "
         f"{us(step_plain_all)}")
+    # The masked launch with no row done reads the done mask and writes nothing.
+    masked_bound, masked_by, *_ = bound(none_done.numel(), B)
     log(f"collect_reset: {reset_ms * 1e3:.2f} us/launch, all rows {us(reset_all)}; "
         f"{masked_ms * 1e3:.2f} us/launch with the done mask and no row done "
-        f"{us(masked_all)}; bound {reset_bound * 1e3:.2f} us ({reset_by}; "
+        f"{us(masked_all)} (bound {masked_bound * 1e3:.4f} us, {masked_by}: {B} bytes of "
+        f"the mask); all rows bound {reset_bound * 1e3:.2f} us ({reset_by}; "
         f"{reset_bytes} bytes take {reset_parts[0] * 1e3:.2f} us, {reset_ops} operations "
         f"{reset_parts[1] * 1e3:.2f} us), reset_spec {reset_plain_ms * 1e3:.1f} us "
         f"{us(reset_plain_all)}")
@@ -860,8 +964,8 @@ def main():
     check_launches(ctf_launches, {"ctf_step": CTF_STEPS_PER_CALL}, "CtF")
     check_ctf_path(ctf_env, *ctf_result)
     ctf_states = ctf_result[2]
-    ctf_states = time_rollout(ctf_env, ctf_states, CTF_STEPS_PER_CALL, CTF_MAIN.num_agents,
-                              CTF_WARMUP_MAX)
+    ctf_states = time_rollout(ctf_env.rollout, "CtfSlab", ctf_states, CTF_STEPS_PER_CALL,
+                              CTF_MAIN.num_agents, CTF_WARMUP_MAX)
 
     cslab = ctf_env.slab
     ba = torch.randint(0, 5, (B, CTF_MAIN.num_blue_agents), device=DEV, dtype=torch.int32)
@@ -888,7 +992,8 @@ def main():
     maze_launches, (maze_env, *maze_result) = run_counted(maze_main_path)
     check_launches(maze_launches, {"maze_step": MAZE_STEPS_PER_CALL}, "Maze")
     check_maze_path(maze_env, *maze_result)
-    maze_states = time_rollout(maze_env, maze_result[2], MAZE_STEPS_PER_CALL, 1, MAZE_WARMUP_MAX)
+    maze_states = time_rollout(maze_env.rollout, "MazeSlab", maze_result[2], MAZE_STEPS_PER_CALL, 1,
+                               MAZE_WARMUP_MAX)
 
     mslab = maze_env.slab
     gen = torch.Generator(device=DEV).manual_seed(60)
@@ -913,8 +1018,8 @@ def main():
     wf_launches, (wf_env, *wf_result) = run_counted(wildfire_main_path)
     check_launches(wf_launches, {"wildfire_step": WF_STEPS_PER_CALL}, "Wildfire")
     check_wildfire_path(wf_env, *wf_result)
-    wf_states = time_rollout(wf_env, wf_result[2], WF_STEPS_PER_CALL, WF_MAIN.num_agents,
-                             WF_WARMUP_MAX)
+    wf_states = time_rollout(wf_env.rollout, "WildfireSlab", wf_result[2], WF_STEPS_PER_CALL,
+                             WF_MAIN.num_agents, WF_WARMUP_MAX)
 
     wslab = wf_env.slab
     wt = wslab.t
@@ -937,13 +1042,47 @@ def main():
         f"step_spec {wf_plain_ms * 1e3:.1f} us {us(wf_plain_all)}; "
         f"the rollout's masked reset_batch (plain PyTorch, no kernel: "
         f"{wslab.reset_draws} uniforms an env) {wf_reset_ms * 1e3:.1f} us {us(wf_reset_all)}")
+
+    # The Collect episode path: one all-rows reset an episode.
+    ce_launches, (ce_roll, *ce_result) = run_counted(collect_episode_path)
+    check_launches(ce_launches, {"collect_step": STEPS_PER_CALL,
+                                 "collect_reset": STEPS_PER_CALL // MAIN.max_steps + 1},
+                   "Collect episode")
+    ce_states = check_collect_episode_path(ce_roll, *ce_result)
+    ce_states = time_rollout(ce_roll, "Collect episode", ce_states, STEPS_PER_CALL,
+                             MAIN.num_agents, COLLECT_WARMUP_MAX)
+
+    # The Maze episode path: MAZE_CHUNK steps a launch.
+    me_launches, (me_roll, *me_result) = run_counted(maze_episode_path)
+    check_launches(me_launches, {"maze_steps": MAZE_STEPS_PER_CALL // MAZE_CHUNK}, "Maze episode")
+    check_maze_path(me_roll, *me_result)
+    me_states = time_rollout(me_roll, "Maze episode", me_result[2], MAZE_STEPS_PER_CALL, 1,
+                             MAZE_WARMUP_MAX)
+    ms_args = (me_states.pos, me_states.dir, me_states.step_count,
+               torch.zeros((B,), device=DEV),
+               torch.randint(0, 5, (MAZE_CHUNK, B), generator=gen, device=DEV, dtype=torch.int32),
+               torch.rand((MAZE_CHUNK, B), generator=gen, device=DEV))
+    ms_ms, ms_all = time_ms(lambda: maze_ms_slab(mslab, *ms_args), 200)
+    ms_plain_ms, ms_plain_all = time_ms(
+        lambda: maze_slab.ms_spec(mslab.t, MAZE_CHUNK, *ms_args, mslab.cells, mslab.bg), 2, windows=3)
+    ms_bytes = sum(x.numel() * x.element_size() for x in (*ms_args, mslab.ms_table)) + sum(
+        x.numel() * x.element_size() for x in maze_ms_slab(mslab, *ms_args))
+    ms_ops = B * MAZE_CHUNK * MAZE_MS_OPS
+    ms_bound, ms_by, *ms_parts = bound(ms_bytes, ms_ops)
+    log(f"maze_steps: {ms_ms * 1e3:.2f} us/launch of {MAZE_CHUNK} steps (median of windows "
+        f"{us(ms_all)}), {ms_ms * 1e3 / MAZE_CHUNK:.4f} us a transition against maze_step's "
+        f"{maze_ms * 1e3:.2f}; bound {ms_bound * 1e3:.2f} us ({ms_by}; {ms_bytes} bytes take "
+        f"{ms_parts[0] * 1e3:.2f} us, {ms_ops} operations {ms_parts[1] * 1e3:.2f} us), "
+        f"ms_spec {ms_plain_ms * 1e3:.1f} us {us(ms_plain_all)}")
     log("library_ms: null for every kernel (no single PyTorch call computes any)")
 
     # Phase 4: where each rollout's time goes.
-    profile_rollout(env, states, "Collect")
-    profile_rollout(ctf_env, ctf_states, "CtF")
-    profile_rollout(maze_env, maze_states, "Maze")
-    profile_rollout(wf_env, wf_states, "Wildfire")
+    profile_rollout(env.rollout, states, "Collect")
+    profile_rollout(ctf_env.rollout, ctf_states, "CtF")
+    profile_rollout(maze_env.rollout, maze_states, "Maze")
+    profile_rollout(wf_env.rollout, wf_states, "Wildfire")
+    profile_rollout(ce_roll, ce_states, "Collect episode", steps=2 * MAIN.max_steps)
+    profile_rollout(me_roll, me_states, "Maze episode", steps=MAZE_CHUNK)
 
     record = {"kernels": [
         {"name": "collect_step", "route": "cuda",
@@ -955,7 +1094,8 @@ def main():
         {"name": "collect_reset", "route": "cuda",
          "source": "gym_multigrid_tpu_torch/csrc/collect_reset.cu",
          "replaces": "gym_multigrid_tpu/ops/pallas_collect.py:1127",
-         "launches": launches["collect_reset"], "max_abs_err": reset_err,
+         "launches": launches["collect_reset"],
+         "launches_collect_episode_path": ce_launches["collect_reset"], "max_abs_err": reset_err,
          "ms": reset_ms, "plain_ms": reset_plain_ms, "bound_ms": reset_bound,
          "bound_by": reset_by, "library_ms": None},
         {"name": "ctf_step", "route": "cuda",
@@ -970,6 +1110,15 @@ def main():
          "launches": maze_launches["maze_step"], "max_abs_err": maze_err,
          "ms": maze_ms, "plain_ms": maze_plain_ms, "bound_ms": maze_bound,
          "bound_by": maze_by, "library_ms": None},
+        # The K-step entry of the same source: maze_step_slab's transition
+        # with _maze_ms_math's auto-reset (pallas_maze.py:86), 100 steps a
+        # launch on the Maze episode path.
+        {"name": "maze_steps", "route": "cuda",
+         "source": "gym_multigrid_tpu_torch/csrc/maze_step.cu",
+         "replaces": "gym_multigrid_tpu/ops/pallas_maze.py:41",
+         "launches": me_launches["maze_steps"], "max_abs_err": maze_ms_err,
+         "ms": ms_ms, "plain_ms": ms_plain_ms, "bound_ms": ms_bound,
+         "bound_by": ms_by, "library_ms": None},
         {"name": "wildfire_step", "route": "cuda",
          "source": "gym_multigrid_tpu_torch/csrc/wildfire_step.cu",
          "replaces": "gym_multigrid_tpu/ops/pallas_wildfire.py:50",

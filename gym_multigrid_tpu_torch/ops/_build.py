@@ -21,6 +21,8 @@ import subprocess
 from pathlib import Path
 from types import SimpleNamespace
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
 
@@ -44,15 +46,18 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: source file -> (C entry point, its argument types).  Pointers and the
+#: source file -> {C entry point: its argument types}.  Pointers and the
 #: stream are c_void_p, so ctypes does not cut them to 32 bits; a Python
 #: float passed as c_float is rounded to float32 once.
 ENTRY_POINTS = {
-    "collect_step.cu": ("collect_step", [_P] * 12 + [_I] * 9 + [_P]),
-    "collect_reset.cu": ("collect_reset", [_P] * 9 + [_I] * 10 + [_P]),
-    "ctf_step.cu": ("ctf_step", [_P] * 21 + [_I] * 17 + [_F] * 7 + [_P]),
-    "maze_step.cu": ("maze_step", [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P]),
-    "wildfire_step.cu": ("wildfire_step", [_P] * 9 + [_I] * 5 + [_F] * 8 + [_P]),
+    "collect_step.cu": {"collect_step": [_P] * 12 + [_I] * 9 + [_P]},
+    "collect_reset.cu": {"collect_reset": [_P] * 8 + [_I] * 10 + [_P]},
+    "ctf_step.cu": {"ctf_step": [_P] * 21 + [_I] * 17 + [_F] * 7 + [_P]},
+    "maze_step.cu": {
+        "maze_step": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
+        "maze_steps": [_P] * 14 + [_I] * 6 + [_P],
+    },
+    "wildfire_step.cu": {"wildfire_step": [_P] * 9 + [_I] * 5 + [_F] * 8 + [_P]},
 }
 
 
@@ -108,6 +113,20 @@ def build() -> dict[str, str]:
     return logs
 
 
+def default_device(device, name: str):
+    """``device``, or the current CUDA device when it is None; with no
+    CUDA device and no explicit ``device`` this raises.  ``name`` is the
+    caller, for the message."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{name} runs on a CUDA device and none is "
+                "available; pass device='cpu' to run the plain PyTorch version"
+            )
+        device = torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
 def check_arg(name, x, dtype, shape, device):
     """Raise unless tensor ``x`` is what a kernel argument must be: a
     contiguous ``dtype`` tensor of ``shape`` on ``device``."""
@@ -129,9 +148,11 @@ def load() -> SimpleNamespace:
     """Build what is missing and return the C entry points by name."""
     build()
     fns = {}
-    for source, (name, argtypes) in ENTRY_POINTS.items():
-        fn = getattr(ctypes.CDLL(str(library_path(source))), name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+    for source, entries in ENTRY_POINTS.items():
+        lib = ctypes.CDLL(str(library_path(source)))
+        for name, argtypes in entries.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[name] = fn
     return SimpleNamespace(**fns)

@@ -18,6 +18,12 @@ CUDA kernels in ``gym_multigrid_tpu_torch/csrc/``, and its plain bodies
 
 The reset also takes a ``done`` mask, so the batch env resets finished
 rows in place without asking the host whether any row finished.
+
+* :func:`ms_steps` is ``_collect_ms_math``: K steps with the rewards and
+  info counters summed.  :func:`make_collect_episode_rollout` runs whole
+  lockstep episodes of truncation-only configs with it and one all-rows
+  reset per episode, the counterpart of JAX's
+  ``make_collect_episode_rollout``.
 """
 
 from __future__ import annotations
@@ -142,6 +148,19 @@ class ResetArrays(NamedTuple):
     #: (n_balls + 2 * n_coords,) int32: each placement's ball color, then
     #: the agents' fixed (x, y) or the coordinate pool, flattened
     program: torch.Tensor
+    #: ((n_balls + 1) * ceil(C / 32),) int32: the rows of ``ball_rects``,
+    #: then ``wall``, as bit words (cell c is bit c % 32 of word c // 32),
+    #: which the reset kernel reads
+    words: torch.Tensor
+
+
+def cell_words(rows: np.ndarray) -> np.ndarray:
+    """(R, C) bool rows as (R, ceil(C / 32)) int32 bit words: cell c is bit
+    ``c % 32`` of word ``c // 32``."""
+    R, C = rows.shape
+    padded = np.zeros((R, -(-C // 32) * 32), dtype=bool)
+    padded[:, :C] = rows
+    return np.packbits(padded, axis=1, bitorder="little").view("<u4").view(np.int32)
 
 
 def make_reset_arrays(cfg: CollectConfig, device) -> ResetArrays:
@@ -153,10 +172,12 @@ def make_reset_arrays(cfg: CollectConfig, device) -> ResetArrays:
     program = np.array(
         list(rt.ball_colors) + [v for xy in coords for v in xy], dtype=np.int32
     )
+    words = cell_words(np.concatenate([ball_rects, wall[None, :]])).reshape(-1)
     return ResetArrays(
         wall=torch.as_tensor(wall, device=device),
         ball_rects=torch.as_tensor(ball_rects, device=device),
         program=torch.as_tensor(program, device=device),
+        words=torch.as_tensor(words, device=device),
     )
 
 
@@ -426,8 +447,7 @@ def collect_reset_slab(rt: _ResetTables, rnd, ra: ResetArrays, done=None, out=No
     coords = rt.agent_fixed or rt.agent_choice or ()
     for name, x, dtype, shape in (
         ("rnd", rnd, torch.float32, (B, nb + A)),
-        ("wall", ra.wall, torch.bool, (C,)),
-        ("ball_rects", ra.ball_rects, torch.bool, (nb, C)),
+        ("words", ra.words, torch.int32, ((nb + 1) * -(-C // 32),)),
         ("program", ra.program, torch.int32, (nb + 2 * len(coords),)),
         ("go", out[0], torch.int32, (B, C)),
         ("gc", out[1], torch.int32, (B, C)),
@@ -444,8 +464,8 @@ def collect_reset_slab(rt: _ResetTables, rnd, ra: ResetArrays, done=None, out=No
     kernels = _build.load()
     with torch.cuda.device(dev):
         err = kernels.collect_reset(
-            rnd.data_ptr(), ra.wall.data_ptr(), ra.ball_rects.data_ptr(),
-            ra.program.data_ptr(), None if done is None else done.data_ptr(),
+            rnd.data_ptr(), ra.words.data_ptr(), ra.program.data_ptr(),
+            None if done is None else done.data_ptr(),
             *(o.data_ptr() for o in out),
             B, rt.width, C, nb, A, int(rt.balls_before_agents), mode,
             len(coords), rt.agent_colors[0],
@@ -615,3 +635,128 @@ def reset_batch(
     states.step_count.masked_fill_(done, 0)
     states.info_counts.masked_fill_(done[:, None, None], 0)
     return states
+
+
+# ---------------------------------------------------------------------------
+# Episode rollout
+# ---------------------------------------------------------------------------
+
+
+def ms_steps(slab: CollectSlab, go, gc, gs, pos, acts, rnd):
+    """K = ``acts.shape[0]`` Collect steps through :func:`collect_step_slab`
+    (the kernel on CUDA tensors), with the rewards and the info counters
+    summed step by step as ``_collect_ms_math`` sums them.
+
+    go/gc/gs (B, C) int32 planes; pos (B, 2A) int32; acts (K, B, A) int32;
+    rnd (K, B, 3) float32.  Returns (go, gc, gs, pos, rew (B, A) float32,
+    cnt (B, A * num_ball_types) int32): each agent's summed reward and its
+    pickups by info slot."""
+    B, A = go.shape[0], acts.shape[2]
+    n_types = slab.info_ids.shape[0]
+    rew = torch.zeros((B, A), dtype=torch.float32, device=go.device)
+    cnt = torch.zeros((B, A, n_types), dtype=torch.int32, device=go.device)
+    for k in range(acts.shape[0]):
+        go, gc, gs, pos, picked = collect_step_slab(
+            slab.t, go, gc, gs, pos, acts[k], rnd[k], slab.respawn_rects)
+        got = picked >= 0
+        ps = picked.clamp(0, slab.slot_rewards.shape[0] - 1)
+        rew = rew + torch.where(got, slab.slot_rewards[ps], 0.0)
+        cnt = cnt + ((slab.slot_info[ps][..., None] == slab.info_ids) & got[..., None]).to(torch.int32)
+    return go, gc, gs, pos, rew, cnt.reshape(B, A * n_types)
+
+
+@dataclass(frozen=True, eq=False)
+class CollectEpisodeRollout:
+    """``rollout(states, num_steps)`` of a batch of Collect envs in whole
+    lockstep episodes (:func:`make_collect_episode_rollout`)."""
+
+    slab: CollectSlab
+    num_envs: int
+    generator: torch.Generator
+    chunk: int
+
+    @property
+    def cfg(self) -> CollectConfig:
+        return self.slab.cfg
+
+    def reset(self, seed: int):
+        """Seed the generator and reset every env: (states, obs)."""
+        self.generator.manual_seed(seed)
+        states = reset_batch(self.slab, self.num_envs, generator=self.generator)
+        return states, encode(self.cfg, states)
+
+    def __call__(self, states: CollectState, num_steps: int):
+        """``num_steps`` steps, a multiple of ``max_steps``, with uniform
+        random actions; returns (states, metrics) with
+        ``BatchedEnv.rollout``'s metrics.
+
+        ``states`` must come fresh from :meth:`reset` or from this rollout:
+        every env at step 0 of an episode, as lockstep truncation leaves
+        them.  Nothing checks it, since that would wait for the device.
+        Each episode runs ``ceil(max_steps / chunk)`` chunks of
+        :func:`ms_steps`, each drawing its (K, B, A) actions and (K, B, 3)
+        uniforms in two calls, then one all-rows :func:`collect_reset_slab`.
+        Every env finishes every episode, so ``episodes`` is B times their
+        number, ``ep_return_sum`` is ``reward_sum``, ``run_return`` is 0,
+        and the counters the reset zeroes are not summed."""
+        cfg, B, dev = self.cfg, self.num_envs, self.slab.device
+        if num_steps % cfg.max_steps:
+            raise ValueError(
+                f"num_steps ({num_steps}) must be a multiple of max_steps ({cfg.max_steps})"
+            )
+        A = cfg.num_agents
+        go, gc, gs = states.grid_obj, states.grid_color, states.grid_slot
+        pos = states.agent_pos.reshape(B, 2 * A)
+        reward_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        n_eps = num_steps // cfg.max_steps
+        for _ in range(n_eps):
+            for start in range(0, cfg.max_steps, self.chunk):
+                K = min(self.chunk, cfg.max_steps - start)
+                acts = torch.randint(0, len(COLLECT_ACTION_TO_VEC), (K, B, A),
+                                     generator=self.generator, device=dev, dtype=torch.int32)
+                rnd = torch.rand((K, B, 3), generator=self.generator, device=dev)
+                go, gc, gs, pos, rew, _ = ms_steps(self.slab, go, gc, gs, pos, acts, rnd)
+                reward_sum = reward_sum + rew.sum()
+            rnd = torch.rand((B, self.slab.reset_draws), generator=self.generator, device=dev)
+            go, gc, gs, pos = collect_reset_slab(self.slab.rt, rnd, self.slab.reset_arrays)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+        states = CollectState(
+            grid_obj=go, grid_color=gc, grid_slot=gs, agent_pos=pos.reshape(B, A, 2),
+            collected=zeros(B), step_count=zeros(B),
+            info_counts=zeros(B, A, cfg.num_ball_types),
+        )
+        return states, {
+            "reward_sum": reward_sum,
+            "episodes": torch.full((), B * n_eps, dtype=torch.int32, device=dev),
+            "ep_return_sum": reward_sum,
+            "run_return": torch.zeros((B,), dtype=torch.float32, device=dev),
+        }
+
+
+def make_collect_episode_rollout(
+    cfg: CollectConfig, num_envs: int, device=None, chunk: int = 25
+) -> CollectEpisodeRollout:
+    """The Collect episode rollout of a truncation-only config (``respawn``
+    or ``fixed_horizon``, so that lockstep envs truncate together): the
+    counterpart of JAX's ``make_collect_episode_rollout``
+    (``ops/pallas_collect.py``), with one all-rows reset per episode where
+    ``BatchedEnv`` runs a masked reset every step.
+
+    ``reset(seed)`` gives fresh states; ``rollout(states, num_steps)`` (the
+    object is callable) steps them.  Device as for ``make_collect_batch``:
+    the current CUDA device by default, ``device="cpu"`` for the plain
+    versions."""
+    if not (cfg.respawn or cfg.fixed_horizon):
+        raise ValueError(
+            "the episode rollout needs a config that only truncates (respawn or "
+            "fixed_horizon): early termination breaks lockstep episodes"
+        )
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1, got {chunk}")
+    device = _build.default_device(device, "make_collect_episode_rollout")
+    return CollectEpisodeRollout(
+        make_collect_slab(cfg, device), num_envs, torch.Generator(device=device), chunk
+    )

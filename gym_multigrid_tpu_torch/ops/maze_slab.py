@@ -20,6 +20,11 @@ and of ``gym_multigrid_tpu/ops/pallas_maze.py``: the Pallas kernel
   The step draws no randomness; the reset's uniforms come from a
   ``torch.Generator``, or from an ``rnd`` tensor used as is (which is how
   the tests hold it to JAX bit for bit).
+* :func:`ms_spec` is ``_maze_ms_math``: K steps with the per-env auto-reset
+  and the return accounting.  :func:`maze_ms_slab` runs it, or for CUDA
+  tensors the kernel entry ``maze_steps`` of ``csrc/maze_step.cu``, which
+  runs all K steps in one launch; :func:`make_maze_episode_rollout` drives
+  it chunk by chunk, the counterpart of JAX's ``make_maze_episode_rollout``.
 
 Every float constant of the step is a double rounded to float32 once,
 where the JAX package's weakly typed Python floats meet a float32 array.
@@ -49,6 +54,11 @@ from gym_multigrid_tpu_torch.ops import _build
 
 # The render direction of each action: stay/left/down/right/up.
 _A2DIR = (3, 3, 2, 1, 0)
+# A direction no action gives: in the K-step table it means "unchanged".
+_KEEP_DIR = 4
+#: Shared memory a block of the K-step kernel can hold its table in: the
+#: card's 232,448 bytes a block less its two 16 KB tiles of draws.
+MS_MAX_TABLE_BYTES = 232_448 - 32_768
 
 
 class MazeTables(NamedTuple):
@@ -207,6 +217,125 @@ def reset_spec(t: MazeTables, rnd, bg):
 
 
 # ---------------------------------------------------------------------------
+# K steps with the auto-reset
+# ---------------------------------------------------------------------------
+
+
+def ms_spec(t: MazeTables, K: int, pos, dirs, sc, run_ret, acts, rnd, cells, bg):
+    """K Maze steps with the per-env auto-reset and the return accounting,
+    in plain PyTorch: ``_maze_ms_math`` with one row of draws a step.
+
+    pos (B, 2) int32; dirs, sc (B,) int32; run_ret (B,) float32, the return
+    of each episode in progress; acts (K, B) int32 ids (clipped as by
+    :func:`step_spec`); rnd (K, B) float32 spawn uniforms, one an env a step,
+    read by every env whether it finished or not; cells and bg as for
+    :func:`step_spec` and :func:`reset_spec`.  Returns (pos, dirs, sc,
+    run_ret, rew_sum, ep_sum, eps): the state after the K steps and, per
+    env, the sum of its rewards, the summed returns of the episodes it
+    finished (float32) and how many it finished (int32), all (B,).  Every
+    sum is taken one step at a time in JAX's order."""
+    B = pos.shape[0]
+    rew_sum = torch.zeros((B,), dtype=torch.float32, device=pos.device)
+    ep_sum = torch.zeros_like(rew_sum)
+    eps = torch.zeros((B,), dtype=torch.int32, device=pos.device)
+    for k in range(K):
+        pos2, dirs2, reward, term = step_spec(t, pos, dirs[:, None], acts[k][:, None], cells)
+        reward, sc2 = reward[:, 0], sc + 1
+        done = (term[:, 0] == 1) | (sc2 >= t.max_steps)
+        run2 = run_ret + reward
+        rew_sum = rew_sum + reward
+        ep_sum = ep_sum + torch.where(done, run2, 0.0)
+        eps = eps + done.to(torch.int32)
+        run_ret = torch.where(done, 0.0, run2)
+        spawn, _ = reset_spec(t, rnd[k][:, None], bg)
+        pos = torch.where(done[:, None], spawn, pos2)
+        dirs = torch.where(done, SPAWN_DIR, dirs2[:, 0])
+        sc = torch.where(done, 0, sc2)
+    return pos, dirs, sc, run_ret, rew_sum, ep_sum, eps
+
+
+def ms_table(t: MazeTables, cells, bg):
+    """The K-step kernel's table, (10 N + n_bg) int32 padded with zeros to a
+    multiple of 4, on the device of ``cells``.
+
+    :func:`step_spec` tabulated over every (cell, action): entry
+    ``cell * 5 + a`` of the first 5 N holds ``(next * 5) << 4 | dir << 1 |
+    terminated``, with ``next`` the cell the move ends on and ``dir`` its
+    direction after the move, or 4 where the move leaves it as it was;
+    the next 5 N hold the move's reward as float32 bits; the last n_bg hold
+    ``cell * 5`` of each background cell, in :func:`reset_spec`'s order.
+    So a move is one table read, and the kernel does the same arithmetic as
+    the plain version by reading its results."""
+    N, dev = t.n_cells, cells.device
+    cell = torch.arange(N, dtype=torch.int32, device=dev).repeat_interleave(NUM_ACTIONS)
+    acts = torch.arange(NUM_ACTIONS, dtype=torch.int32, device=dev).repeat(N)
+    pos = torch.stack([cell // t.s1, cell % t.s1], dim=1)
+    keep = torch.full((N * NUM_ACTIONS, 1), _KEEP_DIR, dtype=torch.int32, device=dev)
+    npos, ndir, reward, term = step_spec(t, pos, keep, acts[:, None], cells)
+    nxt = npos[:, 0] * t.s1 + npos[:, 1]
+    moves = ((nxt * NUM_ACTIONS) << 4) | (ndir[:, 0] << 1) | term[:, 0]
+    spawns = (bg[0] * t.s1 + bg[1]) * NUM_ACTIONS
+    table = torch.cat([moves, reward[:, 0].view(torch.int32), spawns])
+    return torch.nn.functional.pad(table, (0, -table.numel() % 4))
+
+
+def maze_ms_slab(slab: "MazeSlab", pos, dirs, sc, run_ret, acts, rnd):
+    """K = ``acts.shape[0]`` steps of the batch with the auto-reset:
+    :func:`ms_spec` for CPU tensors, the CUDA kernel entry ``maze_steps``
+    of ``csrc/maze_step.cu`` for CUDA tensors, one launch for all K steps
+    (new output tensors; the inputs are not changed).  Same arguments and
+    results as :func:`ms_spec`, the tables taken from ``slab``.  Positions
+    must lie on the board, as every reset and step leaves them."""
+    K = acts.shape[0]
+    if pos.device.type == "cpu":
+        return ms_spec(slab.t, K, pos, dirs, sc, run_ret, acts, rnd, slab.cells, slab.bg)
+    if pos.device.type != "cuda":
+        raise ValueError(f"no Maze steps for tensors on {pos.device}")
+    B = pos.shape[0]
+    if B < 1 or K < 1:
+        raise ValueError(f"nothing to step: {B} envs, {K} steps")
+    table = slab.ms_table
+    if table.numel() * 4 > MS_MAX_TABLE_BYTES:
+        raise ValueError(
+            f"the Maze K-step kernel holds its table in at most {MS_MAX_TABLE_BYTES} "
+            f"bytes of shared memory; this map needs {table.numel() * 4}"
+        )
+    dev = pos.device
+    for name, x, dtype, shape in (
+        ("pos", pos, torch.int32, (B, 2)),
+        ("dirs", dirs, torch.int32, (B,)),
+        ("sc", sc, torch.int32, (B,)),
+        ("run_ret", run_ret, torch.float32, (B,)),
+        ("acts", acts, torch.int32, (K, B)),
+        ("rnd", rnd, torch.float32, (K, B)),
+        ("table", table, torch.int32, (table.numel(),)),
+    ):
+        _build.check_arg(name, x, dtype, shape, dev)
+    outs = (
+        torch.empty_like(pos), torch.empty_like(dirs), torch.empty_like(sc),
+        torch.empty_like(run_ret), torch.empty_like(run_ret), torch.empty_like(run_ret),
+        torch.empty_like(sc),
+    )
+    kernels = _build.load()
+    with torch.cuda.device(dev):
+        err = kernels.maze_steps(
+            pos.data_ptr(), dirs.data_ptr(), sc.data_ptr(), run_ret.data_ptr(),
+            acts.data_ptr(), rnd.data_ptr(), table.data_ptr(),
+            *(o.data_ptr() for o in outs),
+            B, K, slab.t.s1, slab.t.n_cells * NUM_ACTIONS, slab.bg.shape[1],
+            slab.t.max_steps, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"maze_steps kernel launch failed: CUDA error {err}")
+    maze_ms_slab.launches += 1
+    return outs
+
+
+#: Launches of the K-step kernel since the count was last set to 0.
+maze_ms_slab.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Batch glue
 # ---------------------------------------------------------------------------
 
@@ -220,20 +349,23 @@ class MazeSlab:
     t: MazeTables
     cells: torch.Tensor  # (3, N) int32
     bg: torch.Tensor  # (2, n_bg) int32
+    ms_table: torch.Tensor  # the K-step kernel's table (:func:`ms_table`)
 
     #: Uniforms one env's reset takes; the step takes none.
     reset_draws = 1
 
 
 def make_maze_slab(cfg: MazeConfig, device) -> MazeSlab:
-    """The slab of ``cfg`` on ``device``.  The kernel takes any map: it
-    reads the cell rows through the read-only cache, so there is no
-    envelope to check."""
+    """The slab of ``cfg`` on ``device``.  The one-step kernel takes any
+    map: it reads the cell rows through the read-only cache.  The K-step
+    kernel holds :func:`ms_table` in shared memory, and
+    :func:`maze_ms_slab` refuses a map whose table does not fit."""
     device = torch.device(device)
     cells, bg = maze_static_inputs(cfg, device)
     if bg.shape[1] == 0:
         raise ValueError("the map has no background cell to spawn on")
-    return MazeSlab(cfg, device, maze_tables(cfg), cells, bg)
+    t = maze_tables(cfg)
+    return MazeSlab(cfg, device, t, cells, bg, ms_table(t, cells, bg))
 
 
 def step_batch(
@@ -298,4 +430,80 @@ def reset_batch(
         pos=torch.where(done[:, None], pos, states.pos),
         dir=states.dir.masked_fill(done, SPAWN_DIR),
         step_count=states.step_count.masked_fill(done, 0),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Episode rollout
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True, eq=False)
+class MazeEpisodeRollout:
+    """``rollout(states, num_steps)`` of a batch of Maze envs, ``chunk``
+    steps a kernel launch (:func:`make_maze_episode_rollout`)."""
+
+    slab: MazeSlab
+    num_envs: int
+    generator: torch.Generator
+    chunk: int
+
+    @property
+    def cfg(self) -> MazeConfig:
+        return self.slab.cfg
+
+    def reset(self, seed: int):
+        """Seed the generator and reset every env: (states, obs)."""
+        self.generator.manual_seed(seed)
+        states = reset_batch(self.slab, self.num_envs, generator=self.generator)
+        return states, encode(self.cfg, states)
+
+    def __call__(self, states: MazeState, num_steps: int, run_return=None):
+        """``num_steps`` steps with uniform random actions and the auto-reset;
+        returns (states, metrics) with ``BatchedEnv.rollout``'s metrics.
+        Each chunk of K steps draws its (K, B) actions and spawn uniforms
+        in two calls and runs as one :func:`maze_ms_slab`; a last chunk
+        covers ``num_steps % chunk``.  Nothing in the loop waits for the
+        device."""
+        B, dev = self.num_envs, self.slab.device
+        run_ret = (torch.zeros((B,), dtype=torch.float32, device=dev)
+                   if run_return is None else run_return)
+        reward_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        ep_ret_sum = torch.zeros_like(reward_sum)
+        episodes = torch.zeros((), dtype=torch.int32, device=dev)
+        pos, dirs, sc = states.pos, states.dir, states.step_count
+        for start in range(0, num_steps, self.chunk):
+            K = min(self.chunk, num_steps - start)
+            acts = torch.randint(0, NUM_ACTIONS, (K, B), generator=self.generator,
+                                 device=dev, dtype=torch.int32)
+            rnd = torch.rand((K, B), generator=self.generator, device=dev)
+            pos, dirs, sc, run_ret, rew, ep, eps = maze_ms_slab(
+                self.slab, pos, dirs, sc, run_ret, acts, rnd)
+            reward_sum = reward_sum + rew.sum()
+            ep_ret_sum = ep_ret_sum + ep.sum()
+            episodes = episodes + eps.sum(dtype=torch.int32)
+        return MazeState(pos=pos, dir=dirs, step_count=sc), {
+            "reward_sum": reward_sum,
+            "episodes": episodes,
+            "ep_return_sum": ep_ret_sum,
+            "run_return": run_ret,
+        }
+
+
+def make_maze_episode_rollout(
+    cfg: MazeConfig, num_envs: int, device=None, chunk: int = 25
+) -> MazeEpisodeRollout:
+    """The Maze episode rollout: the counterpart of JAX's
+    ``make_maze_episode_rollout`` (``ops/pallas_maze.py``), one kernel
+    launch a chunk of steps instead of ``BatchedEnv``'s one a step.
+
+    ``reset(seed)`` gives fresh states; ``rollout(states, num_steps)`` (the
+    object is callable) steps them.  The default device is the current
+    CUDA device; with no CUDA device and no explicit ``device`` this
+    raises, and ``device="cpu"`` runs :func:`ms_spec`."""
+    device = _build.default_device(device, "make_maze_episode_rollout")
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1, got {chunk}")
+    return MazeEpisodeRollout(
+        make_maze_slab(cfg, device), num_envs, torch.Generator(device=device), chunk
     )

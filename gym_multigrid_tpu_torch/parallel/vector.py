@@ -2,13 +2,20 @@
 
 Counterpart of ``BatchedEnv`` and the ``make_*_batch`` functions in
 ``gym_multigrid_tpu/parallel/vector.py``, for Collect, CtF, Maze and
-Wildfire.  The batch runs in lockstep on one device; every step of the
-whole batch is one kernel launch on a CUDA device (``ops/*_slab.py``).
-Finished envs are reset under a ``done`` mask (in place by the Collect
-reset kernel; into new tensors by the other families' resets, which are
-plain PyTorch), so neither ``step`` nor ``rollout`` waits on the device
-inside its loop.  Randomness comes from the env's ``torch.Generator``,
-seeded by ``reset(seed)``.
+Wildfire.  The batch runs in lockstep on one device; each step of the
+whole batch launches the family's step kernel once on a CUDA device
+(``ops/*_slab.py``), beside the PyTorch glue around it.  Finished envs are
+reset under a ``done`` mask (in place by the Collect reset kernel; into new
+tensors by the other families' resets, which are plain PyTorch), so
+neither ``step`` nor ``rollout`` waits on the device inside its loop.
+Randomness comes from the env's ``torch.Generator``, seeded by
+``reset(seed)``.
+
+The episode rollouts ``make_collect_episode_rollout`` and
+``make_maze_episode_rollout`` (``ops/collect_slab.py``,
+``ops/maze_slab.py``) are the fewer-launch path for the same metrics:
+Collect with one all-rows reset an episode instead of a masked one a step,
+Maze with one kernel launch a chunk of steps.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import torch
 
 from gym_multigrid_tpu_torch.core.constants import COLLECT_ACTION_TO_VEC
 from gym_multigrid_tpu_torch.envs import collect, ctf, maze, wildfire
-from gym_multigrid_tpu_torch.ops import collect_slab, ctf_slab, maze_slab, wildfire_slab
+from gym_multigrid_tpu_torch.ops import _build, collect_slab, ctf_slab, maze_slab, wildfire_slab
 
 
 @dataclass(frozen=True, eq=False)
@@ -146,19 +153,6 @@ class BatchedEnv:
         }
 
 
-def _device(device, name: str) -> torch.device:
-    """``device``, or the current CUDA device when it is None; with no
-    CUDA device and no explicit ``device`` this raises."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"{name} runs on a CUDA device and none is "
-                "available; pass device='cpu' to run the plain PyTorch version"
-            )
-        device = torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
-
-
 def make_collect_batch(
     cfg: collect.CollectConfig,
     num_envs: int,
@@ -170,7 +164,7 @@ def make_collect_batch(
     no explicit ``device`` this raises.  ``device="cpu"`` runs the plain
     PyTorch versions of the kernels.  Actions are (num_envs, num_agents)
     ids 0..3."""
-    device = _device(device, "make_collect_batch")
+    device = _build.default_device(device, "make_collect_batch")
     return BatchedEnv(
         slab=collect_slab.make_collect_slab(cfg, device),
         num_envs=num_envs,
@@ -193,7 +187,7 @@ def make_ctf_batch(
     :func:`make_collect_batch`).  Actions are the blue team's,
     (num_envs, num_blue_agents) ids 0..4; rewards are (num_envs,) team
     rewards."""
-    device = _device(device, "make_ctf_batch")
+    device = _build.default_device(device, "make_ctf_batch")
     return BatchedEnv(
         slab=ctf_slab.make_ctf_slab(cfg, device),
         num_envs=num_envs,
@@ -214,7 +208,7 @@ def make_maze_batch(
     """A batch of ``num_envs`` Maze envs on ``device`` (default and CPU as
     for :func:`make_collect_batch`).  Actions are (num_envs,) ids 0..4, one
     per env with no agent axis; rewards are (num_envs,)."""
-    device = _device(device, "make_maze_batch")
+    device = _build.default_device(device, "make_maze_batch")
     return BatchedEnv(
         slab=maze_slab.make_maze_slab(cfg, device),
         num_envs=num_envs,
@@ -236,7 +230,7 @@ def make_wildfire_batch(
     as for :func:`make_collect_batch`).  Actions are (num_envs, num_agents)
     ids 0..4; rewards are (num_envs, num_agents), the team reward split
     evenly."""
-    device = _device(device, "make_wildfire_batch")
+    device = _build.default_device(device, "make_wildfire_batch")
     return BatchedEnv(
         slab=wildfire_slab.make_wildfire_slab(cfg, device),
         num_envs=num_envs,

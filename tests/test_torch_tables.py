@@ -121,16 +121,18 @@ def _c_signature(source, name):
 
 @pytest.mark.parametrize("source", sorted(_build.ENTRY_POINTS))
 def test_ctypes_argtypes_match_c_entry_points(source):
-    name, argtypes = _build.ENTRY_POINTS[source]
-    params = _c_signature(source, name)
-    assert len(params) == len(argtypes)
-    for param, argtype in zip(params, argtypes):
-        if "*" in param:
-            want = _build._P
-        else:
-            want = _build._F if param.startswith("float ") else _build._I
-            assert param.startswith(("int ", "float ")), param
-        assert argtype is want, (param, argtype)
+    entries = _build.ENTRY_POINTS[source]
+    assert entries
+    for name, argtypes in entries.items():
+        params = _c_signature(source, name)
+        assert len(params) == len(argtypes), name
+        for param, argtype in zip(params, argtypes):
+            if "*" in param:
+                want = _build._P
+            else:
+                want = _build._F if param.startswith("float ") else _build._I
+                assert param.startswith(("int ", "float ")), param
+            assert argtype is want, (name, param, argtype)
 
 
 def _ternary_table(text, fn):
