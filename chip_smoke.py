@@ -26,7 +26,12 @@ without them.  Phases, each of which fails the run on any fault:
    the Collect reset on them too.  The Maze K-step entry ``maze_steps`` is
    held to ``ms_spec`` over 100 steps with the auto-reset, as four chunks
    of 25 and as one of 100, on both Maze configs at B = 8192 and on the
-   ragged batches.  Finished envs are respawned by each family's
+   ragged batches.  The CtF K-step entry ``ctf_steps`` is held to its
+   ``ms_spec`` over 100 steps as chunks of 25 and of 50 on the four CtF
+   configs, and the Wildfire K-step entry ``wf_steps`` to its ``ms_spec``
+   as chunks of 24 and of 8 on the three Wildfire configs, each at a
+   ``max_steps`` of 30 so that every env resets at least twice, at
+   B = 8192, 8189 and 5.  Finished envs are respawned by each family's
    ``reset_batch`` under the ``done`` mask.  Misaligned Wildfire uniforms
    are refused, not copied.
 3. Drive each path, with every launch count set to 0 just before it and
@@ -42,9 +47,13 @@ without them.  Phases, each of which fails the run on any fault:
    and 500 steps: one step launch a step and one all-rows reset an
    episode) and the Maze one (``make_maze_episode_rollout(MAZE_MAIN, 8192,
    chunk=100)``, ``reset(seed=0)`` and 1000 steps: ten ``maze_steps``
-   launches).  Check each rollout's invariants; then, after untimed calls
-   until the time per call settles, time it, each kernel and its plain
-   version.
+   launches), the CtF one (``make_ctf_episode_rollout(CTF_MAIN, 8192,
+   chunk=50)``, ``reset(seed=0)`` and 400 steps: eight ``ctf_steps``
+   launches) and the Wildfire one (``make_wildfire_episode_rollout(WF_MAIN,
+   8192, chunk=24)``, ``reset(seed=0)`` and 400 steps: seventeen
+   ``wf_steps`` launches).  Check each rollout's invariants; then, after
+   untimed calls until the time per call settles, time it, each kernel and
+   its plain version.
 4. Profile 50 steps of each ``BatchedEnv`` rollout and 100 of each episode
    path: device time by kernel and idle share.
 
@@ -54,6 +63,7 @@ and power limit, and last ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -87,13 +97,21 @@ from gym_multigrid_tpu_torch.ops.collect_slab import (  # noqa: E402
     reset_spec,
     step_spec,
 )
-from gym_multigrid_tpu_torch.ops.ctf_slab import ctf_step_slab  # noqa: E402
+from gym_multigrid_tpu_torch.ops.ctf_slab import (  # noqa: E402
+    ctf_ms_slab,
+    ctf_step_slab,
+    make_ctf_episode_rollout,
+)
 from gym_multigrid_tpu_torch.ops.maze_slab import (  # noqa: E402
     make_maze_episode_rollout,
     maze_ms_slab,
     maze_step_slab,
 )
-from gym_multigrid_tpu_torch.ops.wildfire_slab import wildfire_step_slab  # noqa: E402
+from gym_multigrid_tpu_torch.ops.wildfire_slab import (  # noqa: E402
+    make_wildfire_episode_rollout,
+    wf_ms_slab,
+    wildfire_step_slab,
+)
 from gym_multigrid_tpu_torch.parallel.vector import (  # noqa: E402
     make_collect_batch,
     make_ctf_batch,
@@ -193,6 +211,27 @@ MAZE_CHUNK = 100
 # new cell's select 2 and the counts' ballots 3: 25 + A.  Per env, the
 # move order's decode 8 and per mover MOVE_OPS plus 2 per agent it checks.
 WF_CELL_OPS = 25
+# The K-step entries, per env and step on top of the step itself: the step
+# count, done, the three sums, the episode count and the running return's
+# select, 10.  Per env that finished, the respawn: CtF, per agent a floor
+# pick (multiply, convert, clip: 3) and, MvN, a compare and an increment
+# per teammate picked before it and a compare and swap to keep them sorted
+# (4 per teammate), then the cell's two reads and four writes (6);
+# Wildfire, per cell the tree compare, the select and the ballot (3), per
+# fire the popcount prefix over the lanes (5 shuffles and adds, 10), the
+# pick (3), the word and bit search (16) and the two writes, and per agent
+# the CtF MvN pick over the board and the cell's divide (2).
+MS_STEP_OPS = 10
+CTF_SPAWN_OPS = 9
+CTF_SPAWN_PAIR_OPS = 4
+WF_FRESH_CELL_OPS = 3
+WF_FRESH_FIRE_OPS = 31
+# Steps a CtF and a Wildfire episode-path launch runs (bench_all.py's
+# MS_CHUNKS), and the max_steps of their phase-2 configs: every env resets
+# at least three times in 100 steps.
+CTF_CHUNK = 50
+WF_CHUNK = 24
+MS_CHECK_MAX_STEPS = 30
 # Untimed rollout calls at most before the timed ones: Collect's, Maze's
 # and Wildfire's are cut to 10 to keep the whole run near two and a half
 # minutes.
@@ -386,30 +425,99 @@ def check_maze_step_kernel(cfg, name, steps, seed):
     return err
 
 
+def check_steps_kernel(run, spec, state, draws, chunks, what):
+    """A K-step kernel entry against its plain version over the steps of
+    ``draws`` (each (steps, n, ...)), once as launches of each chunk size in
+    ``chunks``, every launch compared: ``run(*state, *draws[k0:k1])`` and
+    ``spec(K, *state, *draws[k0:k1])`` return the new state, then the sums,
+    the episode counts (n,) last.  Returns (max_abs_err, the episodes each
+    env finished in the run of the first chunk size)."""
+    steps, n = draws[0].shape[:2]
+    err, eps = 0.0, torch.zeros((n,), dtype=torch.int32, device=DEV)
+    for chunk in chunks:
+        cur = state
+        for k0 in range(0, steps, chunk):
+            part = [d[k0:k0 + chunk] for d in draws]
+            got = run(*cur, *part)
+            err = max(err, max_abs_err(got, spec(part[0].shape[0], *cur, *part)))
+            cur = got[:len(state)]
+            if chunk == chunks[0]:
+                eps += got[-1]
+    log(f"{what}, {steps} steps at B={n} as launches of "
+        f"{' and of '.join(map(str, chunks))}: {int(eps.sum())} episodes ended "
+        f"(at least {int(eps.min())} an env), max_abs_err {err}")
+    return err, eps
+
+
 def check_maze_steps_kernel(cfg, name, seed, n=B, steps=100, chunks=(25, 100)):
     """``maze_ms_slab`` (the kernel entry ``maze_steps``) against ``ms_spec``
-    over ``steps`` steps with the auto-reset from the batch reset, once as
-    launches of each chunk size in ``chunks``, every launch compared.
-    Action ids -1..9 (the invalid ones clip); random running returns."""
+    over ``steps`` steps with the auto-reset from the batch reset.  Action
+    ids -1..9 (the invalid ones clip); random running returns."""
     slab = maze_slab.make_maze_slab(cfg, DEV)
     gen = torch.Generator(device=DEV).manual_seed(seed)
     start = maze_slab.reset_batch(slab, n, generator=gen)
     run0 = torch.rand((n,), generator=gen, device=DEV) - 0.5
     acts = torch.randint(-1, 10, (steps, n), generator=gen, device=DEV, dtype=torch.int32)
     rnd = torch.rand((steps, n), generator=gen, device=DEV)
-    err, episodes = 0.0, 0
-    for chunk in chunks:
-        state = (start.pos, start.dir, start.step_count, run0)
-        for k0 in range(0, steps, chunk):
-            args = (*state, acts[k0:k0 + chunk], rnd[k0:k0 + chunk])
-            got = maze_ms_slab(slab, *args)
-            err = max(err, max_abs_err(got, maze_slab.ms_spec(
-                slab.t, args[4].shape[0], *args, slab.cells, slab.bg)))
-            state = got[:4]
-            episodes += int(got[6].sum()) if chunk == chunks[0] else 0
-    check(n < 64 or episodes >= n, f"{name}: {episodes} episodes ended")
-    log(f"maze_steps kernel == ms_spec: {name}, {steps} steps at B={n} as launches of "
-        f"{' and of '.join(map(str, chunks))}: {episodes} episodes ended, max_abs_err {err}")
+    err, eps = check_steps_kernel(
+        lambda *a: maze_ms_slab(slab, *a),
+        lambda K, *a: maze_slab.ms_spec(slab.t, K, *a, slab.cells, slab.bg),
+        (start.pos, start.dir, start.step_count, run0), (acts, rnd), chunks,
+        f"maze_steps kernel == ms_spec: {name}")
+    check(n < 64 or int(eps.sum()) >= n, f"{name}: {int(eps.sum())} episodes ended")
+    return err
+
+
+def check_ctf_steps_kernel(cfg, name, seed, n=B, steps=100, chunks=(25, CTF_CHUNK)):
+    """``ctf_ms_slab`` (the kernel entry ``ctf_steps``) against ``ms_spec``
+    over ``steps`` steps with the auto-reset from the batch reset, random
+    step counts and running returns.  Blue ids -2..6 (the invalid ones
+    clamp).  Fails unless every env finished at least two episodes."""
+    slab = ctf_slab.make_ctf_slab(cfg, DEV)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    start = ctf_slab.reset_batch(slab, n, generator=gen)
+    sc0 = torch.randint(0, cfg.max_steps, (n,), generator=gen, device=DEV, dtype=torch.int32)
+    run0 = torch.rand((n,), generator=gen, device=DEV) - 0.5
+    draws = (
+        torch.randint(-2, 7, (steps, n, cfg.num_blue_agents), generator=gen, device=DEV,
+                      dtype=torch.int32),
+        torch.rand((steps, n, slab.step_draws), generator=gen, device=DEV),
+        torch.rand((steps, n, slab.reset_draws), generator=gen, device=DEV),
+    )
+    err, eps = check_steps_kernel(
+        lambda *a: ctf_ms_slab(slab, *a),
+        lambda K, *a: ctf_slab.ms_spec(slab.t, K, *a, slab.flags, slab.border, slab.pool,
+                                       slab.bterr, slab.rterr),
+        (start.pos.reshape(n, -1), start.dir, start.terminated, start.collided, sc0, run0),
+        draws, chunks, f"ctf_steps kernel == ms_spec: {name}")
+    check(bool((eps >= 2).all()), f"{name}: an env finished fewer than two episodes")
+    return err
+
+
+def check_wf_steps_kernel(cfg, name, seed, n=B, steps=100, chunks=(WF_CHUNK, 8)):
+    """``wf_ms_slab`` (the kernel entry ``wf_steps``) against ``ms_spec``
+    over ``steps`` steps with the auto-reset from the batch reset, random
+    step counts, extinguished counts and running returns.  Action ids
+    -2..7 (the invalid ones clip).  Fails unless every env finished at
+    least two episodes."""
+    slab = wildfire_slab.make_wildfire_slab(cfg, DEV)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    start = wildfire_slab.reset_batch(slab, n, generator=gen)
+    sc0 = torch.randint(0, cfg.max_steps, (n,), generator=gen, device=DEV, dtype=torch.int32)
+    ext0 = torch.randint(0, 5, (n,), generator=gen, device=DEV, dtype=torch.int32)
+    run0 = torch.rand((n,), generator=gen, device=DEV) - 0.5
+    draws = (
+        torch.randint(-2, 8, (steps, n, slab.t.n_agents), generator=gen, device=DEV,
+                      dtype=torch.int32),
+        torch.rand((steps, n, slab.step_draws), generator=gen, device=DEV),
+        torch.rand((steps, n, slab.reset_draws), generator=gen, device=DEV),
+    )
+    err, eps = check_steps_kernel(
+        lambda *a: wf_ms_slab(slab, *a),
+        lambda K, *a: wildfire_slab.ms_spec(slab.t, K, *a),
+        (start.cells.reshape(n, -1), start.agent_pos.reshape(n, -1), sc0, ext0, run0),
+        draws, chunks, f"wf_steps kernel == ms_spec: {name}")
+    check(bool((eps >= 2).all()), f"{name}: an env finished fewer than two episodes")
     return err
 
 
@@ -537,8 +645,9 @@ def bound(nbytes, ops):
 
 #: Each kernel's wrapper, whose ``launches`` counts its launches.
 WRAPPERS = {"collect_step": collect_step_slab, "collect_reset": collect_reset_slab,
-            "ctf_step": ctf_step_slab, "maze_step": maze_step_slab,
-            "maze_steps": maze_ms_slab, "wildfire_step": wildfire_step_slab}
+            "ctf_step": ctf_step_slab, "ctf_steps": ctf_ms_slab, "maze_step": maze_step_slab,
+            "maze_steps": maze_ms_slab, "wildfire_step": wildfire_step_slab,
+            "wf_steps": wf_ms_slab}
 
 
 def run_counted(drive):
@@ -761,6 +870,26 @@ def maze_episode_path():
     return roll, first, obs, states, metrics
 
 
+def ctf_episode_path():
+    """The CtF episode path: CTF_MAIN at B = 8192, chunks of 50 steps,
+    reset(seed=0) and one 400-step call.  Returns (rollout, first states,
+    obs, final states, metrics)."""
+    roll = make_ctf_episode_rollout(CTF_MAIN, B, chunk=CTF_CHUNK)
+    first, obs = roll.reset(seed=0)
+    states, metrics = roll(first, CTF_STEPS_PER_CALL)
+    return roll, first, obs, states, metrics
+
+
+def wildfire_episode_path():
+    """The Wildfire episode path: WF_MAIN at B = 8192, chunks of 24 steps,
+    reset(seed=0) and one 400-step call.  Returns (rollout, first states,
+    obs, final states, metrics)."""
+    roll = make_wildfire_episode_rollout(WF_MAIN, B, chunk=WF_CHUNK)
+    first, obs = roll.reset(seed=0)
+    states, metrics = roll(first, WF_STEPS_PER_CALL)
+    return roll, first, obs, states, metrics
+
+
 def time_rollout(rollout, name, states, steps, agents, warmup_max):
     """Warm-up calls of ``rollout(states, steps)`` until three in a row lie
     within 5% of each other (at most ``warmup_max``), each logged with the
@@ -903,6 +1032,37 @@ def main():
                                    need_events=False),
     )
     check_misaligned_refused()
+    ctf_ms_err = max(
+        check_ctf_steps_kernel(dataclasses.replace(cfg, max_steps=MS_CHECK_MAX_STEPS), name,
+                               seed=70 + i, n=n)
+        for i, (cfg, name, n) in enumerate((
+            (CTF_MAIN, "CTF_MAIN", B),
+            (CTF_PATROL, "2v2 patrol/patrol_fight, obstacle penalty", B),
+            (CTF_1V1, "1v1 fight, obstacle penalty", B),
+            (CTF_3V3, "3v3 capture/patrol/rw", B),
+            # Ragged batches: no multiple of a block's envs (64, or 32
+            # above 4 agents).
+            (CTF_MAIN, "CTF_MAIN, ragged", RAGGED[0]),
+            (CTF_3V3, "3v3, ragged", RAGGED[0]),
+            (CTF_PATROL, "2v2 patrol, ragged", RAGGED[1]),
+            (CTF_1V1, "1v1, ragged", RAGGED[1]),
+        ))
+    )
+    wf_ms_err = max(
+        check_wf_steps_kernel(dataclasses.replace(cfg, max_steps=MS_CHECK_MAX_STEPS), name,
+                              seed=80 + i, n=n)
+        for i, (cfg, name, n) in enumerate((
+            (WF_MAIN, "WF_MAIN", B),
+            (WF_FOUR, "10x10, 4 agents, step penalty", B),
+            (WF_SPREAD, "32x32, p_spread 1, p_burnout 0", B),
+            # Ragged batches: no multiple of a block's envs (8, or 4 at
+            # 32x32).
+            (WF_MAIN, "WF_MAIN, ragged", RAGGED[0]),
+            (WF_SPREAD, "32x32 spread, ragged", RAGGED[0]),
+            (WF_FOUR, "10x10, 4 agents, ragged", RAGGED[1]),
+            (WF_SPREAD, "32x32 spread, ragged", RAGGED[1]),
+        ))
+    )
 
     # Phase 3: each path, with the launch counts of its own run.
     launches, (env, *result) = run_counted(collect_main_path)
@@ -1074,6 +1234,84 @@ def main():
         f"{maze_ms * 1e3:.2f}; bound {ms_bound * 1e3:.2f} us ({ms_by}; {ms_bytes} bytes take "
         f"{ms_parts[0] * 1e3:.2f} us, {ms_ops} operations {ms_parts[1] * 1e3:.2f} us), "
         f"ms_spec {ms_plain_ms * 1e3:.1f} us {us(ms_plain_all)}")
+
+    # The CtF episode path: CTF_CHUNK steps a launch.
+    cte_launches, (cte_roll, *cte_result) = run_counted(ctf_episode_path)
+    check_launches(cte_launches, {"ctf_steps": -(-CTF_STEPS_PER_CALL // CTF_CHUNK)},
+                   "CtF episode")
+    check_ctf_path(cte_roll, *cte_result)
+    cte_states = time_rollout(cte_roll, "CtF episode", cte_result[2], CTF_STEPS_PER_CALL,
+                              CTF_MAIN.num_agents, CTF_WARMUP_MAX)
+    A, nb = CTF_MAIN.num_agents, CTF_MAIN.num_blue_agents
+    cte_args = (cte_states.pos.reshape(B, -1), cte_states.dir, cte_states.terminated,
+                cte_states.collided, cte_states.step_count, torch.zeros((B,), device=DEV),
+                torch.randint(0, 5, (CTF_CHUNK, B, nb), generator=gen, device=DEV,
+                              dtype=torch.int32),
+                torch.rand((CTF_CHUNK, B, cslab.step_draws), generator=gen, device=DEV),
+                torch.rand((CTF_CHUNK, B, cslab.reset_draws), generator=gen, device=DEV))
+    cms_ms, cms_all = time_ms(lambda: ctf_ms_slab(cslab, *cte_args), 200)
+    cms_plain_ms, cms_plain_all = time_ms(
+        lambda: ctf_slab.ms_spec(cslab.t, CTF_CHUNK, *cte_args, cslab.flags, cslab.border,
+                                 cslab.pool, cslab.bterr, cslab.rterr), 1, windows=3)
+    cms_out = ctf_ms_slab(cslab, *cte_args)
+    cms_done = int(cms_out[8].sum())
+    # Each input read once, but the spawn uniforms only of the rows that
+    # finished (the kernel reads no other); each output written once.
+    cms_bytes = sum(x.numel() * x.element_size() for x in (
+        *cte_args[:8], cslab.flags, cslab.border, cslab.pool, cslab.bterr, cslab.rterr,
+    )) + cms_done * cslab.reset_draws * 4 + sum(x.numel() * x.element_size() for x in cms_out)
+    cms_ops = (CTF_CHUNK * (ctf_step_ops(cslab.t, cslab.border.shape[1]) + B * MS_STEP_OPS)
+               + cms_done * A * (CTF_SPAWN_OPS + CTF_SPAWN_PAIR_OPS * (max(nb, A - nb) - 1)))
+    cms_bound, cms_by, *cms_parts = bound(cms_bytes, cms_ops)
+    cms_draw_ms, cms_draw_all = time_ms(lambda: (
+        torch.randint(0, 5, (CTF_CHUNK, B, nb), generator=gen, device=DEV, dtype=torch.int32),
+        torch.rand((CTF_CHUNK, B, cslab.step_draws), generator=gen, device=DEV),
+        torch.rand((CTF_CHUNK, B, cslab.reset_draws), generator=gen, device=DEV)), 50)
+    log(f"ctf_steps: {cms_ms * 1e3:.2f} us/launch of {CTF_CHUNK} steps (median of windows "
+        f"{us(cms_all)}), {cms_ms * 1e3 / CTF_CHUNK:.4f} us a step against ctf_step's "
+        f"{ctf_ms * 1e3:.2f}; bound {cms_bound * 1e3:.2f} us ({cms_by}; {cms_bytes} bytes take "
+        f"{cms_parts[0] * 1e3:.2f} us, {cms_ops} operations ({cms_done} respawns) "
+        f"{cms_parts[1] * 1e3:.2f} us), ms_spec {cms_plain_ms * 1e3:.1f} us "
+        f"{us(cms_plain_all)}; the chunk's three draws {cms_draw_ms * 1e3:.2f} us "
+        f"{us(cms_draw_all)}")
+
+    # The Wildfire episode path: WF_CHUNK steps a launch.
+    wfe_launches, (wfe_roll, *wfe_result) = run_counted(wildfire_episode_path)
+    check_launches(wfe_launches, {"wf_steps": -(-WF_STEPS_PER_CALL // WF_CHUNK)},
+                   "Wildfire episode")
+    check_wildfire_path(wfe_roll, *wfe_result)
+    wfe_states = time_rollout(wfe_roll, "Wildfire episode", wfe_result[2], WF_STEPS_PER_CALL,
+                              WF_MAIN.num_agents, WF_WARMUP_MAX)
+    A, C = wt.n_agents, wt.n_cells
+    wfe_args = (wfe_states.cells.reshape(B, -1), wfe_states.agent_pos.reshape(B, -1),
+                wfe_states.step_count, wfe_states.extinguished, torch.zeros((B,), device=DEV),
+                torch.randint(0, 5, (WF_CHUNK, B, A), generator=gen, device=DEV,
+                              dtype=torch.int32),
+                torch.rand((WF_CHUNK, B, wslab.step_draws), generator=gen, device=DEV),
+                torch.rand((WF_CHUNK, B, wslab.reset_draws), generator=gen, device=DEV))
+    wms_ms, wms_all = time_ms(lambda: wf_ms_slab(wslab, *wfe_args), 200)
+    wms_plain_ms, wms_plain_all = time_ms(
+        lambda: wildfire_slab.ms_spec(wt, WF_CHUNK, *wfe_args), 1, windows=3)
+    wms_out = wf_ms_slab(wslab, *wfe_args)
+    wms_done = int(wms_out[7].sum())
+    wms_bytes = sum(x.numel() * x.element_size() for x in wfe_args[:7]) + (
+        wms_done * wslab.reset_draws * 4) + sum(x.numel() * x.element_size() for x in wms_out)
+    wms_ops = WF_CHUNK * (wf_ops + B * MS_STEP_OPS) + wms_done * (
+        C * WF_FRESH_CELL_OPS + wt.n_fires * WF_FRESH_FIRE_OPS
+        + A * (CTF_SPAWN_OPS + 2 + CTF_SPAWN_PAIR_OPS * (A - 1)))
+    wms_bound, wms_by, *wms_parts = bound(wms_bytes, wms_ops)
+    wms_draw_bytes = 4 * B * WF_CHUNK * (A + wslab.step_draws + wslab.reset_draws)
+    wms_draw_ms, wms_draw_all = time_ms(lambda: (
+        torch.randint(0, 5, (WF_CHUNK, B, A), generator=gen, device=DEV, dtype=torch.int32),
+        torch.rand((WF_CHUNK, B, wslab.step_draws), generator=gen, device=DEV),
+        torch.rand((WF_CHUNK, B, wslab.reset_draws), generator=gen, device=DEV)), 20)
+    log(f"wf_steps: {wms_ms * 1e3:.2f} us/launch of {WF_CHUNK} steps (median of windows "
+        f"{us(wms_all)}), {wms_ms * 1e3 / WF_CHUNK:.4f} us a step against wildfire_step's "
+        f"{wf_ms * 1e3:.2f}; bound {wms_bound * 1e3:.2f} us ({wms_by}; {wms_bytes} bytes take "
+        f"{wms_parts[0] * 1e3:.2f} us, {wms_ops} operations ({wms_done} fresh boards) "
+        f"{wms_parts[1] * 1e3:.2f} us), ms_spec {wms_plain_ms * 1e3:.1f} us "
+        f"{us(wms_plain_all)}; the chunk's three draws ({wms_draw_bytes} bytes written) "
+        f"{wms_draw_ms * 1e3:.2f} us {us(wms_draw_all)}")
     log("library_ms: null for every kernel (no single PyTorch call computes any)")
 
     # Phase 4: where each rollout's time goes.
@@ -1083,6 +1321,8 @@ def main():
     profile_rollout(wf_env.rollout, wf_states, "Wildfire")
     profile_rollout(ce_roll, ce_states, "Collect episode", steps=2 * MAIN.max_steps)
     profile_rollout(me_roll, me_states, "Maze episode", steps=MAZE_CHUNK)
+    profile_rollout(cte_roll, cte_states, "CtF episode", steps=2 * CTF_CHUNK)
+    profile_rollout(wfe_roll, wfe_states, "Wildfire episode", steps=4 * WF_CHUNK + 4)
 
     record = {"kernels": [
         {"name": "collect_step", "route": "cuda",
@@ -1125,6 +1365,22 @@ def main():
          "launches": wf_launches["wildfire_step"], "max_abs_err": wf_err,
          "ms": wf_ms, "plain_ms": wf_plain_ms, "bound_ms": wf_bound,
          "bound_by": wf_by, "library_ms": None},
+        # The K-step entries: each source's transition with the episode
+        # math's auto-reset (_ctf_ms_math, pallas_ctf.py:698; _ms_math,
+        # pallas_wildfire.py:101), 50 and 24 steps a launch on the CtF and
+        # Wildfire episode paths.
+        {"name": "ctf_steps", "route": "cuda",
+         "source": "gym_multigrid_tpu_torch/csrc/ctf_step.cu",
+         "replaces": "gym_multigrid_tpu/ops/pallas_ctf.py:492",
+         "launches": cte_launches["ctf_steps"], "max_abs_err": ctf_ms_err,
+         "ms": cms_ms, "plain_ms": cms_plain_ms, "bound_ms": cms_bound,
+         "bound_by": cms_by, "library_ms": None},
+        {"name": "wf_steps", "route": "cuda",
+         "source": "gym_multigrid_tpu_torch/csrc/wildfire_step.cu",
+         "replaces": "gym_multigrid_tpu/ops/pallas_wildfire.py:50",
+         "launches": wfe_launches["wf_steps"], "max_abs_err": wf_ms_err,
+         "ms": wms_ms, "plain_ms": wms_plain_ms, "bound_ms": wms_bound,
+         "bound_by": wms_by, "library_ms": None},
     ]}
     log(json.dumps(record))
     smi = subprocess.run(

@@ -56,6 +56,8 @@
 
 #include <cuda_runtime.h>
 
+#include "copy_async.cuh"
+
 namespace maze {
 namespace {
 
@@ -141,13 +143,6 @@ struct MsParams {
   int B, K, s1, n_moves, n_bg, max_steps, n_table;
 };
 
-// A 4-byte asynchronous copy from global to shared memory.  Its completion
-// is waited for with cp.async.wait_group, apart from the loads of the chain.
-__device__ __forceinline__ void copy_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
-               : "memory");
-}
 // A shared-memory read issued where it stands: the compiler may neither
 // move it under a later predicate nor drop it.  The spawn read uses it, so
 // that it overlaps the move's read instead of following the step's `done`.
@@ -158,13 +153,6 @@ __device__ __forceinline__ int load_shared_now(const int* p) {
                : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
   return v;
 }
-__device__ __forceinline__ void copy_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void copy_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // This thread's actions and uniforms of steps [k0, k0 + kTile) into its own
 // column of one tile buffer: the thread reads only what it copied.
@@ -174,10 +162,10 @@ __device__ __forceinline__ void fetch_tile(int* s_a, float* s_u, const int* acts
   const int n = min(kTile, K - k0);
   for (int j = 0; j < n; ++j) {
     const size_t at = (size_t)(k0 + j) * B + b;
-    copy_async4(s_a + j * kThreads + threadIdx.x, acts + at);
-    copy_async4(s_u + j * kThreads + threadIdx.x, rnd + at);
+    copy_async::copy4(s_a + j * kThreads + threadIdx.x, acts + at);
+    copy_async::copy4(s_u + j * kThreads + threadIdx.x, rnd + at);
   }
-  copy_async_commit();
+  copy_async::commit();
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -240,9 +228,9 @@ steps_kernel(const int* __restrict__ pos, const int* __restrict__ dirs,
     // The next tile goes out before this one is waited for.
     if (k0 + kTile < K) {
       fetch_tile(s_acts[t ^ 1], s_rnd[t ^ 1], acts, rnd, k0 + kTile, K, p.B, b);
-      copy_async_wait<1>();
+      copy_async::wait<1>();
     } else {
-      copy_async_wait<0>();
+      copy_async::wait<0>();
     }
     const int* ta = s_acts[t] + threadIdx.x;
     const float* tu = s_rnd[t] + threadIdx.x;

@@ -54,12 +54,38 @@
 //   __fmul_rn/__fsub_rn in the plain version's order, so no multiply-add is
 //   contracted into an FMA; floor(u * A!) is __fmul_rn then __float2int_rz.
 // Envelope: at most 4 agents (the move-order table's) and 1024 cells.
+//
+// The K-step entry wf_steps runs K transitions with the per-env auto-reset
+// of _ms_math (pallas_wildfire.py, the pre-drawn form), the plain version
+// ms_spec in ops/wildfire_slab.py, in one launch: the counterpart of
+// wildfire_step_slab's body on the JAX episode path, whose own K-step
+// Pallas kernel was pruned on the TPU.  Both entries run the same moves and
+// cell step (move_all, burn).  One warp per env keeps the board in its
+// lanes' registers for all K steps, so a launch reads and writes each
+// board once; each step's uniforms and actions reach a ring of kStages
+// steps in shared memory by 4-byte cp.async copies, kStages steps ahead
+// (a row of 1 + C uniforms is 4-byte aligned only, and so are the
+// steps of a ragged batch: no tensor needs more).  A finished env gets a
+// fresh board in the kernel (fresh_board): its trees by one compare a
+// cell, the fires picked among the trees by a popcount prefix over the
+// lanes' ballot words, the agents by picks::pick_untaken; its spawn
+// uniforms are read only on that step, and the plain version draws them
+// every step and throws them away elsewhere, so skipping them changes
+// nothing.  The sums are __fadd_rn adds in _ms_math's order, a +0 added
+// where no episode ended.  What bounds it at 16x16, B = 8192: the SMs'
+// instruction issue, not one warp's chain (scripts/torch_kernel_probe.py:
+// a lone warp's step takes about a quarter of a full batch's), against a
+// stream of 8.5 MB of uniforms and about 57 M integer operations a step;
+// the uniforms of the fresh boards (260 an env a step) are drawn for the
+// plain version's contract but read only where an episode ended.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "copy_async.cuh"
 #include "move_order.cuh"
+#include "picks.cuh"
 
 namespace wildfire {
 namespace {
@@ -204,32 +230,12 @@ __device__ __forceinline__ void move_agents(unsigned order, const int (&act)[kMa
   }
 }
 
-// `wait` is called after the moves and before `row` and `u_cell` are read:
-// for a tile it waits on the ring's barrier.  u_cell[c] is cell c's
-// uniform; row_out may alias row.  Every load of row and u_cell comes
-// before the first store to row_out, and the words the stencil needs move
-// between lanes by shuffles, so nothing in the cell loops waits on memory
-// that an earlier store might have changed.
-template <int NK, typename Wait>
-__device__ __forceinline__ void step_env(int b, int lane, const Params& p, const int* pos,
-                                         const int* acts, const float* rnd, Wait wait,
-                                         const int* row, const float* u_cell, int* row_out,
-                                         const unsigned* orders, EdgeWords edge,
-                                         const Outputs& out) {
-  const int C = p.w * p.h, A = p.n_agents;
-
-  // ---- moves, in every lane alike, on loads issued before the wait ----
-  int xs[kMaxAgents], ys[kMaxAgents], act[kMaxAgents];
-#pragma unroll
-  for (int i = 0; i < kMaxAgents; ++i) {
-    xs[i] = ys[i] = act[i] = 0;
-    if (i < A) {
-      xs[i] = pos[(size_t)b * 2 * A + 2 * i];
-      ys[i] = pos[(size_t)b * 2 * A + 2 * i + 1];
-      act[i] = min(max(acts[(size_t)b * A + i], 0), kNumActions - 1);
-    }
-  }
-  const float u0 = rnd[(size_t)b * (C + 1)];
+// The moves of one step, in every lane alike: the order is permutation
+// min(floor(u0 * A!), A! - 1) of the A! table (clipped action ids in act).
+__device__ __forceinline__ void move_all(const Params& p, const unsigned* orders, float u0,
+                                         const int (&act)[kMaxAgents], int (&xs)[kMaxAgents],
+                                         int (&ys)[kMaxAgents]) {
+  const int A = p.n_agents;
   const int fact = move_order::num_orders(A);
   const int perm_j = min(__float2int_rz(__fmul_rn(u0, (float)fact)), fact - 1);
   // A negative index selects no permutation: agent 0 moves in every slot.
@@ -240,18 +246,24 @@ __device__ __forceinline__ void step_env(int b, int lane, const Params& p, const
     case 3: move_agents<3>(order, act, xs, ys, p.w, p.h); break;
     default: move_agents<4>(order, act, xs, ys, p.w, p.h); break;
   }
+}
 
-  wait();
+// What a step's cells leave besides the board, the same in every lane.
+struct Burn {
+  int n_ext, n_ig;
+  bool any_fire;
+};
 
-  // ---- the env's cells and uniforms, lane l holding cells l + 32 k ----
-  int v[NK];
-  float uc[NK];
-#pragma unroll
-  for (int k = 0; k < NK; ++k) {
-    const int c = 32 * k + lane;
-    v[k] = c < C ? row[c] : kEmpty;  // a slot past the board is never fire
-    uc[k] = c < C ? u_cell[c] : 1.f;
-  }
+// The step's cells, on the board in registers: lane l holds cells
+// l, l + 32, ... in v (kEmpty past the board) and their uniforms in uc.
+// Fires under the agents (at their moved cells) are put out, then the
+// spread and the burnout run on one uniform per cell; v holds the new
+// board.  The words the stencil needs move between lanes by shuffles.
+template <int NK>
+__device__ __forceinline__ Burn burn(const Params& p, int lane, const int (&xs)[kMaxAgents],
+                                     const int (&ys)[kMaxAgents], int (&v)[NK],
+                                     const float (&uc)[NK], EdgeWords edge) {
+  const int C = p.w * p.h, A = p.n_agents;
 
   // ---- extinguish: a fire cell under any agent becomes burnt ----
   int under[kMaxAgents];
@@ -303,23 +315,68 @@ __device__ __forceinline__ void step_env(int b, int lane, const Params& p, const
       const float p_ig = b2 ? p.p_ig4 : (b1 ? p23 : p01);
       const bool ignite = v[k] == kTree && uc[k] < p_ig;
       const bool burnout = v[k] == kFire && uc[k] < p.p_burnout;
-      const int cell = burnout ? kBurnt : (ignite ? kFire : v[k]);
-      row_out[c] = cell;
+      v[k] = burnout ? kBurnt : (ignite ? kFire : v[k]);
       n_ig += ignite;
-      burning |= cell == kFire;
+      burning |= v[k] == kFire;
     }
   }
-  n_ext = __reduce_add_sync(kFull, n_ext);
-  n_ig = __reduce_add_sync(kFull, n_ig);
-  const bool any_fire = __any_sync(kFull, burning);
+  return Burn{__reduce_add_sync(kFull, n_ext), __reduce_add_sync(kFull, n_ig),
+              __any_sync(kFull, burning) != 0};
+}
+
+// The team reward, in the plain version's order with no contraction.
+__device__ __forceinline__ float team_reward(const Params& p, const Burn& s) {
+  return __fsub_rn(
+      __fsub_rn(__fmul_rn(p.ext_reward, (float)s.n_ext), __fmul_rn(p.burn_penalty, (float)s.n_ig)),
+      p.step_penalty);
+}
+
+// `wait` is called after the moves and before `row` and `u_cell` are read:
+// for a tile it waits on the ring's barrier.  u_cell[c] is cell c's
+// uniform; row_out may alias row.  Every load of row and u_cell comes
+// before the first store to row_out, so nothing in the cell loops waits on
+// memory that an earlier store might have changed.
+template <int NK, typename Wait>
+__device__ __forceinline__ void step_env(int b, int lane, const Params& p, const int* pos,
+                                         const int* acts, const float* rnd, Wait wait,
+                                         const int* row, const float* u_cell, int* row_out,
+                                         const unsigned* orders, EdgeWords edge,
+                                         const Outputs& out) {
+  const int C = p.w * p.h, A = p.n_agents;
+
+  // ---- moves, in every lane alike, on loads issued before the wait ----
+  int xs[kMaxAgents], ys[kMaxAgents], act[kMaxAgents];
+#pragma unroll
+  for (int i = 0; i < kMaxAgents; ++i) {
+    xs[i] = ys[i] = act[i] = 0;
+    if (i < A) {
+      xs[i] = pos[(size_t)b * 2 * A + 2 * i];
+      ys[i] = pos[(size_t)b * 2 * A + 2 * i + 1];
+      act[i] = min(max(acts[(size_t)b * A + i], 0), kNumActions - 1);
+    }
+  }
+  move_all(p, orders, rnd[(size_t)b * (C + 1)], act, xs, ys);
+
+  wait();
+
+  // ---- the env's cells and uniforms, lane l holding cells l + 32 k ----
+  int v[NK];
+  float uc[NK];
+#pragma unroll
+  for (int k = 0; k < NK; ++k) {
+    const int c = 32 * k + lane;
+    v[k] = c < C ? row[c] : kEmpty;  // a slot past the board is never fire
+    uc[k] = c < C ? u_cell[c] : 1.f;
+  }
+  const Burn s = burn<NK>(p, lane, xs, ys, v, uc, edge);
+#pragma unroll
+  for (int k = 0; k < NK; ++k)
+    if (32 * k + lane < C) row_out[32 * k + lane] = v[k];
 
   if (lane == 0) {
-    const float reward = __fsub_rn(
-        __fsub_rn(__fmul_rn(p.ext_reward, (float)n_ext), __fmul_rn(p.burn_penalty, (float)n_ig)),
-        p.step_penalty);
-    out.reward[b] = reward;
-    out.n_ext[b] = n_ext;
-    out.term[b] = !any_fire;
+    out.reward[b] = team_reward(p, s);
+    out.n_ext[b] = s.n_ext;
+    out.term[b] = !s.any_fire;
   }
   if (lane < A) {
     int x = 0, y = 0;
@@ -332,6 +389,85 @@ __device__ __forceinline__ void step_env(int b, int lane, const Params& p, const
     out.pos[(size_t)b * 2 * A + 2 * lane] = x;
     out.pos[(size_t)b * 2 * A + 2 * lane + 1] = y;
   }
+}
+
+// The n-th (0-based) set bit of m, which has more than n.
+__device__ __forceinline__ int nth_set_bit(unsigned m, int n) {
+  int at = 0;
+#pragma unroll
+  for (int half = 16; half > 0; half >>= 1) {
+    const int c = __popc(m & ((1u << half) - 1u));
+    if (n >= c) {
+      n -= c;
+      m >>= half;
+      at += half;
+    }
+  }
+  return at;
+}
+
+// A fresh board from the env's C + n_fires + A uniforms `u`, as
+// ops.wildfire_slab.reset_spec draws it: a tree where u[c] < tree_density,
+// the fires picked without replacement among the trees (none once they are
+// used up), the agents picked without replacement among all cells.  The
+// tree cells are one ballot word per 32 cells, held by lane k for word k;
+// a fire pick finds its word by a prefix sum of the words' popcounts over
+// the lanes, then its bit.
+template <int NK>
+__device__ __forceinline__ void fresh_board(const Params& p, float tree_density, int n_fires,
+                                            int lane, const float* u, int (&v)[NK],
+                                            int (&xs)[kMaxAgents], int (&ys)[kMaxAgents]) {
+  const int C = p.w * p.h, A = p.n_agents;
+  unsigned trees = 0u;
+#pragma unroll
+  for (int k = 0; k < NK; ++k) {
+    const int c = 32 * k + lane;
+    const bool tree = c < C && u[c] < tree_density;
+    v[k] = tree ? kTree : kEmpty;
+    const unsigned word = __ballot_sync(kFull, tree);
+    if (lane == k) trees = word;
+  }
+  for (int j = 0; j < n_fires; ++j) {
+    const int here = __popc(trees);
+    int upto = here;  // trees in words 0..lane
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(kFull, upto, off);
+      if (lane >= off) upto += t;
+    }
+    const int count = __shfl_sync(kFull, upto, 31);
+    if (count == 0) break;  // no tree left: no more fires
+    const int r = picks::floor_pick(u[C + j], count);
+    const bool mine = r < upto && r >= upto - here;
+    const int word = __ffs(__ballot_sync(kFull, mine)) - 1;
+    const int bit = __shfl_sync(kFull, mine ? nth_set_bit(trees, r - (upto - here)) : 0, word);
+#pragma unroll
+    for (int k = 0; k < NK; ++k)
+      if (k == word && lane == bit) v[k] = kFire;
+    if (lane == word) trees &= ~(1u << bit);
+  }
+  int taken[kMaxAgents];
+#pragma unroll
+  for (int i = 0; i < kMaxAgents; ++i) {
+    if (i < A) {
+      const int cell = picks::pick_untaken(u[C + n_fires + i], C, i, taken);
+      xs[i] = cell % p.w;
+      ys[i] = cell / p.w;
+    }
+  }
+}
+
+// Lane k's EdgeWords.
+template <int NK>
+__device__ __forceinline__ EdgeWords edge_words(const Params& p, int lane) {
+  EdgeWords edge{0u, 0u};
+#pragma unroll
+  for (int k = 0; k < NK; ++k) {
+    const int x = (32 * k + lane) % p.w;
+    const unsigned first = __ballot_sync(kFull, x == 0), last = __ballot_sync(kFull, x == p.w - 1);
+    if (lane == k) edge = EdgeWords{first, last};
+  }
+  return edge;
 }
 
 // ---- the persistent kernel ----
@@ -369,13 +505,7 @@ step_kernel(const int* __restrict__ cells, const int* __restrict__ pos,
     if ((int)blockIdx.x < n_full) issue(blockIdx.x, 0);
   }
   for (int i = threadIdx.x; i < kNumOrders; i += blockDim.x) s_orders[i] = kMoveOrders[i];
-  EdgeWords edge{0u, 0u};
-#pragma unroll
-  for (int k = 0; k < NK; ++k) {
-    const int x = (32 * k + lane) % p.w;
-    const unsigned first = __ballot_sync(kFull, x == 0), last = __ballot_sync(kFull, x == p.w - 1);
-    if (lane == k) edge = EdgeWords{first, last};
-  }
+  const EdgeWords edge = edge_words<NK>(p, lane);
   __syncthreads();
 
   int use = 0;  // tiles this block has taken; stage use & 1, its parity (use >> 1) & 1
@@ -460,6 +590,193 @@ cudaError_t launch(const void* const* in, int* cells_out, const Outputs& out, co
   return cudaGetLastError();
 }
 
+// ---- the K-step kernel ----
+
+// Steps of uniforms a warp keeps in flight ahead of the one it runs.
+constexpr int kStages = 4;
+
+struct MsInputs {
+  const int* cells;
+  const int* pos;
+  const int* sc;
+  const int* ext;
+  const float* run_ret;
+  const int* acts;         // (K, B, A)
+  const float* rnd;        // (K, B, 1 + C)
+  const float* rnd_reset;  // (K, B, C + n_fires + A)
+};
+
+struct MsOutputs {
+  int* cells;
+  int* pos;
+  int* sc;
+  int* ext;
+  float* run_ret;
+  float* rew_sum;
+  float* ep_sum;
+  int* eps;
+};
+
+struct MsParams {
+  int K, n_fires, max_steps;
+  float tree_density;
+};
+
+// Warps (envs) per block of the K-step kernel: as the step kernel's tile.
+template <int NK>
+__host__ __device__ constexpr int ms_warps() {
+  return tile_envs<NK>();
+}
+
+// Blocks of the K-step kernel an SM should hold at once, which caps its
+// registers.  Up to 256 cells, 4 blocks of 8 warps (64 registers a thread,
+// a few bytes spilled) run B = 8192 in two waves where the compiler's own
+// choice (107 registers, 2 blocks) takes four: measured faster by
+// scripts/torch_kernel_probe.py.  Larger boards keep the compiler's choice.
+template <int NK>
+__host__ __device__ constexpr int ms_min_blocks() {
+  return NK <= 8 ? 4 : 1;
+}
+
+// One warp per env runs all K steps with the board in its lanes'
+// registers.  Each step's record, the move-order and cell uniforms then
+// the A action ids (1 + C + A words), reaches the warp's own ring of
+// kStages records in shared memory by 4-byte cp.async copies, lane l
+// copying words l, l + 32, ..., kStages steps ahead of the step that reads
+// it.  A finished env gets a fresh board from its spawn uniforms, read
+// only on that step.
+template <int NK>
+__global__ void __launch_bounds__(ms_warps<NK>() * 32, ms_min_blocks<NK>())
+steps_kernel(const MsInputs in, const MsOutputs out, const Params p, const MsParams q) {
+  constexpr int kWarps = ms_warps<NK>();
+  extern __shared__ __align__(16) float ms_ring[];
+  __shared__ unsigned s_orders[kNumOrders];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarps + warp;
+  const bool live = b < p.B;
+  const int C = p.w * p.h, A = p.n_agents, B = p.B, W = 1 + C + A;
+  float* ring = ms_ring + warp * kStages * W;
+
+  auto issue = [&](int kk) {
+    if (live && kk < q.K) {
+      float* dst = ring + (kk % kStages) * W;
+      const size_t row = (size_t)kk * B + b;
+      const float* u = in.rnd + row * (C + 1);
+      for (int w = lane; w < C + 1; w += 32) copy_async::copy4(dst + w, u + w);
+      if (lane < A) copy_async::copy4(dst + C + 1 + lane, in.acts + row * A + lane);
+    }
+    copy_async::commit();
+  };
+#pragma unroll
+  for (int kk = 0; kk < kStages; ++kk) issue(kk);
+
+  for (int i = threadIdx.x; i < kNumOrders; i += blockDim.x) s_orders[i] = kMoveOrders[i];
+  const EdgeWords edge = edge_words<NK>(p, lane);
+  __syncthreads();
+  if (!live) return;  // a whole warp: no block barrier follows
+
+  int v[NK];
+#pragma unroll
+  for (int k = 0; k < NK; ++k) {
+    const int c = 32 * k + lane;
+    v[k] = c < C ? in.cells[(size_t)b * C + c] : kEmpty;
+  }
+  int xs[kMaxAgents], ys[kMaxAgents];
+#pragma unroll
+  for (int i = 0; i < kMaxAgents; ++i) {
+    xs[i] = i < A ? in.pos[(size_t)b * 2 * A + 2 * i] : 0;
+    ys[i] = i < A ? in.pos[(size_t)b * 2 * A + 2 * i + 1] : 0;
+  }
+  int sc = in.sc[b], ext = in.ext[b], eps = 0;
+  float run = in.run_ret[b], rew_sum = 0.f, ep_sum = 0.f;
+
+  for (int kk = 0; kk < q.K; ++kk) {
+    copy_async::wait<kStages - 1>();
+    __syncwarp();
+    const float* rec = ring + (kk % kStages) * W;
+    const float u0 = rec[0];
+    int act[kMaxAgents];
+#pragma unroll
+    for (int i = 0; i < kMaxAgents; ++i)
+      act[i] = i < A ? min(max(__float_as_int(rec[C + 1 + i]), 0), kNumActions - 1) : 0;
+    float uc[NK];
+#pragma unroll
+    for (int k = 0; k < NK; ++k) {
+      const int c = 32 * k + lane;
+      uc[k] = c < C ? rec[1 + c] : 1.f;
+    }
+    __syncwarp();
+    issue(kk + kStages);  // into the stage just read
+
+    move_all(p, s_orders, u0, act, xs, ys);
+    const Burn s = burn<NK>(p, lane, xs, ys, v, uc, edge);
+    // The sums, alike in every lane, in _ms_math's order.
+    const float reward = team_reward(p, s);
+    const int sc2 = sc + 1;
+    const bool done = !s.any_fire || sc2 >= q.max_steps;
+    const float run2 = __fadd_rn(run, reward);
+    rew_sum = __fadd_rn(rew_sum, reward);
+    ep_sum = __fadd_rn(ep_sum, done ? run2 : 0.f);
+    eps += done;
+    run = done ? 0.f : run2;
+    sc = done ? 0 : sc2;
+    ext = done ? 0 : ext + s.n_ext;
+    if (done) {
+      const float* u = in.rnd_reset + ((size_t)kk * B + b) * (C + q.n_fires + A);
+      fresh_board<NK>(p, q.tree_density, q.n_fires, lane, u, v, xs, ys);
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < NK; ++k) {
+    const int c = 32 * k + lane;
+    if (c < C) out.cells[(size_t)b * C + c] = v[k];
+  }
+  if (lane < A) {
+    int x = 0, y = 0;
+#pragma unroll
+    for (int i = 0; i < kMaxAgents; ++i)
+      if (i == lane) {
+        x = xs[i];
+        y = ys[i];
+      }
+    out.pos[(size_t)b * 2 * A + 2 * lane] = x;
+    out.pos[(size_t)b * 2 * A + 2 * lane + 1] = y;
+  }
+  if (lane == 0) {
+    out.sc[b] = sc;
+    out.ext[b] = ext;
+    out.run_ret[b] = run;
+    out.rew_sum[b] = rew_sum;
+    out.ep_sum[b] = ep_sum;
+    out.eps[b] = eps;
+  }
+}
+
+template <int NK>
+cudaError_t launch_steps(const MsInputs& in, const MsOutputs& out, const Params& p,
+                         const MsParams& q, cudaStream_t stream) {
+  constexpr int kWarps = ms_warps<NK>();
+  auto kernel = steps_kernel<NK>;
+  const int C = p.w * p.h;
+  const size_t smem = sizeof(float) * kWarps * kStages * (size_t)(1 + C + p.n_agents);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int blocks = (p.B + kWarps - 1) / kWarps;
+  kernel<<<blocks, kWarps * 32, smem, stream>>>(in, out, p, q);
+  return cudaGetLastError();
+}
+
+// The words of 32 cells a lane holds for a board of C cells: the kernels'
+// NK, a power of two.
+int words_for(int C) {
+  const int words = (C + 31) / 32;
+  return words <= 1 ? 1 : words <= 2 ? 2 : words <= 4 ? 4 : words <= 8 ? 8 : words <= 16 ? 16 : 32;
+}
+
 }  // namespace
 }  // namespace wildfire
 
@@ -490,9 +807,7 @@ extern "C" int wildfire_step(const void* cells, const void* pos, const void* act
                  p_burnout, ext_reward, burn_penalty, step_penalty};
   const void* in[] = {cells, pos, acts, rnd};
   const Outputs out{(int*)pos_out, (float*)reward, (int*)n_ext, (int*)term};
-  const int words = (C + 31) / 32;
-  const int nk = words <= 1 ? 1 : words <= 2 ? 2 : words <= 4 ? 4 : words <= 8 ? 8
-               : words <= 16 ? 16 : 32;
+  const int nk = words_for(C);
   const int want_tile = nk > 16 ? tile_envs<32>() : tile_envs<16>();
   if (tile != want_tile) return (int)cudaErrorInvalidValue;
   auto run = nk == 1    ? launch<1>
@@ -502,4 +817,42 @@ extern "C" int wildfire_step(const void* cells, const void* pos, const void* act
              : nk == 16 ? launch<16>
                         : launch<32>;
   return (int)run(in, (int*)cells_out, out, p, (cudaStream_t)stream);
+}
+
+// K steps with the auto-reset.  cells (B, width * height), pos (B, 2A), sc
+// and ext (B,) int32, run_ret (B,) float32; acts (K, B, A) int32, rnd
+// (K, B, 1 + width * height) and rnd_reset (K, B, width * height + n_fires
+// + A) float32, any 4-byte aligned address.  Outputs: cells, pos, sc, ext
+// and run_ret of the same shapes, rew_sum and ep_sum (B,) float32, eps (B,)
+// int32.  p_ig1..4 as for wildfire_step; tree_density the fresh board's
+// threshold.  Launches on `stream` and returns the launch's cudaError_t.
+extern "C" int wf_steps(const void* cells, const void* pos, const void* sc, const void* ext,
+                        const void* run_ret, const void* acts, const void* rnd,
+                        const void* rnd_reset, void* cells_out, void* pos_out, void* sc_out,
+                        void* ext_out, void* run_out, void* rew_sum, void* ep_sum, void* eps,
+                        int B, int K, int width, int height, int n_agents, int n_fires,
+                        int max_steps, float p_ig1, float p_ig2, float p_ig3, float p_ig4,
+                        float p_burnout, float ext_reward, float burn_penalty,
+                        float step_penalty, float tree_density, void* stream) {
+  using namespace wildfire;
+  const int C = width * height;
+  if (B < 1 || K < 1 || n_agents < 1 || n_agents > kMaxAgents || width < 1 || height < 1 ||
+      C > kMaxCells || n_fires < 0)
+    return (int)cudaErrorInvalidValue;
+  const Params p{B, width, height, n_agents, p_ig1, p_ig2, p_ig3, p_ig4,
+                 p_burnout, ext_reward, burn_penalty, step_penalty};
+  const MsParams q{K, n_fires, max_steps, tree_density};
+  const MsInputs in{(const int*)cells, (const int*)pos, (const int*)sc, (const int*)ext,
+                    (const float*)run_ret, (const int*)acts, (const float*)rnd,
+                    (const float*)rnd_reset};
+  const MsOutputs out{(int*)cells_out, (int*)pos_out, (int*)sc_out, (int*)ext_out,
+                      (float*)run_out, (float*)rew_sum, (float*)ep_sum, (int*)eps};
+  const int nk = words_for(C);
+  auto run = nk == 1    ? launch_steps<1>
+             : nk == 2  ? launch_steps<2>
+             : nk == 4  ? launch_steps<4>
+             : nk == 8  ? launch_steps<8>
+             : nk == 16 ? launch_steps<16>
+                        : launch_steps<32>;
+  return (int)run(in, out, p, q, (cudaStream_t)stream);
 }

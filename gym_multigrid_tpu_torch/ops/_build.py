@@ -52,12 +52,18 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRY_POINTS = {
     "collect_step.cu": {"collect_step": [_P] * 12 + [_I] * 9 + [_P]},
     "collect_reset.cu": {"collect_reset": [_P] * 8 + [_I] * 10 + [_P]},
-    "ctf_step.cu": {"ctf_step": [_P] * 21 + [_I] * 17 + [_F] * 7 + [_P]},
+    "ctf_step.cu": {
+        "ctf_step": [_P] * 21 + [_I] * 17 + [_F] * 7 + [_P],
+        "ctf_steps": [_P] * 25 + [_I] * 21 + [_F] * 7 + [_P],
+    },
     "maze_step.cu": {
         "maze_step": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
         "maze_steps": [_P] * 14 + [_I] * 6 + [_P],
     },
-    "wildfire_step.cu": {"wildfire_step": [_P] * 9 + [_I] * 5 + [_F] * 8 + [_P]},
+    "wildfire_step.cu": {
+        "wildfire_step": [_P] * 9 + [_I] * 5 + [_F] * 8 + [_P],
+        "wf_steps": [_P] * 16 + [_I] * 7 + [_F] * 9 + [_P],
+    },
 }
 
 

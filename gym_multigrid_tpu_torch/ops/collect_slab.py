@@ -288,11 +288,13 @@ def step_spec(t: _Tables, go, gc, gs, pos, acts, rnd, rects):
 
 
 def _check_envelope(n_cells, n_agents):
+    """Raise unless the kernels take ``n_agents`` agents on ``n_cells``
+    cells; ``n_cells`` None checks the agents only."""
     if n_agents not in AGENT_COUNTS:
         raise ValueError(
             f"the Collect kernels take {AGENT_COUNTS} agents, got {n_agents}"
         )
-    if n_cells > MAX_CELLS:
+    if n_cells is not None and n_cells > MAX_CELLS:
         raise ValueError(
             f"the Collect kernels take boards of at most {MAX_CELLS} cells, "
             f"got {n_cells}"
@@ -508,8 +510,12 @@ class CollectSlab:
 
 
 def make_collect_slab(cfg: CollectConfig, device) -> CollectSlab:
+    """The slab of ``cfg`` on ``device``.  Off the CPU it must fit the
+    kernels' envelope (:func:`_check_envelope`); the plain versions on the
+    CPU take any board, with the agent counts of the kernels, the only ones
+    :func:`step_spec` moves."""
     device = torch.device(device)
-    _check_envelope(cfg.num_cells, cfg.num_agents)
+    _check_envelope(None if device.type == "cpu" else cfg.num_cells, cfg.num_agents)
     t = make_tables(cfg)
     rt, plan = make_reset_tables(cfg)
     slot_rewards, slot_info, _ = reward_slot_tables(cfg, plan)

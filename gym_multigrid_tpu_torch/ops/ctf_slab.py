@@ -22,6 +22,12 @@ Counterpart of ``gym_multigrid_tpu/ops/pallas_ctf.py``: its Pallas kernel
   state, termination, truncation, obs and info.  Their uniforms come from
   a ``torch.Generator``, or from an ``rnd`` tensor used as is (which is
   how the tests hold them to JAX bit for bit).
+* :func:`ms_spec` is ``_ctf_ms_math``: K steps with the per-env auto-reset
+  and the return accounting.  :func:`ctf_ms_slab` runs it, or for CUDA
+  tensors the kernel entry ``ctf_steps`` of ``csrc/ctf_step.cu``, which
+  runs all K steps and the respawns in one launch;
+  :func:`make_ctf_episode_rollout` drives it chunk by chunk, the
+  counterpart of JAX's ``make_ctf_episode_rollout``.
 
 Every float constant of the step is formed in double on the host and
 rounded to float32 once, where the JAX package's weakly typed Python
@@ -547,6 +553,126 @@ def reset_spec(t: CtfKTables, rnd, bterr, rterr):
 
 
 # ---------------------------------------------------------------------------
+# K steps with the auto-reset
+# ---------------------------------------------------------------------------
+
+
+def ms_spec(t: CtfKTables, K: int, pos, dirs, term, coll, sc, run_ret, blue_acts, rnd_step,
+            rnd_reset, flags, border, pool, bterr, rterr):
+    """K CtF steps with the per-env auto-reset and the return accounting,
+    in plain PyTorch: ``_ctf_ms_math`` with one slice of draws a step.
+
+    pos (B, 2A), dirs (B, A) int32; term, coll (B, A) bool; sc (B,) int32;
+    run_ret (B,) float32, the return of each episode in progress;
+    blue_acts (K, B, n_blue) int32 ids (clamped as by :func:`step_spec`);
+    rnd_step (K, B, ``rnd_width(t)``) and rnd_reset (K, B, n_blue + n_red)
+    float32, the step's and the spawn's uniforms, the spawn's drawn for
+    every env whether it finished or not; flags, border and pool as for
+    :func:`step_spec_bool`, bterr and rterr as for :func:`reset_spec`.
+    Returns (pos, dirs, term, coll, sc, run_ret, rew_sum, ep_sum, eps): the
+    state after the K steps and, per env, the sum of its rewards, the
+    summed returns of the episodes it finished (float32) and how many it
+    finished (int32), all (B,).  Every sum is taken one step at a time in
+    JAX's order.  A finished env respawns with direction ``SPAWN_DIR``, no
+    agent terminated or collided and step count 0."""
+    B = pos.shape[0]
+    rew_sum = torch.zeros((B,), dtype=torch.float32, device=pos.device)
+    ep_sum = torch.zeros_like(rew_sum)
+    eps = torch.zeros((B,), dtype=torch.int32, device=pos.device)
+    for k in range(K):
+        pos2, dirs2, term2, coll2, reward, ep_term, *_ = step_spec_bool(
+            t, pos, dirs, term, coll, blue_acts[k], rnd_step[k], flags, border, pool)
+        reward, sc2 = reward[:, 0], sc + 1
+        done = ep_term[:, 0] | (sc2 >= t.max_steps)
+        run2 = run_ret + reward
+        rew_sum = rew_sum + reward
+        ep_sum = ep_sum + torch.where(done, run2, 0.0)
+        eps = eps + done.to(torch.int32)
+        run_ret = torch.where(done, 0.0, run2)
+        rows = done[:, None]
+        pos = torch.where(rows, reset_spec(t, rnd_reset[k], bterr, rterr), pos2)
+        dirs = dirs2.masked_fill(rows, SPAWN_DIR)
+        term = term2 & ~rows
+        coll = coll2 & ~rows
+        sc = torch.where(done, 0, sc2)
+    return pos, dirs, term, coll, sc, run_ret, rew_sum, ep_sum, eps
+
+
+def ctf_ms_slab(slab: "CtfSlab", pos, dirs, term, coll, sc, run_ret, blue_acts, rnd_step,
+                rnd_reset):
+    """K = ``blue_acts.shape[0]`` steps of the batch with the auto-reset:
+    :func:`ms_spec` for CPU tensors, the CUDA kernel entry ``ctf_steps`` of
+    ``csrc/ctf_step.cu`` for CUDA tensors, one launch for all K steps (new
+    output tensors; the inputs are not changed).  Same arguments and
+    results as :func:`ms_spec`, the tables taken from ``slab``."""
+    t = slab.t
+    K = blue_acts.shape[0]
+    if pos.device.type == "cpu":
+        return ms_spec(t, K, pos, dirs, term, coll, sc, run_ret, blue_acts, rnd_step, rnd_reset,
+                       slab.flags, slab.border, slab.pool, slab.bterr, slab.rterr)
+    if pos.device.type != "cuda":
+        raise ValueError(f"no CtF steps for tensors on {pos.device}")
+    B, A, nb, nr = pos.shape[0], t.n_blue + t.n_red, t.n_blue, t.n_red
+    n_border, n_pool = slab.border.shape[1], slab.pool.shape[1]
+    n_bt, n_rt = slab.bterr.shape[1], slab.rterr.shape[1]
+    check_envelope(t, n_border, n_pool)
+    if B < 1 or K < 1:
+        raise ValueError(f"nothing to step: {B} envs, {K} steps")
+    dev = pos.device
+    R = rnd_width(t)
+    for name, x, dtype, shape in (
+        ("pos", pos, torch.int32, (B, 2 * A)),
+        ("dirs", dirs, torch.int32, (B, A)),
+        ("term", term, torch.bool, (B, A)),
+        ("coll", coll, torch.bool, (B, A)),
+        ("sc", sc, torch.int32, (B,)),
+        ("run_ret", run_ret, torch.float32, (B,)),
+        ("blue_acts", blue_acts, torch.int32, (K, B, nb)),
+        ("rnd_step", rnd_step, torch.float32, (K, B, R)),
+        ("rnd_reset", rnd_reset, torch.float32, (K, B, A)),
+        ("flags", slab.flags, torch.uint8, (t.s0 * t.s1,)),
+        ("border", slab.border, torch.int32, (2, n_border)),
+        ("pool", slab.pool, torch.int32, (2, n_pool)),
+        ("bterr", slab.bterr, torch.int32, (2, n_bt)),
+        ("rterr", slab.rterr, torch.int32, (2, n_rt)),
+    ):
+        _build.check_arg(name, x, dtype, shape, dev)
+    kinds, p_opt = _policy_arrays(t, dev)
+    outs = (
+        torch.empty_like(pos), torch.empty_like(dirs), torch.empty_like(term),
+        torch.empty_like(coll), torch.empty_like(sc), torch.empty_like(run_ret),
+        torch.empty_like(run_ret), torch.empty_like(run_ret), torch.empty_like(sc),
+    )
+    kernels = _build.load()
+    with torch.cuda.device(dev):
+        err = kernels.ctf_steps(
+            pos.data_ptr(), dirs.data_ptr(), term.data_ptr(), coll.data_ptr(),
+            sc.data_ptr(), run_ret.data_ptr(), blue_acts.data_ptr(), rnd_step.data_ptr(),
+            rnd_reset.data_ptr(), slab.flags.data_ptr(), slab.border.data_ptr(),
+            slab.pool.data_ptr(), slab.bterr.data_ptr(), slab.rterr.data_ptr(),
+            kinds.data_ptr(), p_opt.data_ptr(),
+            *(o.data_ptr() for o in outs),
+            B, K, nb, nr, int(t.mvn), t.s0, t.s1, t.bound0, t.bound1,
+            *t.blue_flag, *t.red_flag, n_border, n_pool, R,
+            int(t.mvn and t.obstacle_penalty != 0),
+            int(not t.mvn and t.obstacle_penalty != 0),
+            n_bt, n_rt, t.max_steps,
+            t.battle_range * t.battle_range, t.randomness, 1.0 - t.randomness,
+            t.flag_reward, t.battle_reward, t.obstacle_penalty,
+            t.step_penalty * t.n_blue if t.mvn else t.step_penalty,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"ctf_steps kernel launch failed: CUDA error {err}")
+    ctf_ms_slab.launches += 1
+    return outs
+
+
+#: Launches of the K-step kernel since the count was last set to 0.
+ctf_ms_slab.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Batch glue
 # ---------------------------------------------------------------------------
 
@@ -692,4 +818,90 @@ def reset_batch(
         terminated=states.terminated.masked_fill(rows, False),
         collided=states.collided.masked_fill(rows, False),
         step_count=states.step_count.masked_fill(done, 0),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Episode rollout
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True, eq=False)
+class CtfEpisodeRollout:
+    """``rollout(states, num_steps)`` of a batch of CtF envs, ``chunk``
+    steps a kernel launch (:func:`make_ctf_episode_rollout`)."""
+
+    slab: CtfSlab
+    num_envs: int
+    generator: torch.Generator
+    chunk: int
+
+    @property
+    def cfg(self) -> CtfConfig:
+        return self.slab.cfg
+
+    def reset(self, seed: int):
+        """Seed the generator and reset every env: (states, obs)."""
+        self.generator.manual_seed(seed)
+        states = reset_batch(self.slab, self.num_envs, generator=self.generator)
+        return states, encode(self.cfg, states)
+
+    def __call__(self, states: CtfState, num_steps: int, run_return=None):
+        """``num_steps`` steps with uniform random blue actions and the
+        auto-reset; returns (states, metrics) with ``BatchedEnv.rollout``'s
+        metrics.  Each chunk of K steps draws its (K, B, n_blue) actions,
+        step uniforms and spawn uniforms in three calls and runs as one
+        :func:`ctf_ms_slab`; a last chunk covers ``num_steps % chunk``.
+        Nothing in the loop waits for the device."""
+        slab, B, dev, gen = self.slab, self.num_envs, self.slab.device, self.generator
+        A, nb = self.cfg.num_agents, self.cfg.num_blue_agents
+        run_ret = (torch.zeros((B,), dtype=torch.float32, device=dev)
+                   if run_return is None else run_return)
+        reward_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        ep_ret_sum = torch.zeros_like(reward_sum)
+        episodes = torch.zeros((), dtype=torch.int32, device=dev)
+        state = (states.pos.reshape(B, 2 * A), states.dir, states.terminated,
+                 states.collided, states.step_count)
+        for start in range(0, num_steps, self.chunk):
+            K = min(self.chunk, num_steps - start)
+            acts = torch.randint(0, NUM_ACTIONS, (K, B, nb), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            rnd_step = torch.rand((K, B, slab.step_draws), generator=gen, device=dev)
+            rnd_reset = torch.rand((K, B, slab.reset_draws), generator=gen, device=dev)
+            *state, run_ret, rew, ep, eps = ctf_ms_slab(slab, *state, run_ret, acts, rnd_step,
+                                                        rnd_reset)
+            reward_sum = reward_sum + rew.sum()
+            ep_ret_sum = ep_ret_sum + ep.sum()
+            episodes = episodes + eps.sum(dtype=torch.int32)
+        pos, dirs, term, coll, sc = state
+        return CtfState(pos.reshape(B, A, 2), dirs, term, coll, sc), {
+            "reward_sum": reward_sum,
+            "episodes": episodes,
+            "ep_return_sum": ep_ret_sum,
+            "run_return": run_ret,
+        }
+
+
+def make_ctf_episode_rollout(
+    cfg: CtfConfig, num_envs: int, device=None, chunk: int = 25
+) -> CtfEpisodeRollout | None:
+    """The CtF episode rollout: the counterpart of JAX's
+    ``make_ctf_episode_rollout`` (``ops/pallas_ctf.py``), one kernel launch
+    a chunk of steps instead of ``BatchedEnv``'s step launch and plain
+    masked spawn draw a step.  None where JAX's gives None: more than
+    ``MAX_AGENTS`` agents or a red policy outside ``POLICY_KINDS``.
+
+    ``reset(seed)`` gives fresh states; ``rollout(states, num_steps)`` (the
+    object is callable) steps them.  The default device is the current
+    CUDA device; with no CUDA device and no explicit ``device`` this
+    raises, and ``device="cpu"`` runs :func:`ms_spec`."""
+    if cfg.num_agents > MAX_AGENTS or any(
+        s.kind not in POLICY_KINDS for s in cfg.enemy_policies
+    ):
+        return None
+    device = _build.default_device(device, "make_ctf_episode_rollout")
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1, got {chunk}")
+    return CtfEpisodeRollout(
+        make_ctf_slab(cfg, device), num_envs, torch.Generator(device=device), chunk
     )

@@ -25,6 +25,17 @@ and of ``gym_multigrid_tpu/ops/pallas_wildfire.py``: the Pallas kernel
   ``make_wildfire_step_batch`` and of the auto-reset in ``_ms_math``.
   Their uniforms come from a ``torch.Generator``, or from an ``rnd`` tensor
   used as is (which is how the tests hold them to JAX bit for bit).
+* :func:`ms_spec` is ``_ms_math`` in its pre-drawn form: K steps with the
+  per-env auto-reset and the return accounting.  :func:`wf_ms_slab` runs
+  it, or for CUDA tensors the kernel entry ``wf_steps`` of
+  ``csrc/wildfire_step.cu``, which runs all K steps and the fresh boards in
+  one launch with each board kept on chip; :func:`make_wildfire_episode_rollout`
+  drives it chunk by chunk, the counterpart of JAX's
+  ``make_wildfire_episode_rollout``.  JAX's default episode chunk,
+  ``wf_compact_ms``, compares uniforms quantized to 1/256 against u8
+  thresholds, because XLA on the TPU could not fuse its random draws into
+  the compares; the port keeps ``_ms_math``'s exact float32 thresholds and
+  does not carry that form (nor ``compact_supported``) over.
 
 Every float constant of the step is a double rounded to float32 once,
 where the JAX package's weakly typed Python floats meet a float32 array;
@@ -289,6 +300,107 @@ def reset_spec(t: WfTables, rnd):
 
 
 # ---------------------------------------------------------------------------
+# K steps with the auto-reset
+# ---------------------------------------------------------------------------
+
+
+def ms_spec(t: WfTables, K: int, cells, pos, sc, ext, run_ret, acts, rnd_step, rnd_reset):
+    """K Wildfire steps with the per-env auto-reset and the return
+    accounting, in plain PyTorch: ``_ms_math`` with one slice of draws a
+    step.
+
+    cells (B, C), pos (B, 2A), sc and ext (B,) int32; run_ret (B,) float32,
+    the team return of each episode in progress; acts (K, B, A) int32 ids
+    (clipped as by :func:`step_spec`); rnd_step (K, B, 1 + C) and rnd_reset
+    (K, B, C + n_fires + A) float32, the step's and the fresh board's
+    uniforms, the fresh board's drawn for every env whether it finished or
+    not.  Returns (cells, pos, sc, ext, run_ret, rew_sum, ep_sum, eps): the
+    state after the K steps and, per env, the sum of its team rewards, the
+    summed returns of the episodes it finished (float32) and how many it
+    finished (int32), all (B,) but the state's planes.  Every sum is taken
+    one step at a time in JAX's order.  A finished env gets a fresh board
+    from :func:`reset_spec` and step and extinguished counts 0."""
+    B = cells.shape[0]
+    rew_sum = torch.zeros((B,), dtype=torch.float32, device=cells.device)
+    ep_sum = torch.zeros_like(rew_sum)
+    eps = torch.zeros((B,), dtype=torch.int32, device=cells.device)
+    for k in range(K):
+        cells2, pos2, reward, n_ext, term = step_spec(t, cells, pos, acts[k], rnd_step[k])
+        reward, sc2 = reward[:, 0], sc + 1
+        done = (term[:, 0] == 1) | (sc2 >= t.max_steps)
+        run2 = run_ret + reward
+        rew_sum = rew_sum + reward
+        ep_sum = ep_sum + torch.where(done, run2, 0.0)
+        eps = eps + done.to(torch.int32)
+        run_ret = torch.where(done, 0.0, run2)
+        rcells, rpos = reset_spec(t, rnd_reset[k])
+        rows = done[:, None]
+        cells = torch.where(rows, rcells, cells2)
+        pos = torch.where(rows, rpos, pos2)
+        sc = torch.where(done, 0, sc2)
+        ext = torch.where(done, 0, ext + n_ext[:, 0])
+    return cells, pos, sc, ext, run_ret, rew_sum, ep_sum, eps
+
+
+def wf_ms_slab(slab: "WildfireSlab", cells, pos, sc, ext, run_ret, acts, rnd_step, rnd_reset):
+    """K = ``acts.shape[0]`` steps of the batch with the auto-reset:
+    :func:`ms_spec` for CPU tensors, the CUDA kernel entry ``wf_steps`` of
+    ``csrc/wildfire_step.cu`` for CUDA tensors, one launch for all K steps
+    (new output tensors; the inputs are not changed).  Same arguments and
+    results as :func:`ms_spec`.  The kernel streams the uniforms with
+    4-byte asynchronous copies, so no tensor needs more than its dtype's
+    alignment."""
+    t = slab.t
+    K = acts.shape[0]
+    if cells.device.type == "cpu":
+        return ms_spec(t, K, cells, pos, sc, ext, run_ret, acts, rnd_step, rnd_reset)
+    if cells.device.type != "cuda":
+        raise ValueError(f"no Wildfire steps for tensors on {cells.device}")
+    check_envelope(t)
+    B, C, A = cells.shape[0], t.n_cells, t.n_agents
+    if B < 1 or K < 1:
+        raise ValueError(f"nothing to step: {B} envs, {K} steps")
+    dev = cells.device
+    for name, x, dtype, shape in (
+        ("cells", cells, torch.int32, (B, C)),
+        ("pos", pos, torch.int32, (B, 2 * A)),
+        ("sc", sc, torch.int32, (B,)),
+        ("ext", ext, torch.int32, (B,)),
+        ("run_ret", run_ret, torch.float32, (B,)),
+        ("acts", acts, torch.int32, (K, B, A)),
+        ("rnd_step", rnd_step, torch.float32, (K, B, step_rnd_width(t))),
+        ("rnd_reset", rnd_reset, torch.float32, (K, B, reset_rnd_width(t))),
+    ):
+        _build.check_arg(name, x, dtype, shape, dev)
+    outs = (
+        torch.empty_like(cells), torch.empty_like(pos), torch.empty_like(sc),
+        torch.empty_like(ext), torch.empty_like(run_ret), torch.empty_like(run_ret),
+        torch.empty_like(run_ret), torch.empty_like(sc),
+    )
+    # Float constants as for wildfire_step_slab, and the tree density
+    # rounded to float32 once, as _f32 rounds it.
+    kernels = _build.load()
+    with torch.cuda.device(dev):
+        err = kernels.wf_steps(
+            cells.data_ptr(), pos.data_ptr(), sc.data_ptr(), ext.data_ptr(),
+            run_ret.data_ptr(), acts.data_ptr(), rnd_step.data_ptr(), rnd_reset.data_ptr(),
+            *(o.data_ptr() for o in outs),
+            B, K, t.width, t.height, A, t.n_fires, t.max_steps,
+            *ignite_thresholds(t)[1:], t.p_burnout,
+            t.ext_reward, t.burn_penalty, t.step_penalty, t.tree_density,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"wf_steps kernel launch failed: CUDA error {err}")
+    wf_ms_slab.launches += 1
+    return outs
+
+
+#: Launches of the K-step kernel since the count was last set to 0.
+wf_ms_slab.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Batch glue
 # ---------------------------------------------------------------------------
 
@@ -404,4 +516,88 @@ def reset_batch(
         agent_pos=torch.where(rows, pos, states.agent_pos),
         step_count=states.step_count.masked_fill(done, 0),
         extinguished=states.extinguished.masked_fill(done, 0),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Episode rollout
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True, eq=False)
+class WildfireEpisodeRollout:
+    """``rollout(states, num_steps)`` of a batch of Wildfire envs, ``chunk``
+    steps a kernel launch (:func:`make_wildfire_episode_rollout`)."""
+
+    slab: WildfireSlab
+    num_envs: int
+    generator: torch.Generator
+    chunk: int
+
+    @property
+    def cfg(self) -> WildfireConfig:
+        return self.slab.cfg
+
+    def reset(self, seed: int):
+        """Seed the generator and reset every env: (states, obs)."""
+        self.generator.manual_seed(seed)
+        states = reset_batch(self.slab, self.num_envs, generator=self.generator)
+        return states, encode(self.cfg, states)
+
+    def __call__(self, states: WildfireState, num_steps: int, run_return=None):
+        """``num_steps`` steps with uniform random actions and the
+        auto-reset; returns (states, metrics) with ``BatchedEnv.rollout``'s
+        metrics, the team reward summed once per env and step, as JAX's
+        episode rollout sums it.  Each chunk of K steps draws its (K, B, A)
+        actions, step uniforms and fresh-board uniforms in three calls and
+        runs as one :func:`wf_ms_slab`; a last chunk covers
+        ``num_steps % chunk``.  Nothing in the loop waits for the device."""
+        slab, B, dev, gen = self.slab, self.num_envs, self.slab.device, self.generator
+        cfg, t = self.cfg, slab.t
+        run_ret = (torch.zeros((B,), dtype=torch.float32, device=dev)
+                   if run_return is None else run_return)
+        reward_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        ep_ret_sum = torch.zeros_like(reward_sum)
+        episodes = torch.zeros((), dtype=torch.int32, device=dev)
+        state = (states.cells.reshape(B, t.n_cells), states.agent_pos.reshape(B, 2 * t.n_agents),
+                 states.step_count, states.extinguished)
+        for start in range(0, num_steps, self.chunk):
+            K = min(self.chunk, num_steps - start)
+            acts = torch.randint(0, NUM_ACTIONS, (K, B, t.n_agents), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            rnd_step = torch.rand((K, B, slab.step_draws), generator=gen, device=dev)
+            rnd_reset = torch.rand((K, B, slab.reset_draws), generator=gen, device=dev)
+            *state, run_ret, rew, ep, eps = wf_ms_slab(slab, *state, run_ret, acts, rnd_step,
+                                                       rnd_reset)
+            reward_sum = reward_sum + rew.sum()
+            ep_ret_sum = ep_ret_sum + ep.sum()
+            episodes = episodes + eps.sum(dtype=torch.int32)
+        cells, pos, sc, ext = state
+        return WildfireState(cells.reshape(B, cfg.height, cfg.width),
+                             pos.reshape(B, t.n_agents, 2), sc, ext), {
+            "reward_sum": reward_sum,
+            "episodes": episodes,
+            "ep_return_sum": ep_ret_sum,
+            "run_return": run_ret,
+        }
+
+
+def make_wildfire_episode_rollout(
+    cfg: WildfireConfig, num_envs: int, device=None, chunk: int = 8
+) -> WildfireEpisodeRollout:
+    """The Wildfire episode rollout: the counterpart of JAX's
+    ``make_wildfire_episode_rollout`` (``ops/pallas_wildfire.py``) on its
+    pre-drawn ``_ms_math`` form, one kernel launch a chunk of steps instead
+    of ``BatchedEnv``'s step launch and plain masked fresh-board draw a
+    step.
+
+    ``reset(seed)`` gives fresh states; ``rollout(states, num_steps)`` (the
+    object is callable) steps them.  The default device is the current
+    CUDA device; with no CUDA device and no explicit ``device`` this
+    raises, and ``device="cpu"`` runs :func:`ms_spec`."""
+    device = _build.default_device(device, "make_wildfire_episode_rollout")
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1, got {chunk}")
+    return WildfireEpisodeRollout(
+        make_wildfire_slab(cfg, device), num_envs, torch.Generator(device=device), chunk
     )

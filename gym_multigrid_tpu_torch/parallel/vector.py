@@ -11,11 +11,12 @@ neither ``step`` nor ``rollout`` waits on the device inside its loop.
 Randomness comes from the env's ``torch.Generator``, seeded by
 ``reset(seed)``.
 
-The episode rollouts ``make_collect_episode_rollout`` and
-``make_maze_episode_rollout`` (``ops/collect_slab.py``,
-``ops/maze_slab.py``) are the fewer-launch path for the same metrics:
-Collect with one all-rows reset an episode instead of a masked one a step,
-Maze with one kernel launch a chunk of steps.
+The episode rollouts ``make_collect_episode_rollout``,
+``make_maze_episode_rollout``, ``make_ctf_episode_rollout`` and
+``make_wildfire_episode_rollout`` (``ops/*_slab.py``) are the fewer-launch
+path for the same metrics: Collect with one all-rows reset an episode
+instead of a masked one a step, Maze, CtF and Wildfire with one kernel
+launch a chunk of steps, the auto-reset inside the kernel.
 """
 
 from __future__ import annotations

@@ -1,7 +1,10 @@
-"""Probe the port's Collect reset and Maze K-step kernels on one NVIDIA GPU.
+"""Probe the port's Collect reset and K-step kernels on one NVIDIA GPU.
 
     python3 scripts/torch_kernel_probe.py [--reset-variant FILE.cu ...]
                                           [--maze-variant FILE.cu ...]
+                                          [--ctf-variant FILE.cu ...]
+                                          [--wf-variant FILE.cu ...]
+                                          [--only reset|maze|ctf|wildfire ...]
 
 From the root of a checkout, with a CUDA device and ``nvcc``.  It
 
@@ -21,7 +24,15 @@ From the root of a checkout, with a CUDA device and ``nvcc``.  It
 5. times ``maze_steps`` (the checkout's and each variant with its C
    interface) at K in (1, 25, 100) and B in (64, 8192), and the one-step
    ``maze_step``, so the launch floor and the per-step latency of one
-   env's chain can be read apart.
+   env's chain can be read apart;
+6. does the same for ``ctf_steps`` at ``CTF_MAIN`` (K in (1, 50)) and
+   ``wf_steps`` at ``WF_MAIN`` (K in (1, 24)), each build checked
+   bit-equal to its ``ms_spec``, beside the one-step ``ctf_step`` and
+   ``wildfire_step``; at B = 8192 and the full chunk the checkout's build
+   and each variant are timed in turns (checkout, variants, variants
+   reversed, checkout, twice).  A variant has the checkout's C interface.
+
+``--only`` runs the named sections (default: all).
 
 Times are CUDA events around windows of launches queued behind a device
 sleep (``chip_smoke.time_ms``), each beside the card's name and power
@@ -43,8 +54,15 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import MAIN, MAZE_MAIN, time_ms  # noqa: E402
-from gym_multigrid_tpu_torch.ops import _build, collect_slab, maze_slab  # noqa: E402
+from chip_smoke import CTF_MAIN, MAIN, MAZE_MAIN, WF_MAIN, time_ms  # noqa: E402
+from gym_multigrid_tpu_torch.envs.wildfire import ignite_thresholds  # noqa: E402
+from gym_multigrid_tpu_torch.ops import (  # noqa: E402
+    _build,
+    collect_slab,
+    ctf_slab,
+    maze_slab,
+    wildfire_slab,
+)
 
 B = 8192
 DEV = torch.device("cuda", 0)
@@ -71,10 +89,13 @@ def nvcc_build(source: Path, out: Path, *defines: str) -> ctypes.CDLL:
 
 def entry(lib, source: Path, name: str):
     """``name`` of ``lib`` with argtypes read from its C signature in
-    ``source``: pointers c_void_p, ints c_int."""
+    ``source``: pointers c_void_p, floats c_float, ints c_int."""
     params = re.search(rf'extern "C" int {name}\(([^)]*)\)', source.read_text()).group(1)
     fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params.split(",")]
+    fn.argtypes = [
+        ctypes.c_void_p if "*" in p else ctypes.c_float if p.split()[0] == "float" else ctypes.c_int
+        for p in params.split(",")
+    ]
     fn.restype = ctypes.c_int
     return fn
 
@@ -130,11 +151,93 @@ def maze_runner(fn, slab):
     return run
 
 
+def ctf_runner(fn, slab):
+    """``ctf_steps`` through ``fn`` with ``ctf_ms_slab``'s arguments."""
+    t = slab.t
+    kinds, p_opt = ctf_slab._policy_arrays(t, DEV)
+
+    def run(pos, dirs, term, coll, sc, run_ret, acts, rnd_step, rnd_reset):
+        n, K = pos.shape[0], acts.shape[0]
+        outs = (torch.empty_like(pos), torch.empty_like(dirs), torch.empty_like(term),
+                torch.empty_like(coll), torch.empty_like(sc), torch.empty_like(run_ret),
+                torch.empty_like(run_ret), torch.empty_like(run_ret), torch.empty_like(sc))
+        tables = (slab.flags, slab.border, slab.pool, slab.bterr, slab.rterr, kinds, p_opt)
+        err = fn(*(x.data_ptr() for x in (pos, dirs, term, coll, sc, run_ret, acts, rnd_step,
+                                           rnd_reset, *tables)),
+                 *(o.data_ptr() for o in outs), n, K, t.n_blue, t.n_red, int(t.mvn), t.s0, t.s1,
+                 t.bound0, t.bound1, *t.blue_flag, *t.red_flag, slab.border.shape[1],
+                 slab.pool.shape[1], ctf_slab.rnd_width(t),
+                 int(t.mvn and t.obstacle_penalty != 0), int(not t.mvn and t.obstacle_penalty != 0),
+                 slab.bterr.shape[1], slab.rterr.shape[1], t.max_steps,
+                 t.battle_range * t.battle_range, t.randomness, 1.0 - t.randomness,
+                 t.flag_reward, t.battle_reward, t.obstacle_penalty,
+                 t.step_penalty * t.n_blue if t.mvn else t.step_penalty,
+                 torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"ctf_steps: CUDA error {err}"
+        return outs
+    return run
+
+
+def wf_runner(fn, slab):
+    """``wf_steps`` through ``fn`` with ``wf_ms_slab``'s arguments."""
+    t = slab.t
+
+    def run(cells, pos, sc, ext, run_ret, acts, rnd_step, rnd_reset):
+        n, K = cells.shape[0], acts.shape[0]
+        outs = (torch.empty_like(cells), torch.empty_like(pos), torch.empty_like(sc),
+                torch.empty_like(ext), torch.empty_like(run_ret), torch.empty_like(run_ret),
+                torch.empty_like(run_ret), torch.empty_like(sc))
+        err = fn(*(x.data_ptr() for x in (cells, pos, sc, ext, run_ret, acts, rnd_step,
+                                           rnd_reset)),
+                 *(o.data_ptr() for o in outs), n, K, t.width, t.height, t.n_agents, t.n_fires,
+                 t.max_steps, *ignite_thresholds(t)[1:], t.p_burnout, t.ext_reward,
+                 t.burn_penalty, t.step_penalty, t.tree_density,
+                 torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"wf_steps: CUDA error {err}"
+        return outs
+    return run
+
+
+def probe_steps(family, runners, make_args, spec, one_step, chunk, smi):
+    """The K-step section of one family: every build bit-equal to ``spec``
+    at K in (1, chunk) and B in (64, 8192), the checkout's build timed
+    there beside ``one_step(n)``, then every build timed in turns at the
+    full chunk and B = 8192.  Returns {key: us}."""
+    out = {}
+    for n in (64, B):
+        out[f"{family} one step B={n}"] = time_ms(one_step(n), 200)[0] * 1e3
+        for K in (1, chunk):
+            args = make_args(n, K)
+            want = spec(K, args)
+            for name, run in runners:
+                assert all(torch.equal(g, w) for g, w in zip(run(*args), want)), name
+            out[f"{family} K-step checkout K={K} B={n}"] = (
+                time_ms(lambda: runners[0][1](*args), 100)[0] * 1e3)
+    log(f"every {family} K-step build == ms_spec at K in (1, {chunk}), B in (64, {B}): bit-equal")
+    args = make_args(B, chunk)
+    turns = {name: [] for name, _ in runners}
+    for order in (runners, runners[::-1]) * 2:
+        for name, run in order:
+            turns[name].append(time_ms(lambda: run(*args), 100)[0] * 1e3)
+    for key, t in out.items():
+        log(f"{key}: {t:.2f} us/launch ({smi})")
+    for name, t in turns.items():
+        log(f"{family} K-step {name}, K={chunk}, B={B}, in turns: us {[round(x, 2) for x in t]} "
+            f"({smi})")
+        out[f"{family} K-step {name} K={chunk} B={B} turns"] = t
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--reset-variant", type=Path, action="append", default=[])
     parser.add_argument("--maze-variant", type=Path, action="append", default=[])
+    parser.add_argument("--ctf-variant", type=Path, action="append", default=[])
+    parser.add_argument("--wf-variant", type=Path, action="append", default=[])
+    parser.add_argument("--only", action="append", default=[],
+                        choices=("reset", "maze", "ctf", "wildfire"))
     args = parser.parse_args()
+    sections = set(args.only or ("reset", "maze", "ctf", "wildfire"))
     if not torch.cuda.is_available():
         sys.exit("torch_kernel_probe.py: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -149,13 +252,71 @@ def main():
     record = {"card": smi}
     gen = torch.Generator(device=DEV).manual_seed(0)
 
-    # The resets: the checkout's, then the variants, each stamped if it can be.
+    if "reset" in sections:
+        record.update(probe_resets(args.reset_variant, probe_dir, gen, smi))
+    if "maze" in sections:
+        record.update(probe_maze(args.maze_variant, kernels, probe_dir, gen, smi))
+    if "ctf" in sections:
+        cslab = ctf_slab.make_ctf_slab(CTF_MAIN, DEV)
+        runners = [("checkout", ctf_runner(kernels.ctf_steps, cslab))]
+        for i, path in enumerate(args.ctf_variant):
+            lib = nvcc_build(path, probe_dir / f"ctf_{i}.so")
+            runners.append((path.stem, ctf_runner(entry(lib, path, "ctf_steps"), cslab)))
+
+        def ctf_args(n, K):
+            st = ctf_slab.reset_batch(cslab, n, generator=gen)
+            return (st.pos.reshape(n, -1), st.dir, st.terminated, st.collided, st.step_count,
+                    torch.zeros(n, device=DEV),
+                    torch.randint(0, 5, (K, n, 2), generator=gen, device=DEV, dtype=torch.int32),
+                    torch.rand((K, n, cslab.step_draws), generator=gen, device=DEV),
+                    torch.rand((K, n, cslab.reset_draws), generator=gen, device=DEV))
+
+        def ctf_one(n):
+            a = ctf_args(n, 1)
+            one = (cslab.t, a[0], a[1], a[2], a[3], a[6][0], a[7][0], cslab.flags, cslab.border,
+                   cslab.pool)
+            return lambda: ctf_slab.ctf_step_slab(*one)
+
+        record.update(probe_steps(
+            "ctf", runners, ctf_args,
+            lambda K, a: ctf_slab.ms_spec(cslab.t, K, *a, cslab.flags, cslab.border, cslab.pool,
+                                          cslab.bterr, cslab.rterr),
+            ctf_one, 50, smi))
+    if "wildfire" in sections:
+        wslab = wildfire_slab.make_wildfire_slab(WF_MAIN, DEV)
+        runners = [("checkout", wf_runner(kernels.wf_steps, wslab))]
+        for i, path in enumerate(args.wf_variant):
+            lib = nvcc_build(path, probe_dir / f"wf_{i}.so")
+            runners.append((path.stem, wf_runner(entry(lib, path, "wf_steps"), wslab)))
+
+        def wf_args(n, K):
+            st = wildfire_slab.reset_batch(wslab, n, generator=gen)
+            return (st.cells.reshape(n, -1), st.agent_pos.reshape(n, -1), st.step_count,
+                    st.extinguished, torch.zeros(n, device=DEV),
+                    torch.randint(0, 5, (K, n, 2), generator=gen, device=DEV, dtype=torch.int32),
+                    torch.rand((K, n, wslab.step_draws), generator=gen, device=DEV),
+                    torch.rand((K, n, wslab.reset_draws), generator=gen, device=DEV))
+
+        def wf_one(n):
+            a = wf_args(n, 1)
+            return lambda: wildfire_slab.wildfire_step_slab(wslab.t, a[0], a[1], a[5][0], a[6][0])
+
+        record.update(probe_steps(
+            "wildfire", runners, wf_args, lambda K, a: wildfire_slab.ms_spec(wslab.t, K, *a),
+            wf_one, 24, smi))
+    log(json.dumps(record))
+
+
+def probe_resets(variants, probe_dir, gen, smi):
+    """Sections 1-4: the resets, the checkout's, then the variants, each
+    stamped if it can be.  Returns the record's entries."""
+    record = {}
     slab = collect_slab.make_collect_slab(MAIN, DEV)
     rt, ra = slab.rt, slab.reset_arrays
     rnd = torch.rand((B, slab.reset_draws), generator=gen, device=DEV)
     want = collect_slab.reset_spec(rt, ra.wall, ra.ball_rects, rnd)
     sources = [("checkout", _build.CSRC / "collect_reset.cu")]
-    sources += [(path.stem, path) for path in args.reset_variant]
+    sources += [(path.stem, path) for path in variants]
     resets = []
     for i, (name, source) in enumerate(sources):
         resets.append(Reset(name, source, nvcc_build(source, probe_dir / f"reset_{i}.so"), slab))
@@ -183,11 +344,14 @@ def main():
         log(f"collect_reset {name}: all rows us {[round(x[0], 2) for x in t]}, masked with "
             f"no row done us {[round(x[1], 2) for x in t]} ({smi})")
     record["reset_us"] = times
+    return record
 
-    # maze_steps against the launch floor and the chain.
+
+def probe_maze(variants, kernels, probe_dir, gen, smi):
+    """Section 5: maze_steps against the launch floor and the chain."""
     mslab = maze_slab.make_maze_slab(MAZE_MAIN, DEV)
     mazes = [("checkout", maze_runner(kernels.maze_steps, mslab))]
-    for i, path in enumerate(args.maze_variant):
+    for i, path in enumerate(variants):
         lib = nvcc_build(path, probe_dir / f"maze_{i}.so")
         mazes.append((path.stem, maze_runner(entry(lib, path, "maze_steps"), mslab)))
     maze = {}
@@ -207,8 +371,7 @@ def main():
     log(f"every maze_steps build == ms_spec at K in (1, 25, 100), B in (64, {B}): bit-equal")
     for key, t in maze.items():
         log(f"{key}: {t:.2f} us/launch ({smi})")
-    record["maze_us"] = maze
-    log(json.dumps(record))
+    return {"maze_us": maze}
 
 
 if __name__ == "__main__":

@@ -267,11 +267,14 @@ def test_wrappers_refuse_other_devices():
 
 
 @pytest.mark.parametrize(
-    "kw",
-    [dict(size=17), dict(agents_index=(3, 5, 1))],
+    "kw, device",
+    [(dict(size=17), "meta"), (dict(agents_index=(3, 5, 1)), "cpu")],
     ids=["board_above_256_cells", "three_agents"],
 )
-def test_configs_outside_the_kernel_envelope_are_refused(kw):
+def test_configs_outside_the_kernel_envelope_are_refused(kw, device):
+    """The board bound holds off the CPU, where the kernels run (the plain
+    versions on the CPU take any board); three agents are refused on the
+    CPU too, since the plain step moves one or two."""
     _, tcfg = _cfgs(**kw)
     with pytest.raises(ValueError, match="the Collect kernels take"):
-        tslab.make_collect_slab(tcfg, "cpu")
+        tslab.make_collect_slab(tcfg, device)
