@@ -33,7 +33,11 @@ without them.  Phases, each of which fails the run on any fault:
    ``max_steps`` of 30 so that every env resets at least twice, at
    B = 8192, 8189 and 5.  Finished envs are respawned by each family's
    ``reset_batch`` under the ``done`` mask.  Misaligned Wildfire uniforms
-   are refused, not copied.
+   are refused, not copied.  Collect with three agents, which no kernel
+   takes, runs its plain route (``step_perm``, ``reset_rows``) on the
+   card at B = 8192 for 60 chained steps with masked resets, bit-equal to
+   the same functions on the CPU given the same move orders and uniforms,
+   and launching no kernel.
 3. Drive each path, with every launch count set to 0 just before it and
    read just after: Collect (``make_collect_batch`` of the
    respawn-clustered config at B = 8192, ``reset(seed=0)``, ``rollout`` of
@@ -53,9 +57,18 @@ without them.  Phases, each of which fails the run on any fault:
    8192, chunk=24)``, ``reset(seed=0)`` and 400 steps: seventeen
    ``wf_steps`` launches).  Check each rollout's invariants; then, after
    untimed calls until the time per call settles, time it, each kernel and
-   its plain version.
-4. Profile 50 steps of each ``BatchedEnv`` rollout and 100 of each episode
-   path: device time by kernel and idle share.
+   its plain version.  Then the two training paths, Collect and CtF:
+   ``make_family_batch(family, 8192)``, ``ActorCritic(hidden=(256,
+   256))``, ``PPOConfig(rollout_len=32, num_epochs=2, num_minibatches=8)``,
+   the card's forward within 3e-2 of the CPU's on the same params and obs,
+   then 2 untimed and 5 timed iterations, each counted alone: 32
+   ``collect_step`` and 32 ``collect_reset`` an iteration, or 32
+   ``ctf_step``, and no other kernel; finite losses, moved params;
+   env-steps/s, the rollout and update ms by CUDA events and
+   ``reward_per_step`` of each iteration.
+4. Profile 50 steps of each ``BatchedEnv`` rollout, 100 of each episode
+   path and one iteration of each training path: device time by kernel
+   and idle share.
 
 Prints the timing lines, one JSON line of kernel records, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -63,6 +76,7 @@ and power limit, and last ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -93,8 +107,10 @@ from gym_multigrid_tpu_torch.ops.collect_slab import (  # noqa: E402
     collect_step_slab,
     make_collect_episode_rollout,
     make_collect_slab,
+    move_order,
     reset_batch,
     reset_spec,
+    step_batch,
     step_spec,
 )
 from gym_multigrid_tpu_torch.ops.ctf_slab import (  # noqa: E402
@@ -118,6 +134,9 @@ from gym_multigrid_tpu_torch.parallel.vector import (  # noqa: E402
     make_maze_batch,
     make_wildfire_batch,
 )
+from gym_multigrid_tpu_torch.rl.families import make_family_batch  # noqa: E402
+from gym_multigrid_tpu_torch.rl.networks import ActorCritic  # noqa: E402
+from gym_multigrid_tpu_torch.rl.ppo import PPOConfig, make_ppo  # noqa: E402
 
 B = 8192
 # Batches that are no multiple of the Wildfire tile (8, or 4 at 32x32) nor
@@ -126,6 +145,9 @@ RAGGED = (8189, 5)
 STEPS_PER_CALL = 500  # ten lockstep 50-step episodes
 MAIN = CollectConfig(layout="quadrants_respawn", respawn=True, max_steps=50)
 SINGLE = CollectConfig(agents_index=(3,), layout="even", respawn=False)
+# Three agents: outside the kernels' one or two, so plain PyTorch on the card.
+THREE = CollectConfig(agents_index=(3, 5, 1), layout="quadrants_respawn", respawn=True,
+                      max_steps=50)
 QUADRANTS15 = CollectConfig(size=15, num_balls=30, layout="quadrants")
 
 # CtF: the config the repo's family bench drives (bench_all.py), 2v2 on
@@ -239,6 +261,13 @@ COLLECT_WARMUP_MAX = 10
 CTF_WARMUP_MAX = 20
 MAZE_WARMUP_MAX = 10
 WF_WARMUP_MAX = 10
+# The training paths: the width of the repo's trained model and
+# scripts/train.py's PPO settings, two untimed and five timed iterations.
+TRAIN_HIDDEN = (256, 256)
+TRAIN_CFG = PPOConfig(rollout_len=32, num_epochs=2, num_minibatches=8)
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+# bf16 activations: the card's forward against the CPU's, same params.
+FORWARD_ATOL = 3e-2
 DEV = torch.device("cuda", 0)
 
 
@@ -309,6 +338,53 @@ def check_reset_kernel(cfg, seed, n=B):
     err = max(err, max_abs_err(out, [torch.where(done[:, None], w, o) for w, o in zip(want, old)]))
     log(f"reset kernel == reset_spec: size {cfg.size} layout {cfg.layout} at B={n} "
         f"(unmasked and {int(done.sum())}/{n} rows masked), max_abs_err {err}")
+    return err
+
+
+def check_any_agent_route(cfg, steps, seed):
+    """The plain any-agent route (``step_perm``, ``reset_rows``) on the
+    card against the same functions on the CPU at B = 8192, given the same
+    move orders (drawn on the CPU, copied to the card) and uniforms: states,
+    obs, rewards and flags bit for bit over chained steps, finished and a
+    twentieth of other rows reset under the mask.  No kernel launches; the
+    card's ``move_order`` gives permutations."""
+    slab, cpu = make_collect_slab(cfg, DEV), make_collect_slab(cfg, "cpu")
+    check(not slab.kernel, "three agents took the kernel route")
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    A = cfg.num_agents
+
+    def same(got, want):
+        return max_abs_err([g.cpu() for g in got], list(want))
+
+    def fields(st):
+        return [getattr(st, f.name) for f in dataclasses.fields(st)]
+
+    def run():
+        rnd = torch.rand((B, slab.reset_draws), generator=gen, device=DEV)
+        s, sc = reset_batch(slab, B, rnd=rnd), reset_batch(cpu, B, rnd=rnd.cpu())
+        err, resets = same(fields(s), fields(sc)), 0
+        for _ in range(steps):
+            acts = actions(gen, A)
+            rnd = torch.rand((B, slab.step_draws), generator=gen, device=DEV)
+            perm = move_order(torch.rand((B, A), generator=gen, device=DEV).cpu())
+            got = step_batch(slab, s, acts, rnd=rnd, perm=perm.to(DEV))
+            want = step_batch(cpu, sc, acts.cpu(), rnd=rnd.cpu(), perm=perm)
+            err = max(err, same(fields(got[0]) + list(got[1:5]), fields(want[0]) + list(want[1:5])))
+            done = got[3] | got[4] | (torch.rand((B,), generator=gen, device=DEV) < 0.05)
+            rnd = torch.rand((B, slab.reset_draws), generator=gen, device=DEV)
+            s = reset_batch(slab, B, rnd=rnd, done=done, states=got[0])
+            sc = reset_batch(cpu, B, rnd=rnd.cpu(), done=done.cpu(), states=want[0])
+            err = max(err, same(fields(s), fields(sc)))
+            resets += int(done.sum())
+        return err, resets
+
+    counts, (err, resets) = run_counted(run)
+    check_launches(counts, {}, "three-agent Collect")
+    order = move_order(torch.rand((B, A), generator=gen, device=DEV))
+    check(bool((order.sort(dim=1).values == torch.arange(A, device=DEV)).all()),
+          "move_order on the card is no permutation")
+    log(f"three-agent route on the card == the CPU: {steps} steps at B={B}, {resets} rows "
+        f"reset, max_abs_err {err}")
     return err
 
 
@@ -930,27 +1006,105 @@ def time_rollout(rollout, name, states, steps, agents, warmup_max):
     return states
 
 
+def training_path(family):
+    """The training path of ``family``: ``make_family_batch(family, 8192)``,
+    the full-width ``ActorCritic``, ``make_ppo`` with ``TRAIN_CFG``,
+    ``init_fn(0)`` and the learner's generator seeded with 1, as
+    ``train_loop`` starts them.  Returns (env, net, train_step, carry,
+    generator)."""
+    env, _, n_actions, agents = make_family_batch(family, B)
+    obs_shape = tuple(env.encode(env.cfg, env.reset(0)[0]).shape[1:])
+    net = ActorCritic(n_actions, agents, TRAIN_HIDDEN, obs_shape=obs_shape)
+    init_fn, train_step = make_ppo(env, net, TRAIN_CFG)
+    _, carry = init_fn(0)
+    return env, net, train_step, carry, torch.Generator(device=DEV).manual_seed(1)
+
+
+def run_training(family, want_launches):
+    """Drive a training path: the card's forward against the CPU forward of
+    the same params and obs, then TRAIN_WARMUP untimed and TRAIN_TIMED
+    timed iterations, each with the launch counts set to 0 just before it
+    and checked just after, its rollout and update timed apart by CUDA
+    events.  The forward's tolerance is for bf16 activations.  Checks
+    finite losses and moved params; logs env-steps/s (median, slowest,
+    fastest), the split and reward_per_step.  Returns (train_step, carry,
+    generator, launches of one iteration)."""
+    env, net, train_step, carry, gen = training_path(family)
+    obs = env.encode(env.cfg, carry.env)
+    with torch.no_grad():
+        got = net(obs)
+        want = copy.deepcopy(net).cpu()(obs.cpu())
+    fwd_err = max((g.cpu() - w).abs().max().item() for g, w in zip(got, want))
+    check(fwd_err <= FORWARD_ATOL, f"{family}: card forward differs from the CPU by {fwd_err}")
+    before = [p.detach().clone() for p in net.parameters()]
+
+    def iteration():
+        nonlocal carry
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        w0 = time.perf_counter()
+        events[0].record()
+        carry, traj, last_value, ep_stats = train_step.rollout(carry, gen)
+        events[1].record()
+        metrics = train_step.update(traj, last_value, gen)
+        events[2].record()
+        metrics.update(ep_stats)
+        values = {k: float(v) for k, v in metrics.items()}  # the trainer's one sync
+        return (events[0].elapsed_time(events[1]), events[1].elapsed_time(events[2]),
+                (time.perf_counter() - w0) * 1e3, values)
+
+    rows = []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        counts, row = run_counted(iteration)
+        check_launches(counts, want_launches, f"{family} training iteration {i}")
+        check(all(math.isfinite(row[3][k]) for k in ("loss", "pg_loss", "v_loss", "entropy")),
+              f"{family}: losses {row[3]}")
+        rows.append(row)
+    check(any(not torch.equal(a, b) for a, b in zip(before, net.parameters())),
+          f"{family}: params did not move")
+    timed = rows[TRAIN_WARMUP:]
+    ms = [r[0] + r[1] for r in timed]
+    steps = B * TRAIN_CFG.rollout_len
+    log(f"{family} training at B={B}, hidden {TRAIN_HIDDEN}, rollout {TRAIN_CFG.rollout_len}, "
+        f"{TRAIN_CFG.num_epochs} epochs x {TRAIN_CFG.num_minibatches} minibatches: card forward "
+        f"vs CPU max_abs_err {fwd_err}; launches an iteration {counts}")
+    log(f"{family} training, {TRAIN_TIMED} iterations after {TRAIN_WARMUP} untimed: env-steps/s "
+        f"{steps / (sorted(ms)[len(ms) // 2] / 1e3)} (median), {steps / (max(ms) / 1e3)} "
+        f"(slowest), {steps / (min(ms) / 1e3)} (fastest); rollout ms {[round(r[0], 3) for r in timed]}; "
+        f"update ms {[round(r[1], 3) for r in timed]}; host wall ms {[round(r[2], 1) for r in timed]}; "
+        f"reward_per_step {[r[3]['reward_per_step'] for r in rows]}; loss "
+        f"{[round(r[3]['loss'], 5) for r in rows]}; after: {gpu_clocks()}")
+    return train_step, carry, gen, counts
+
+
 def profile_rollout(rollout, states, name, steps=50):
     """Device time by kernel and the idle share over ``steps`` steps of
-    ``rollout(states, steps)`` under ``torch.profiler``: the twelve longest
-    kernels, and the port's own kernels wherever they rank."""
+    ``rollout(states, steps)`` under ``torch.profiler``."""
+    profile_call(lambda: rollout(states, steps), f"{steps} {name} rollout steps", steps, "step")
+
+
+def profile_call(call, what, per, unit):
+    """Device time by kernel and the idle share of one ``call()`` under
+    ``torch.profiler``: the twelve longest kernels, and the port's own
+    kernels wherever they rank; launches counted per ``per`` ``unit``s."""
     torch.cuda.synchronize()
     kinds = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=kinds) as prof:
         t0 = time.perf_counter()
-        rollout(states, steps)
+        call()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # A user annotation on the device (the optimizer's step range) spans
+    # kernels already counted: kernels only.
     rows = sorted(
         ((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA),
+         if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)),
         key=lambda r: -r[1],
     )
     busy_us = sum(r[1] for r in rows)
     if busy_us > 0:
-        log(f"profile of {steps} {name} rollout steps (wall clock under the profiler): "
+        log(f"profile of {what} (wall clock under the profiler): "
             f"wall {wall_us:.0f} us, device kernels {busy_us:.0f} us "
-            f"({sum(r[2] for r in rows) / steps:.1f} launches per step), idle share "
+            f"({sum(r[2] for r in rows) / per:.1f} launches per {unit}), idle share "
             f"{1 - busy_us / wall_us:.3f}")
         for rank, (key, dev_us, count) in enumerate(rows):
             # A template kernel's name starts with its return type.
@@ -958,7 +1112,7 @@ def profile_rollout(rollout, states, name, steps=50):
                                             "void wildfire::")):
                 log(f"  #{rank + 1:<3d} {dev_us:9.1f} us  {count:5d}x  {key[:90]}")
     else:
-        log(f"profile of {name}: no device time recorded (device busy share not measured)")
+        log(f"profile of {what}: no device time recorded (device busy share not measured)")
 
 
 def main():
@@ -990,6 +1144,7 @@ def main():
                     # Ragged batches: 8189 and 5 are no multiple of a block's 64 envs.
                     check_reset_kernel(MAIN, seed=21, n=RAGGED[0]),
                     check_reset_kernel(QUADRANTS15, seed=22, n=RAGGED[1]))
+    check_any_agent_route(THREE, 60, seed=23)
 
     ctf_err = max(
         check_ctf_step_kernel(CTF_MAIN, "CTF_MAIN", 100, seed=30),
@@ -1312,6 +1467,12 @@ def main():
         f"{wms_parts[1] * 1e3:.2f} us), ms_spec {wms_plain_ms * 1e3:.1f} us "
         f"{us(wms_plain_all)}; the chunk's three draws ({wms_draw_bytes} bytes written) "
         f"{wms_draw_ms * 1e3:.2f} us {us(wms_draw_all)}")
+    # The training paths: a step kernel launch each rollout step (and the
+    # masked Collect reset), none in the update.
+    per_iter = TRAIN_CFG.rollout_len
+    tc_step, tc_carry, tc_gen, tc_launches = run_training(
+        "collect", {"collect_step": per_iter, "collect_reset": per_iter})
+    tf_step, tf_carry, tf_gen, tf_launches = run_training("ctf", {"ctf_step": per_iter})
     log("library_ms: null for every kernel (no single PyTorch call computes any)")
 
     # Phase 4: where each rollout's time goes.
@@ -1323,25 +1484,32 @@ def main():
     profile_rollout(me_roll, me_states, "Maze episode", steps=MAZE_CHUNK)
     profile_rollout(cte_roll, cte_states, "CtF episode", steps=2 * CTF_CHUNK)
     profile_rollout(wfe_roll, wfe_states, "Wildfire episode", steps=4 * WF_CHUNK + 4)
+    profile_call(lambda: tc_step(tc_carry, tc_gen), "one Collect training iteration",
+                 per_iter, "rollout step")
+    profile_call(lambda: tf_step(tf_carry, tf_gen), "one CtF training iteration",
+                 per_iter, "rollout step")
 
     record = {"kernels": [
         {"name": "collect_step", "route": "cuda",
          "source": "gym_multigrid_tpu_torch/csrc/collect_step.cu",
          "replaces": "gym_multigrid_tpu/ops/pallas_collect.py:290",
-         "launches": launches["collect_step"], "max_abs_err": step_err,
+         "launches": launches["collect_step"],
+         "launches_training_iteration": tc_launches["collect_step"], "max_abs_err": step_err,
          "ms": step_ms, "plain_ms": step_plain_ms, "bound_ms": step_bound,
          "bound_by": step_by, "library_ms": None},
         {"name": "collect_reset", "route": "cuda",
          "source": "gym_multigrid_tpu_torch/csrc/collect_reset.cu",
          "replaces": "gym_multigrid_tpu/ops/pallas_collect.py:1127",
          "launches": launches["collect_reset"],
-         "launches_collect_episode_path": ce_launches["collect_reset"], "max_abs_err": reset_err,
+         "launches_collect_episode_path": ce_launches["collect_reset"],
+         "launches_training_iteration": tc_launches["collect_reset"], "max_abs_err": reset_err,
          "ms": reset_ms, "plain_ms": reset_plain_ms, "bound_ms": reset_bound,
          "bound_by": reset_by, "library_ms": None},
         {"name": "ctf_step", "route": "cuda",
          "source": "gym_multigrid_tpu_torch/csrc/ctf_step.cu",
          "replaces": "gym_multigrid_tpu/ops/pallas_ctf.py:492",
-         "launches": ctf_launches["ctf_step"], "max_abs_err": ctf_err,
+         "launches": ctf_launches["ctf_step"],
+         "launches_training_iteration": tf_launches["ctf_step"], "max_abs_err": ctf_err,
          "ms": ctf_ms, "plain_ms": ctf_plain_ms, "bound_ms": ctf_bound,
          "bound_by": ctf_by, "library_ms": None},
         {"name": "maze_step", "route": "cuda",

@@ -9,7 +9,9 @@ torch, numpy and the standard library only; the JAX package
 
 Entry points: ``make_collect_batch``, ``make_ctf_batch``,
 ``make_maze_batch`` and ``make_wildfire_batch`` in
-``gym_multigrid_tpu_torch.parallel.vector``.
+``gym_multigrid_tpu_torch.parallel.vector``; the PPO learner over them,
+``make_family_batch`` in ``rl/families.py`` and ``train_loop`` in
+``rl/trainer.py``.
 """
 
 __version__ = "0.1.0"

@@ -5,7 +5,8 @@ Counterpart of ``gym_multigrid_tpu/envs/collect.py``.  The config checks,
 the static placement plan and the reward-slot tables are the same numpy
 code; the state is a dataclass of batched tensors.  Randomness never lives
 in the state: the batch env owns a ``torch.Generator`` and the slab
-functions take their uniforms as input tensors.
+functions take their uniforms as input tensors.  :func:`make_collect`
+gives the per-env functions, a state of one env having no batch axis.
 
 Semantics carried over unchanged (see the JAX module's docstring): NESW
 moves with invalid ids as no-ops, a random move order where later movers
@@ -17,6 +18,7 @@ horizon, truncation at ``max_steps``, and the full-grid uint8 encode.
 
 from __future__ import annotations
 
+import functools
 from collections import Counter
 from dataclasses import dataclass, fields
 from typing import Literal
@@ -328,3 +330,63 @@ def encode(cfg: CollectConfig, state: CollectState) -> torch.Tensor:
     color = state.grid_color.reshape(B, h, w).transpose(1, 2)
     ch2 = (obj == AGENT).to(torch.int32) * AGENT_DIR
     return torch.stack([obj, color, ch2], dim=-1).to(torch.uint8)
+
+
+def _row(state: CollectState, i: int = 0) -> CollectState:
+    return CollectState(**{f.name: getattr(state, f.name)[i] for f in fields(state)})
+
+
+def _batch(state: CollectState) -> CollectState:
+    return CollectState(**{f.name: getattr(state, f.name)[None] for f in fields(state)})
+
+
+def make_collect(cfg: CollectConfig, device=None):
+    """(reset_fn, step_fn, encode_fn) for one env on ``device``: the
+    counterpart of JAX's ``make_collect``.  A state of one env is a
+    :class:`CollectState` whose fields have no batch axis.
+
+    - ``reset_fn(generator) -> state``
+    - ``step_fn(state, actions, generator=None, *, perm=None)
+      -> (state', obs, rewards (A,), terminated, truncated, info_counts)``
+      with ``actions`` (A,) ids 0..3 (others are a no-op)
+    - ``encode_fn(state) -> (W, H, 3) uint8``
+
+    Randomness comes from the ``generator`` argument; ``perm`` (A,) gives
+    the move order instead of drawing it.  The step is ``step_perm`` at
+    B = 1: a uniform move order of any number of agents.
+    Device as for ``make_collect_batch``: the current CUDA device by
+    default, ``device="cpu"`` on the CPU; the functions are plain PyTorch
+    on either."""
+    from gym_multigrid_tpu_torch.ops import _build, collect_slab
+
+    device = _build.default_device(device, "make_collect")
+    slab = collect_slab.build_slab(cfg, device, kernel=False)
+
+    def reset_fn(generator):
+        return _row(collect_slab.reset_batch(slab, 1, generator=generator))
+
+    def step_fn(state, actions, generator=None, *, perm=None):
+        actions = torch.as_tensor(actions, device=device).reshape(1, cfg.num_agents)
+        if perm is not None:
+            perm = torch.as_tensor(perm, device=device)[None]
+        new, obs, rew, term, trunc, info = collect_slab.step_batch(
+            slab, _batch(state), actions, generator=generator, perm=perm
+        )
+        return _row(new), obs[0], rew[0], term[0], trunc[0], info[0]
+
+    def encode_fn(state):
+        return encode(cfg, _batch(state))[0]
+
+    return reset_fn, step_fn, encode_fn
+
+
+@functools.cache
+def _cached_collect(cfg: CollectConfig, device: torch.device):
+    return make_collect(cfg, device)
+
+
+def cached_collect(cfg: CollectConfig, device=None):
+    """Memoised :func:`make_collect`, one per (config, device)."""
+    from gym_multigrid_tpu_torch.ops import _build
+
+    return _cached_collect(cfg, _build.default_device(device, "cached_collect"))

@@ -10,6 +10,11 @@ CUDA kernels in ``gym_multigrid_tpu_torch/csrc/``, and its plain bodies
 * :func:`collect_step_slab` / :func:`collect_reset_slab` take the plain
   version for tensors on the CPU and launch the kernel for CUDA tensors.
   On the card the kernel is the only implementation: there is no fallback.
+* The kernels take one or two agents, as JAX's do.  Any other count takes
+  :func:`step_perm` (JAX's ``step_fn`` loop over a move-order tensor) and
+  :func:`reset_rows` in plain PyTorch on every device, as JAX runs
+  ``vmap(step_one)`` there: the agent count picks the route once, when
+  the slab is built (``CollectSlab.kernel``).
 * :func:`step_batch` / :func:`reset_batch` are the batch glue of
   ``make_collect_step_batch`` / ``make_collect_reset_batch``: reward-slot
   tables, info counters, terminated/truncated and the obs.  Their uniforms
@@ -187,7 +192,9 @@ def make_reset_arrays(cfg: CollectConfig, device) -> ResetArrays:
 
 
 def step_spec(t: _Tables, go, gc, gs, pos, acts, rnd, rects):
-    """One Collect transition for a (B, C) slab, in plain PyTorch.
+    """One Collect transition for a (B, C) slab of one or two agents, in
+    plain PyTorch, with the kernel's interface: :func:`step_perm` with
+    the order and respawn uniforms taken from ``rnd``.
 
     go/gc/gs: (B, C) int32 object, color and reward-slot planes
     pos:      (B, 2*n_agents) int32 [a0x, a0y, a1x, a1y]
@@ -199,50 +206,61 @@ def step_spec(t: _Tables, go, gc, gs, pos, acts, rnd, rects):
     Returns (go, gc, gs, pos, picked) with picked (B, n_agents) int32: the
     reward-table slot of the ball each agent picked up, or -1.
     """
-    B, C = go.shape
-    n_agents = acts.shape[1]
-    lane = torch.arange(C, dtype=torch.int32, device=go.device)[None, :]
-    w = t.width
-
+    B, A = acts.shape
     # Move order: for 2 agents a fair coin; agent 1 moves first when
     # rnd[:, 0] < 0.5.
-    if n_agents == 2:
-        first = (rnd[:, 0:1] < 0.5).to(torch.int32)
-    else:
-        first = torch.zeros((B, 1), dtype=torch.int32, device=go.device)
+    perm = torch.arange(A, device=go.device).expand(B, A)
+    if A == 2:
+        perm = torch.where(rnd[:, 0:1] < 0.5, perm.flip(1), perm)
+    return step_perm(t, go, gc, gs, pos, acts, perm, rnd[:, 1 : 1 + A], rects)
 
-    picked = [torch.full((B, 1), -1, dtype=torch.int32, device=go.device)
-              for _ in range(n_agents)]
-    pos_cols = [pos[:, 2 * i : 2 * i + 2] for i in range(n_agents)]
 
-    for slot in range(n_agents):
-        i_vec = first if slot == 0 else 1 - first
-        is0 = i_vec == 0
+def move_order(keys):
+    """The move order of each row from (B, A) float32 uniform keys: the
+    agents sorted by key, a uniform permutation of any number of agents
+    (as JAX's ``step_fn`` draws with ``jax.random.permutation``).  Returns
+    (B, A) int64: ``order[:, s]`` is the agent that moves ``s``-th."""
+    return keys.argsort(dim=1)
 
-        def pick(a, b):  # per-row select between agent 0's and agent 1's
-            return torch.where(is0, a, b) if n_agents == 2 else a
 
-        act = pick(acts[:, 0:1], acts[:, -1:])
-        px = pick(pos_cols[0][:, 0:1], pos_cols[-1][:, 0:1])
-        py = pick(pos_cols[0][:, 1:2], pos_cols[-1][:, 1:2])
-        my_color = pick(
-            torch.full_like(act, t.agent_colors[0]),
-            torch.full_like(act, t.agent_colors[1 % len(t.agent_colors)]),
-        )
+def step_perm(t: _Tables, go, gc, gs, pos, acts, perm, rnd, rects):
+    """One Collect transition for a (B, C) slab of any number of agents A,
+    in plain PyTorch: the sequential loop of JAX's ``step_fn``
+    (``envs/collect.py``), every row at once.
 
+    pos:  (B, 2A) int32 [a0x, a0y, a1x, a1y, ...]
+    acts: (B, A) int32; ids outside 0..3 are a no-op
+    perm: (B, A) integer move order: agent ``perm[:, s]`` moves s-th
+    rnd:  (B, A) float32 respawn uniform of the s-th mover
+
+    go/gc/gs and rects as in :func:`step_spec`, which is this step for one
+    or two agents with ``perm`` from ``rnd[:, 0] < 0.5`` and the respawn
+    uniforms ``rnd[:, 1:]``.  Returns (go, gc, gs, pos, picked) with
+    picked (B, A) int32: the reward-table slot of the ball each agent
+    picked up, or -1."""
+    B, C = go.shape
+    A = acts.shape[1]
+    dev = go.device
+    lane = torch.arange(C, dtype=torch.int32, device=dev)[None, :]
+    w = t.width
+    colors = torch.tensor(t.agent_colors, dtype=torch.int32, device=dev)
+    perm = perm.long()
+    xs, ys = pos[:, 0::2], pos[:, 1::2]
+    picked = torch.full((B, A), -1, dtype=torch.int32, device=dev)
+    dx_of = torch.tensor(t.action_dx, dtype=torch.int32, device=dev)
+    dy_of = torch.tensor(t.action_dy, dtype=torch.int32, device=dev)
+
+    for s in range(A):
+        i = perm[:, s : s + 1]  # (B, 1) the mover
+        act = acts.gather(1, i)
+        px, py = xs.gather(1, i), ys.gather(1, i)
         valid = (act >= 0) & (act < 4)
-        dx = torch.zeros_like(act)
-        dy = torch.zeros_like(act)
-        for a in range(4):
-            m = valid & (act == a)
-            dx = torch.where(m, t.action_dx[a], dx)
-            dy = torch.where(m, t.action_dy[a], dy)
-        nx = (px + dx).clamp(0, t.width - 1)
-        ny = (py + dy).clamp(0, t.height - 1)
-        nidx = ny * w + nx  # (B, 1)
-        oidx = py * w + px
+        a = act.clamp(0, 3).long()
+        nx = (px + torch.where(valid, dx_of[a], 0)).clamp(0, t.width - 1)
+        ny = (py + torch.where(valid, dy_of[a], 0)).clamp(0, t.height - 1)
+        nidx = ny * w + nx
         hit_n = lane == nidx
-        hit_o = lane == oidx
+        hit_o = lane == py * w + px
 
         cell = go.gather(1, nidx.long())
         is_ball = cell == t.ball
@@ -261,7 +279,7 @@ def step_spec(t: _Tables, go, gc, gs, pos, acts, rnd, rects):
             # cells of the ball color's rect, the vacated cell included.
             bc = ball_color.clamp(0, rects.shape[0] - 1)
             mask = rects[bc[:, 0].long()] & (go == t.empty)
-            hit_r = masked_pick(mask, rnd[:, 1 + slot : 2 + slot]) & is_ball
+            hit_r = masked_pick(mask, rnd[:, s : s + 1]) & is_ball
             go = torch.where(hit_r, t.ball, go)
             gc = torch.where(hit_r, ball_color, gc)
             gs = torch.where(hit_r, t.respawn_slot_base + ball_color, gs)
@@ -269,22 +287,17 @@ def step_spec(t: _Tables, go, gc, gs, pos, acts, rnd, rects):
         # move; a respawn on the vacated ball cell is overwritten (stomped)
         into = hit_n & do_move
         go = torch.where(into, t.agent, go)
-        gc = torch.where(into, my_color, gc)
+        gc = torch.where(into, colors[i], gc)
         gs = torch.where(into, 0, gs)
         out = hit_o & do_move
         go = torch.where(out, t.empty, go)
         gc = torch.where(out, 0, gc)
 
-        new_xy = torch.cat(
-            [torch.where(do_move, nx, px), torch.where(do_move, ny, py)], dim=1
-        )
-        picked_here = torch.where(is_ball, ball_slot, -1)
-        for i in range(n_agents):
-            mine = i_vec == i
-            pos_cols[i] = torch.where(mine, new_xy, pos_cols[i])
-            picked[i] = torch.where(mine, picked_here, picked[i])
+        xs = xs.scatter(1, i, torch.where(do_move, nx, px))
+        ys = ys.scatter(1, i, torch.where(do_move, ny, py))
+        picked = picked.scatter(1, i, torch.where(is_ball, ball_slot, -1))
 
-    return go, gc, gs, torch.cat(pos_cols, dim=1), torch.cat(picked, dim=1)
+    return go, gc, gs, torch.stack([xs, ys], dim=2).reshape(B, 2 * A), picked
 
 
 def _check_envelope(n_cells, n_agents):
@@ -305,8 +318,10 @@ def collect_step_slab(t: _Tables, go, gc, gs, pos, acts, rnd, rects):
     """One transition of the batch: :func:`step_spec` for CPU tensors, the
     CUDA kernel ``csrc/collect_step.cu`` for CUDA tensors (new output
     tensors; the inputs are not changed).  Same arguments and results as
-    :func:`step_spec`."""
+    :func:`step_spec`, which moves one or two agents: more raise on every
+    device (:func:`step_perm` moves any number)."""
     if go.device.type == "cpu":
+        _check_envelope(None, acts.shape[-1])
         return step_spec(t, go, gc, gs, pos, acts, rnd, rects)
     if go.device.type != "cuda":
         raise ValueError(f"no Collect step for tensors on {go.device}")
@@ -417,6 +432,18 @@ def reset_spec(rt: _ResetTables, wall, ball_rects, rnd):
     return go, gc, gs, torch.cat(pos_cols, dim=1)
 
 
+def reset_rows(rt: _ResetTables, rnd, ra: ResetArrays, done=None, out=None):
+    """:func:`reset_spec` with the interface of :func:`collect_reset_slab`
+    (``done`` None: new tensors; else the done rows of ``out`` in place),
+    on any device and for any number of agents."""
+    new = reset_spec(rt, ra.wall, ra.ball_rects, rnd)
+    if done is None:
+        return new
+    for o, n in zip(out, new):
+        o.copy_(torch.where(done[:, None], n, o))
+    return out
+
+
 def collect_reset_slab(rt: _ResetTables, rnd, ra: ResetArrays, done=None, out=None):
     """Whole-board reset: :func:`reset_spec` for CPU tensors, the CUDA
     kernel ``csrc/collect_reset.cu`` for CUDA tensors.
@@ -427,12 +454,7 @@ def collect_reset_slab(rt: _ResetTables, rnd, ra: ResetArrays, done=None, out=No
     the result is ``where(done, reset_spec(...), out)``.  Returns
     (go, gc, gs, pos)."""
     if rnd.device.type == "cpu":
-        new = reset_spec(rt, ra.wall, ra.ball_rects, rnd)
-        if done is None:
-            return new
-        for o, n in zip(out, new):
-            o.copy_(torch.where(done[:, None], n, o))
-        return out
+        return reset_rows(rt, rnd, ra, done, out)
     if rnd.device.type != "cuda":
         raise ValueError(f"no Collect reset for tensors on {rnd.device}")
     B, C, A, nb = rnd.shape[0], rt.n_cells, len(rt.agent_colors), len(rt.ball_colors)
@@ -502,20 +524,45 @@ class CollectSlab:
     slot_rewards: torch.Tensor  # (n_slots,) float32
     slot_info: torch.Tensor  # (n_slots,) int32
     info_ids: torch.Tensor  # (num_ball_types,) int32: 0, 1, ...
+    #: The route: the kernels (:func:`collect_step_slab`,
+    #: :func:`collect_reset_slab`, their plain versions on the CPU) for the
+    #: agent counts they take, else :func:`step_perm` and
+    #: :func:`reset_rows` in plain PyTorch on the slab's device.
+    kernel: bool
 
     @property
     def reset_draws(self) -> int:
         """Uniforms one env's reset takes: one per ball and per agent."""
         return len(self.rt.ball_colors) + self.cfg.num_agents
 
+    @property
+    def step_draws(self) -> int:
+        """Uniforms one env's step takes: the move order and two respawns
+        on the kernel route, a move-order key and a respawn per agent on
+        the other."""
+        return 3 if self.kernel else 2 * self.cfg.num_agents
+
 
 def make_collect_slab(cfg: CollectConfig, device) -> CollectSlab:
-    """The slab of ``cfg`` on ``device``.  Off the CPU it must fit the
-    kernels' envelope (:func:`_check_envelope`); the plain versions on the
-    CPU take any board, with the agent counts of the kernels, the only ones
-    :func:`step_spec` moves."""
+    """The slab of ``cfg`` on ``device``.  The agent count alone picks the
+    route, as JAX's ``make_collect_step_batch`` does: one or two agents
+    take the kernels, which off the CPU must also fit the cell bound
+    (:func:`_check_envelope`); any other count takes the plain any-agent
+    step and reset on every device, where no kernel computes it, in
+    either package."""
     device = torch.device(device)
-    _check_envelope(None if device.type == "cpu" else cfg.num_cells, cfg.num_agents)
+    kernel = cfg.num_agents in AGENT_COUNTS
+    if kernel and device.type != "cpu":
+        _check_envelope(cfg.num_cells, cfg.num_agents)
+    return build_slab(cfg, device, kernel)
+
+
+def build_slab(cfg: CollectConfig, device, kernel: bool) -> CollectSlab:
+    """The slab of ``cfg`` on ``device`` with its route given and no
+    envelope check: ``kernel=False`` runs :func:`step_perm` and
+    :func:`reset_rows` for any agent count and board (the per-env
+    functions of ``envs/collect.py`` take it)."""
+    device = torch.device(device)
     t = make_tables(cfg)
     rt, plan = make_reset_tables(cfg)
     slot_rewards, slot_info, _ = reward_slot_tables(cfg, plan)
@@ -529,6 +576,7 @@ def make_collect_slab(cfg: CollectConfig, device) -> CollectSlab:
         slot_rewards=torch.as_tensor(slot_rewards, device=device),
         slot_info=torch.as_tensor(slot_info, device=device),
         info_ids=torch.arange(cfg.num_ball_types, dtype=torch.int32, device=device),
+        kernel=kernel,
     )
 
 
@@ -539,28 +587,38 @@ def step_batch(
     *,
     generator: torch.Generator | None = None,
     rnd: torch.Tensor | None = None,
+    perm: torch.Tensor | None = None,
     encode_obs: bool = True,
 ):
     """Batch-level Collect step.
 
     Returns (states', obs, rewards (B, A) float32, terminated (B,),
-    truncated (B,), info_counts).  ``rnd`` (B, 3) is used as is when
-    given, else drawn from ``generator``.  ``encode_obs=False`` returns
-    None for the obs, for callers that would throw it away."""
+    truncated (B,), info_counts).  ``rnd`` (B, ``slab.step_draws``) is
+    used as is when given, else drawn from ``generator``.  On the kernel
+    route it is :func:`step_spec`'s (B, 3); on the other route its first A
+    columns are the move-order keys (:func:`move_order`), unless ``perm``
+    (B, A) gives the order itself, and its last A the respawn uniforms.
+    ``encode_obs=False`` returns None for the obs, for callers that would
+    throw it away."""
     cfg = slab.cfg
-    B = states.grid_obj.shape[0]
+    B, A = states.grid_obj.shape[0], cfg.num_agents
     if rnd is None:
-        rnd = torch.rand((B, 3), generator=generator, device=slab.device)
-    go, gc, gs, pos, picked = collect_step_slab(
-        slab.t,
+        rnd = torch.rand((B, slab.step_draws), generator=generator, device=slab.device)
+    args = (
         states.grid_obj,
         states.grid_color,
         states.grid_slot,
         states.agent_pos.reshape(B, -1),
         actions.to(torch.int32).contiguous(),
-        rnd,
-        slab.respawn_rects,
     )
+    if slab.kernel:
+        go, gc, gs, pos, picked = collect_step_slab(slab.t, *args, rnd, slab.respawn_rects)
+    else:
+        if perm is None:
+            perm = move_order(rnd[:, :A])
+        go, gc, gs, pos, picked = step_perm(
+            slab.t, *args, perm, rnd[:, A:], slab.respawn_rects
+        )
     got_ball = picked >= 0  # (B, A); picked is the reward-table slot
     ps = picked.clamp(0, slab.slot_rewards.shape[0] - 1)
     rewards = torch.where(got_ball, slab.slot_rewards[ps], 0.0)
@@ -610,8 +668,9 @@ def reset_batch(
             (num_envs, slab.reset_draws), generator=generator, device=slab.device
         )
     A, nt = slab.cfg.num_agents, slab.cfg.num_ball_types
+    reset = collect_reset_slab if slab.kernel else reset_rows
     if done is None:
-        go, gc, gs, pos = collect_reset_slab(slab.rt, rnd, slab.reset_arrays)
+        go, gc, gs, pos = reset(slab.rt, rnd, slab.reset_arrays)
 
         def zeros(*shape):
             return torch.zeros(shape, dtype=torch.int32, device=slab.device)
@@ -625,7 +684,7 @@ def reset_batch(
             step_count=zeros(num_envs),
             info_counts=zeros(num_envs, A, nt),
         )
-    collect_reset_slab(
+    reset(
         slab.rt,
         rnd,
         slab.reset_arrays,
@@ -744,7 +803,7 @@ class CollectEpisodeRollout:
 
 def make_collect_episode_rollout(
     cfg: CollectConfig, num_envs: int, device=None, chunk: int = 25
-) -> CollectEpisodeRollout:
+) -> CollectEpisodeRollout | None:
     """The Collect episode rollout of a truncation-only config (``respawn``
     or ``fixed_horizon``, so that lockstep envs truncate together): the
     counterpart of JAX's ``make_collect_episode_rollout``
@@ -754,7 +813,8 @@ def make_collect_episode_rollout(
     ``reset(seed)`` gives fresh states; ``rollout(states, num_steps)`` (the
     object is callable) steps them.  Device as for ``make_collect_batch``:
     the current CUDA device by default, ``device="cpu"`` for the plain
-    versions."""
+    versions.  Returns None for agent counts other than the kernels' one
+    or two, as JAX's does: ``make_collect_batch`` runs those."""
     if not (cfg.respawn or cfg.fixed_horizon):
         raise ValueError(
             "the episode rollout needs a config that only truncates (respawn or "
@@ -762,6 +822,8 @@ def make_collect_episode_rollout(
         )
     if chunk < 1:
         raise ValueError(f"chunk must be at least 1, got {chunk}")
+    if cfg.num_agents not in AGENT_COUNTS:
+        return None
     device = _build.default_device(device, "make_collect_episode_rollout")
     return CollectEpisodeRollout(
         make_collect_slab(cfg, device), num_envs, torch.Generator(device=device), chunk

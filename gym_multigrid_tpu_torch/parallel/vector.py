@@ -164,7 +164,9 @@ def make_collect_batch(
     The default device is the current CUDA device; with no CUDA device and
     no explicit ``device`` this raises.  ``device="cpu"`` runs the plain
     PyTorch versions of the kernels.  Actions are (num_envs, num_agents)
-    ids 0..3."""
+    ids 0..3.  The kernels take one or two agents; more step and reset
+    through the plain any-agent functions on ``device``, as JAX runs
+    ``vmap(step_one)`` there (``ops/collect_slab.py``)."""
     device = _build.default_device(device, "make_collect_batch")
     return BatchedEnv(
         slab=collect_slab.make_collect_slab(cfg, device),

@@ -273,8 +273,19 @@ def test_wrappers_refuse_other_devices():
 )
 def test_configs_outside_the_kernel_envelope_are_refused(kw, device):
     """The board bound holds off the CPU, where the kernels run (the plain
-    versions on the CPU take any board); three agents are refused on the
-    CPU too, since the plain step moves one or two."""
+    versions on the CPU take any board): the slab refuses it there.  Three
+    agents are refused by the kernel wrapper on the CPU too, since its
+    plain version moves one or two; the slab sends them to the any-agent
+    plain step instead."""
     _, tcfg = _cfgs(**kw)
+    if tcfg.num_agents in tslab.AGENT_COUNTS:
+        with pytest.raises(ValueError, match="the Collect kernels take"):
+            tslab.make_collect_slab(tcfg, device)
+        return
+    slab = tslab.make_collect_slab(tcfg, device)
+    assert not slab.kernel
+    go = torch.zeros((2, tcfg.num_cells), dtype=torch.int32)
     with pytest.raises(ValueError, match="the Collect kernels take"):
-        tslab.make_collect_slab(tcfg, device)
+        tslab.collect_step_slab(slab.t, go, go, go, torch.zeros((2, 6), dtype=torch.int32),
+                                torch.zeros((2, 3), dtype=torch.int32), torch.rand((2, 3)),
+                                slab.respawn_rects)
