@@ -37,7 +37,13 @@ without them.  Phases, each of which fails the run on any fault:
    takes, runs its plain route (``step_perm``, ``reset_rows``) on the
    card at B = 8192 for 60 chained steps with masked resets, bit-equal to
    the same functions on the CPU given the same move orders and uniforms,
-   and launching no kernel.
+   and launching no kernel.  Each family's partial encode (V = 7) on the
+   card at B = 8192, after a reset and 20 steps of the batch built with
+   ``partial_obs_view``, bit-equal to the same function on the CPU for 512
+   of its rows.  The CtF all-agent step (``step_actions_batch``, plain
+   PyTorch) on the card, on CTF_MAIN and the 2v2 patrol config, bit-equal
+   to the CPU over 60 chained steps with masked resets given the same
+   actions, move orders and battle uniforms, launching no kernel.
 3. Drive each path, with every launch count set to 0 just before it and
    read just after: Collect (``make_collect_batch`` of the
    respawn-clustered config at B = 8192, ``reset(seed=0)``, ``rollout`` of
@@ -65,19 +71,35 @@ without them.  Phases, each of which fails the run on any fault:
    ``collect_step`` and 32 ``collect_reset`` an iteration, or 32
    ``ctf_step``, and no other kernel; finite losses, moved params;
    env-steps/s, the rollout and update ms by CUDA events and
-   ``reward_per_step`` of each iteration.
+   ``reward_per_step`` of each iteration.  Then evaluation with the same
+   net, greedy, 200 steps a call, each call counted: ``evaluate`` on the
+   Collect family batch (200 ``collect_step``, 200 masked and one all-rows
+   ``collect_reset``) and on the CtF one (200 ``ctf_step``), and
+   ``evaluate_ctf(CTF_MAIN, 8192)`` (200 ``ctf_step``; wins, losses and
+   draws partition the episodes); agent-steps/s of three timed calls each.
+   Self-play (``make_selfplay_ppo`` on ``make_ctf_selfplay_batch(CTF_MAIN,
+   8192)``, both nets at that width, int8 obs buffer): 2 untimed and 5
+   timed iterations launching no kernel, finite losses, red's reward minus
+   blue's, both nets moved, env-steps/s; one league iteration
+   (``make_league_ppo``, pool_size 2) and ``snapshot_fn``.  The
+   partial-obs CtF path (``make_ctf_batch(CTF_MAIN, 8192,
+   partial_obs_view=7)``, ``reset(seed=0)``, 50 steps of random blue
+   actions): 50 ``ctf_step``, obs (8192, 4, 7, 7, 3) uint8, the encode's
+   and the step's µs.
 4. Profile 50 steps of each ``BatchedEnv`` rollout, 100 of each episode
-   path and one iteration of each training path: device time by kernel
-   and idle share.
+   path, one iteration of each training path, one self-play iteration and
+   one Collect evaluation call: device time by kernel and idle share.
 
-Prints the timing lines, one JSON line of kernel records, the card's name
-and power limit, and last ``{"ok": true, "device": {...}}``.
+Prints the timing lines, one JSON line of kernel records (with each
+kernel's launches in one evaluation call), the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -91,16 +113,33 @@ from torch.autograd import DeviceType
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device")
 
-from gym_multigrid_tpu_torch.envs.collect import AGENT, BALL, CollectConfig  # noqa: E402
-from gym_multigrid_tpu_torch.envs.ctf import CtfConfig, CtfState, PolicySpec  # noqa: E402
+from gym_multigrid_tpu_torch.envs.collect import (  # noqa: E402
+    AGENT,
+    BALL,
+    CollectConfig,
+    make_collect_partial_encode,
+)
+from gym_multigrid_tpu_torch.envs.ctf import (  # noqa: E402
+    CtfConfig,
+    CtfState,
+    PolicySpec,
+    make_ctf_partial_encode,
+)
 from gym_multigrid_tpu_torch.envs.maze import (  # noqa: E402
     BACKGROUND,
     FLAG,
     M_OBSTACLE,
     MazeConfig,
     MazeState,
+    make_maze_partial_encode,
 )
-from gym_multigrid_tpu_torch.envs.wildfire import FIRE, TREE, WildfireConfig, WildfireState  # noqa: E402
+from gym_multigrid_tpu_torch.envs.wildfire import (  # noqa: E402
+    FIRE,
+    TREE,
+    WildfireConfig,
+    WildfireState,
+    make_wildfire_partial_encode,
+)
 from gym_multigrid_tpu_torch.ops import _build, ctf_slab, maze_slab, wildfire_slab  # noqa: E402
 from gym_multigrid_tpu_torch.ops.collect_slab import (  # noqa: E402
     collect_reset_slab,
@@ -134,9 +173,15 @@ from gym_multigrid_tpu_torch.parallel.vector import (  # noqa: E402
     make_maze_batch,
     make_wildfire_batch,
 )
+from gym_multigrid_tpu_torch.rl.evaluate import evaluate, evaluate_ctf  # noqa: E402
 from gym_multigrid_tpu_torch.rl.families import make_family_batch  # noqa: E402
 from gym_multigrid_tpu_torch.rl.networks import ActorCritic  # noqa: E402
 from gym_multigrid_tpu_torch.rl.ppo import PPOConfig, make_ppo  # noqa: E402
+from gym_multigrid_tpu_torch.rl.selfplay import (  # noqa: E402
+    make_ctf_selfplay_batch,
+    make_league_ppo,
+    make_selfplay_ppo,
+)
 
 B = 8192
 # Batches that are no multiple of the Wildfire tile (8, or 4 at 32x32) nor
@@ -268,6 +313,18 @@ TRAIN_CFG = PPOConfig(rollout_len=32, num_epochs=2, num_minibatches=8)
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 # bf16 activations: the card's forward against the CPU's, same params.
 FORWARD_ATOL = 3e-2
+# Evaluation: 200 lockstep steps a call (four Collect episodes, two CtF
+# ones at most), the greedy policy of the full-width net.
+EVAL_STEPS = 200
+# Self-play: train_selfplay's PPO settings (int8 obs buffer), the same
+# width, two untimed and five timed iterations.
+SELFPLAY_CFG = PPOConfig(rollout_len=32, num_epochs=2, num_minibatches=8, obs_buffer_dtype="int8")
+SELFPLAY_WARMUP, SELFPLAY_TIMED = 2, 5
+# Partial observations: the view size of the JAX package's encodes, the
+# rows held to the CPU, and the steps of the partial-obs CtF path.
+VIEW = 7
+PARTIAL_ROWS = 512
+PARTIAL_STEPS = 50
 DEV = torch.device("cuda", 0)
 
 
@@ -341,6 +398,16 @@ def check_reset_kernel(cfg, seed, n=B):
     return err
 
 
+def card_equals_cpu(got, want):
+    """max_abs_err of card tensors against their CPU counterparts."""
+    return max_abs_err([g.cpu() for g in got], list(want))
+
+
+def state_fields(states):
+    """A batch state's tensors, in field order."""
+    return [getattr(states, f.name) for f in dataclasses.fields(states)]
+
+
 def check_any_agent_route(cfg, steps, seed):
     """The plain any-agent route (``step_perm``, ``reset_rows``) on the
     card against the same functions on the CPU at B = 8192, given the same
@@ -352,12 +419,7 @@ def check_any_agent_route(cfg, steps, seed):
     check(not slab.kernel, "three agents took the kernel route")
     gen = torch.Generator(device=DEV).manual_seed(seed)
     A = cfg.num_agents
-
-    def same(got, want):
-        return max_abs_err([g.cpu() for g in got], list(want))
-
-    def fields(st):
-        return [getattr(st, f.name) for f in dataclasses.fields(st)]
+    same, fields = card_equals_cpu, state_fields
 
     def run():
         rnd = torch.rand((B, slab.reset_draws), generator=gen, device=DEV)
@@ -385,6 +447,89 @@ def check_any_agent_route(cfg, steps, seed):
           "move_order on the card is no permutation")
     log(f"three-agent route on the card == the CPU: {steps} steps at B={B}, {resets} rows "
         f"reset, max_abs_err {err}")
+    return err
+
+
+def state_rows(states, n, device):
+    """The first ``n`` rows of a batch state, on ``device``."""
+    return type(states)(**{f.name: getattr(states, f.name)[:n].to(device)
+                           for f in dataclasses.fields(states)})
+
+
+def check_partial_encodes(seed):
+    """Each family's partial encode (V = 7) on the card at B = 8192 against
+    the same function on the CPU for the first PARTIAL_ROWS rows of the
+    same states: the batch built with ``partial_obs_view``, reset and 20
+    steps of random actions on the card (CtF's with agents defeated).
+    Times each encode on the card.  Returns the max abs error."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    cases = (
+        ("Collect MAIN", make_collect_batch, MAIN, make_collect_partial_encode, 2),
+        ("CTF_MAIN", make_ctf_batch, CTF_MAIN, make_ctf_partial_encode, 4),
+        ("MAZE_MAIN", make_maze_batch, MAZE_MAIN, make_maze_partial_encode, 1),
+        ("WF_MAIN", make_wildfire_batch, WF_MAIN, make_wildfire_partial_encode, 2),
+    )
+    err = 0.0
+    for name, make_batch, cfg, make_encode, agents in cases:
+        env = make_batch(cfg, B, partial_obs_view=VIEW)
+        states, obs = env.reset(seed)
+        for _ in range(20):
+            acts = torch.randint(0, env.num_actions, env.actions_shape, generator=gen,
+                                 device=DEV, dtype=torch.int32)
+            states, obs, *_ = env.step(states, acts)
+        check(obs.dtype == torch.uint8 and tuple(obs.shape) == (B, agents, VIEW, VIEW, 3),
+              f"{name}: partial obs {obs.dtype} {tuple(obs.shape)}")
+        got = env.encode(env.cfg, states)
+        want = make_encode(cfg, VIEW)(state_rows(states, PARTIAL_ROWS, "cpu"))
+        err = max(err, max_abs_err([got[:PARTIAL_ROWS].cpu()], [want]))
+        enc_ms, enc_all = time_ms(lambda: env.encode(env.cfg, states), 20)
+        log(f"partial encode {name}, V={VIEW}: card == CPU on {PARTIAL_ROWS} rows of B={B}; "
+            f"{enc_ms * 1e3:.1f} us a call at B={B} {us(enc_all)}")
+    return err
+
+
+def check_step_actions(cfg, name, steps, seed):
+    """The CtF all-agent step (``step_actions_batch``, plain PyTorch, no
+    kernel) on the card against the CPU at B = 8192, given the same
+    actions (ids -1 and 7 mixed in), move orders and battle uniforms:
+    states, obs, rewards, flags and info bit for bit over chained steps,
+    finished and a twentieth of other rows reset under the mask with the
+    same spawn uniforms."""
+    slab, cpu = ctf_slab.make_ctf_slab(cfg, DEV, kernel=False), ctf_slab.make_ctf_slab(cfg, "cpu")
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    A, n_battles = cfg.num_agents, cfg.num_blue_agents * cfg.num_red_agents
+    same, fields = card_equals_cpu, state_fields
+
+    def out(step):
+        states, obs, rew, term, trunc, info = step
+        obs = [obs[k] for k in sorted(obs)] if isinstance(obs, dict) else [obs]
+        return fields(states) + obs + [rew, term, trunc] + [info[k] for k in sorted(info)]
+
+    def run():
+        rnd = torch.rand((B, A), generator=gen, device=DEV)
+        s, sc = (ctf_slab.reset_batch(slab, B, rnd=rnd),
+                 ctf_slab.reset_batch(cpu, B, rnd=rnd.cpu()))
+        err, resets = same(fields(s), fields(sc)), 0
+        for _ in range(steps):
+            acts = torch.randint(-1, 8, (B, A), generator=gen, device=DEV, dtype=torch.int32)
+            order = torch.rand((B, A), generator=gen, device=DEV).argsort(dim=1).to(torch.int32)
+            bu = torch.rand((B, n_battles), generator=gen, device=DEV)
+            got = ctf_slab.step_actions_batch(slab, s, acts, order=order, battle_u=bu)
+            want = ctf_slab.step_actions_batch(cpu, sc, acts.cpu(), order=order.cpu(),
+                                               battle_u=bu.cpu())
+            err = max(err, same(out(got), out(want)))
+            done = got[3] | got[4] | (torch.rand((B,), generator=gen, device=DEV) < 0.05)
+            rnd = torch.rand((B, A), generator=gen, device=DEV)
+            s = ctf_slab.reset_batch(slab, B, rnd=rnd, done=done, states=got[0])
+            sc = ctf_slab.reset_batch(cpu, B, rnd=rnd.cpu(), done=done.cpu(), states=want[0])
+            err = max(err, same(fields(s), fields(sc)))
+            resets += int(done.sum())
+        return err, resets
+
+    counts, (err, resets) = run_counted(run)
+    check_launches(counts, {}, f"CtF all-agent step, {name}")
+    log(f"CtF all-agent step on the card == the CPU, {name}: {steps} steps at B={B}, "
+        f"{resets} rows reset, max_abs_err {err}")
     return err
 
 
@@ -1006,6 +1151,12 @@ def time_rollout(rollout, name, states, steps, agents, warmup_max):
     return states
 
 
+def full_width_net(env, n_actions, agents):
+    """The full-width ``ActorCritic`` for ``env``'s observations."""
+    obs_shape = tuple(env.encode(env.cfg, env.reset(0)[0]).shape[1:])
+    return ActorCritic(n_actions, agents, TRAIN_HIDDEN, obs_shape=obs_shape)
+
+
 def training_path(family):
     """The training path of ``family``: ``make_family_batch(family, 8192)``,
     the full-width ``ActorCritic``, ``make_ppo`` with ``TRAIN_CFG``,
@@ -1013,8 +1164,7 @@ def training_path(family):
     ``train_loop`` starts them.  Returns (env, net, train_step, carry,
     generator)."""
     env, _, n_actions, agents = make_family_batch(family, B)
-    obs_shape = tuple(env.encode(env.cfg, env.reset(0)[0]).shape[1:])
-    net = ActorCritic(n_actions, agents, TRAIN_HIDDEN, obs_shape=obs_shape)
+    net = full_width_net(env, n_actions, agents)
     init_fn, train_step = make_ppo(env, net, TRAIN_CFG)
     _, carry = init_fn(0)
     return env, net, train_step, carry, torch.Generator(device=DEV).manual_seed(1)
@@ -1074,6 +1224,150 @@ def run_training(family, want_launches):
         f"reward_per_step {[r[3]['reward_per_step'] for r in rows]}; loss "
         f"{[round(r[3]['loss'], 5) for r in rows]}; after: {gpu_clocks()}")
     return train_step, carry, gen, counts
+
+
+def run_evaluations():
+    """The evaluation paths at B = 8192 with the full-width net, each call
+    counted alone: ``evaluate`` on the Collect and CtF family batches and
+    ``evaluate_ctf(CTF_MAIN)``, EVAL_STEPS steps each; then three timed
+    calls of each (each call ends in its one read of the device).  Returns
+    ({path: launches of one call}, the Collect call for the profile)."""
+    launches, calls = {}, {}
+    for family in ("collect", "ctf"):
+        env, cfg, n_actions, agents = make_family_batch(family, B)
+        net = full_width_net(env, n_actions, agents)
+        calls[family] = (functools.partial(evaluate, env, net, EVAL_STEPS, seed=0),
+                         cfg.num_agents)
+    ctf_net = full_width_net(make_ctf_batch(CTF_MAIN, 1), 5, CTF_MAIN.num_blue_agents)
+    calls["evaluate_ctf"] = (functools.partial(evaluate_ctf, CTF_MAIN, B, ctf_net, EVAL_STEPS,
+                                               seed=0), CTF_MAIN.num_agents)
+    want = {
+        "collect": {"collect_step": EVAL_STEPS, "collect_reset": EVAL_STEPS + 1},
+        "ctf": {"ctf_step": EVAL_STEPS},
+        "evaluate_ctf": {"ctf_step": EVAL_STEPS},
+    }
+    for path, (call, agents) in calls.items():
+        counts, res = run_counted(call)
+        check_launches(counts, want[path], f"{path} evaluation")
+        launches[path] = counts
+        check(res["episodes"] > 0 and all(math.isfinite(v) for v in res.values()),
+              f"{path} evaluation: {res}")
+        if path == "collect":  # lockstep truncation at max_steps 50
+            check(res["episodes"] == B * (EVAL_STEPS // MAIN.max_steps), f"episodes {res}")
+        if path == "evaluate_ctf":
+            check(res["wins"] + res["losses"] + res["draws"] == res["episodes"],
+                  f"outcomes do not partition the episodes: {res}")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            call()
+            times.append(time.perf_counter() - t0)
+        rate = B * EVAL_STEPS * agents / sorted(times)[1]
+        log(f"{path} evaluation of {EVAL_STEPS} steps at B={B}, hidden {TRAIN_HIDDEN}: {res}; "
+            f"s per call {[round(t, 3) for t in times]}; agent-steps/s {rate} (median of 3, "
+            f"every agent counted); after: {gpu_clocks()}")
+    return launches, calls["collect"][0]
+
+
+def run_selfplay():
+    """Self-play on ``make_ctf_selfplay_batch(CTF_MAIN, 8192)`` with the
+    full-width nets and SELFPLAY_CFG: SELFPLAY_WARMUP untimed and
+    SELFPLAY_TIMED timed iterations, each counted alone (no kernel: the
+    all-agent step is plain PyTorch), rollout and update timed apart by
+    CUDA events; finite losses, both nets moved.  Then one league iteration
+    (pool_size 2) and ``snapshot_fn``.  Returns (train_step, state,
+    generator) for the profile."""
+    env = make_ctf_selfplay_batch(CTF_MAIN, B)
+    init_fn, train_step, (blue, red) = make_selfplay_ppo(env, CTF_MAIN, SELFPLAY_CFG,
+                                                         TRAIN_HIDDEN)
+    sp = init_fn(0)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    before = [p.detach().clone() for p in (*blue.parameters(), *red.parameters())]
+    keys = ("blue_loss", "red_loss", "blue_entropy", "red_entropy", "blue_reward_per_step",
+            "red_reward_per_step")
+
+    def iteration():
+        nonlocal sp
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        events[0].record()
+        carry, b, r, stats = train_step.rollout(sp.states, None, B, gen)
+        events[1].record()
+        sp, metrics = train_step.update(sp, carry, b, r, stats, gen)
+        events[2].record()
+        values = dict(zip(keys, torch.stack([metrics[k].float() for k in keys]).tolist()))
+        return events[0].elapsed_time(events[1]), events[1].elapsed_time(events[2]), values
+
+    rows = []
+    for i in range(SELFPLAY_WARMUP + SELFPLAY_TIMED):
+        counts, row = run_counted(iteration)
+        check_launches(counts, {}, f"self-play iteration {i}")
+        check(all(math.isfinite(v) for v in row[2].values()), f"self-play: {row[2]}")
+        check(abs(row[2]["red_reward_per_step"] + row[2]["blue_reward_per_step"]) < 1e-6,
+              f"red's reward is not minus blue's: {row[2]}")
+        rows.append(row)
+    after = list((*blue.parameters(), *red.parameters()))
+    n_blue = len(list(blue.parameters()))
+    check(any(not torch.equal(a, b) for a, b in zip(before[:n_blue], after[:n_blue])),
+          "self-play: blue did not move")
+    check(any(not torch.equal(a, b) for a, b in zip(before[n_blue:], after[n_blue:])),
+          "self-play: red did not move")
+    timed = rows[SELFPLAY_WARMUP:]
+    ms = sorted(r[0] + r[1] for r in timed)
+    steps = B * SELFPLAY_CFG.rollout_len
+    log(f"self-play on CTF_MAIN at B={B}, hidden {TRAIN_HIDDEN}, {SELFPLAY_CFG}: "
+        f"{SELFPLAY_TIMED} iterations after {SELFPLAY_WARMUP} untimed: env-steps/s "
+        f"{steps / (ms[len(ms) // 2] / 1e3)} (median), {steps / (ms[-1] / 1e3)} (slowest), "
+        f"{steps / (ms[0] / 1e3)} (fastest); rollout ms {[round(r[0], 3) for r in timed]}; "
+        f"update ms {[round(r[1], 3) for r in timed]}; blue_loss "
+        f"{[round(r[2]['blue_loss'], 5) for r in rows]}; after: {gpu_clocks()}")
+
+    league_env = make_ctf_selfplay_batch(CTF_MAIN, B)
+    l_init, l_step, snapshot_fn, _ = make_league_ppo(league_env, CTF_MAIN, SELFPLAY_CFG,
+                                                     pool_size=2, hidden=TRAIN_HIDDEN)
+    ls = l_init(0)
+    counts, (ls, metrics) = run_counted(lambda: l_step(ls, gen))
+    check_launches(counts, {}, "league iteration")
+    values = {k: float(v) for k, v in metrics.items()}
+    check(all(math.isfinite(v) for v in values.values()), f"league: {values}")
+    ls = snapshot_fn(ls)
+    check((ls.filled, ls.slot) == (2, 0), f"league ring after a snapshot: {ls.filled}, {ls.slot}")
+    log(f"league iteration (pool_size 2, league_fraction 0.5) at B={B}: opponent "
+        f"{values['league_opponent']}, blue reward self-play {values['blue_reward_selfplay']}, "
+        f"league {values['blue_reward_league']}; snapshot filled {ls.filled} slots")
+    return train_step, sp, gen
+
+
+def run_partial_obs_path():
+    """``make_ctf_batch(CTF_MAIN, 8192, partial_obs_view=7)``: reset(seed=0)
+    and PARTIAL_STEPS steps of random blue actions, counted: one
+    ``ctf_step`` a step and FOV obs of (B, 4, 7, 7, 3) uint8.  Returns the
+    launches."""
+    env = make_ctf_batch(CTF_MAIN, B, partial_obs_view=VIEW)
+    gen = torch.Generator(device=DEV).manual_seed(90)
+
+    def drive():
+        states, obs = env.reset(seed=0)
+        shapes = {(obs.dtype, tuple(obs.shape))}
+        for _ in range(PARTIAL_STEPS):
+            acts = torch.randint(0, 5, env.actions_shape, generator=gen, device=DEV,
+                                 dtype=torch.int32)
+            states, obs, *_ = env.step(states, acts)
+            shapes.add((obs.dtype, tuple(obs.shape)))
+        return states, shapes
+
+    counts, (states, shapes) = run_counted(drive)
+    check_launches(counts, {"ctf_step": PARTIAL_STEPS}, "CtF partial-obs")
+    check(shapes == {(torch.uint8, (B, CTF_MAIN.num_agents, VIEW, VIEW, 3))},
+          f"partial obs {shapes}")
+    acts = torch.zeros(env.actions_shape, dtype=torch.int32, device=DEV)
+    enc_ms, enc_all = time_ms(lambda: env.encode(env.cfg, states), 20)
+    step_ms, step_all = time_ms(lambda: env.step(states, acts), 20)
+    log(f"CtF partial-obs path: {PARTIAL_STEPS} steps at B={B}, obs {shapes}; partial encode "
+        f"{enc_ms * 1e3:.1f} us a call {us(enc_all)}; a step with it {step_ms * 1e3:.1f} us "
+        f"{us(step_all)}")
+    profile_call(lambda: env.encode(env.cfg, states), "one CtF partial encode (V = 7)", 1,
+                 "call")
+    return counts
 
 
 def profile_rollout(rollout, states, name, steps=50):
@@ -1145,6 +1439,9 @@ def main():
                     check_reset_kernel(MAIN, seed=21, n=RAGGED[0]),
                     check_reset_kernel(QUADRANTS15, seed=22, n=RAGGED[1]))
     check_any_agent_route(THREE, 60, seed=23)
+    check_partial_encodes(seed=24)
+    check_step_actions(CTF_MAIN, "CTF_MAIN", 60, seed=25)
+    check_step_actions(CTF_PATROL, "2v2 patrol, obstacle penalty", 60, seed=26)
 
     ctf_err = max(
         check_ctf_step_kernel(CTF_MAIN, "CTF_MAIN", 100, seed=30),
@@ -1473,6 +1770,11 @@ def main():
     tc_step, tc_carry, tc_gen, tc_launches = run_training(
         "collect", {"collect_step": per_iter, "collect_reset": per_iter})
     tf_step, tf_carry, tf_gen, tf_launches = run_training("ctf", {"ctf_step": per_iter})
+    # Evaluation (the family's step kernel once a step), self-play and the
+    # league (no kernel), and the partial-obs CtF path (ctf_step a step).
+    eval_launches, eval_collect_call = run_evaluations()
+    sp_step, sp_state, sp_gen = run_selfplay()
+    run_partial_obs_path()
     log("library_ms: null for every kernel (no single PyTorch call computes any)")
 
     # Phase 4: where each rollout's time goes.
@@ -1488,6 +1790,9 @@ def main():
                  per_iter, "rollout step")
     profile_call(lambda: tf_step(tf_carry, tf_gen), "one CtF training iteration",
                  per_iter, "rollout step")
+    profile_call(lambda: sp_step(sp_state, sp_gen), "one self-play iteration",
+                 SELFPLAY_CFG.rollout_len, "rollout step")
+    profile_call(eval_collect_call, "one Collect evaluation call", EVAL_STEPS, "step")
 
     record = {"kernels": [
         {"name": "collect_step", "route": "cuda",
@@ -1550,6 +1855,12 @@ def main():
          "ms": wms_ms, "plain_ms": wms_plain_ms, "bound_ms": wms_bound,
          "bound_by": wms_by, "library_ms": None},
     ]}
+    # Launches of one evaluation call: evaluate() of the Collect family
+    # batch, evaluate_ctf() of CTF_MAIN (self-play and the match evaluator
+    # launch none).
+    per_eval = dict(eval_launches["collect"], ctf_step=eval_launches["evaluate_ctf"]["ctf_step"])
+    for r in record["kernels"]:
+        r["launches_evaluation_call"] = per_eval[r["name"]]
     log(json.dumps(record))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

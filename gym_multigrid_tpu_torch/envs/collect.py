@@ -332,6 +332,32 @@ def encode(cfg: CollectConfig, state: CollectState) -> torch.Tensor:
     return torch.stack([obj, color, ch2], dim=-1).to(torch.uint8)
 
 
+def make_collect_partial_encode(
+    cfg: CollectConfig, view_size: int = 7, see_through_walls: bool = False
+):
+    """Each agent's field of view: ``fn(states) -> (B, A, V, V, 3)`` uint8
+    (JAX's ``make_collect_partial_encode``).  Walls are the only cells that
+    block sight, and the board's edge reads as wall; agents always face
+    dir 3."""
+    from gym_multigrid_tpu_torch.envs.partial_obs import make_partial_obs_fn
+
+    w, h = cfg.width, cfg.height
+    obs_fn = make_partial_obs_fn(
+        w, h, view_size, wall_encode=(WALL, WALL_COLOR, 0),
+        see_through_walls=see_through_walls,
+    )
+
+    def encode_partial(state: CollectState) -> torch.Tensor:
+        B = state.grid_obj.shape[0]
+        obj = state.grid_obj.reshape(B, h, w).transpose(1, 2)  # xy-indexed (W, H)
+        color = state.grid_color.reshape(B, h, w).transpose(1, 2)
+        ch2 = (obj == AGENT).to(obj.dtype) * AGENT_DIR
+        dirs = torch.full(state.agent_pos.shape[:2], AGENT_DIR, device=obj.device)
+        return obs_fn(torch.stack([obj, color, ch2], dim=1), obj == WALL, state.agent_pos, dirs)
+
+    return encode_partial
+
+
 def _row(state: CollectState, i: int = 0) -> CollectState:
     return CollectState(**{f.name: getattr(state, f.name)[i] for f in fields(state)})
 

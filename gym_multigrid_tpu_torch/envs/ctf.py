@@ -312,6 +312,55 @@ def encode(cfg: CtfConfig, state: CtfState):
     raise ValueError(f"Invalid observation_option: {cfg.observation_option}")
 
 
+def make_ctf_partial_encode(
+    cfg: CtfConfig, view_size: int = 7, see_through_walls: bool = False
+):
+    """Each agent's field of view: ``fn(states) -> (B, A, V, V, 3)`` uint8
+    (JAX's ``make_ctf_partial_encode``): light blue and light red
+    territory, grey obstacles, the flags, and agents typed blue or red
+    whose colour greys once defeated, with their directions.  The board's
+    edge reads as a grey obstacle and blocks sight; nothing on the board
+    does."""
+    from gym_multigrid_tpu_torch.envs.partial_obs import (
+        device_tables, draw_cells, make_partial_obs_fn)
+
+    t = build_tables(cfg)
+    W, H = t.fm.shape
+    CI = CtfWorld.COLOR_TO_IDX
+    nb = cfg.num_blue_agents
+    typ = np.zeros((W, H), np.int32)
+    col = np.zeros((W, H), np.int32)
+    for (i, j) in t.blue_territory:
+        typ[i, j], col[i, j] = BLUE_TERRITORY, CI["light_blue"]
+    for (i, j) in t.red_territory:
+        typ[i, j], col[i, j] = RED_TERRITORY, CI["light_red"]
+    for (i, j) in t.obstacle.reshape(-1, 2):
+        typ[i, j], col[i, j] = OBSTACLE, CI["grey"]
+    typ[tuple(t.blue_flag)], col[tuple(t.blue_flag)] = BLUE_FLAG, CI["blue"]
+    typ[tuple(t.red_flag)], col[tuple(t.red_flag)] = RED_FLAG, CI["red"]
+    base = device_tables(planes=torch.from_numpy(np.stack([typ, col, np.zeros_like(typ)])))
+    obs_fn = make_partial_obs_fn(
+        W, H, view_size, wall_encode=(OBSTACLE, CI["grey"], 0),
+        see_through_walls=see_through_walls,
+    )
+
+    def encode_partial(state: CtfState) -> torch.Tensor:
+        B, dev = state.pos.shape[0], state.pos.device
+        planes = base(dev)["planes"].repeat(B, 1, 1, 1)
+        rows = torch.arange(B, device=dev)
+        for a in range(cfg.num_agents):
+            blue = a < nb
+            color = torch.where(state.terminated[:, a], CI["blue_grey" if blue else "red_grey"],
+                                CI["blue" if blue else "red"]).to(planes.dtype)
+            kind = torch.full_like(color, BLUE_AGENT if blue else RED_AGENT)
+            draw_cells(planes, rows, state.pos[:, a], (kind, color, state.dir[:, a]))
+        # Obstacles can be seen through: no cell on the board is opaque.
+        opaque = torch.zeros((B, W, H), dtype=torch.bool, device=dev)
+        return obs_fn(planes, opaque, state.pos, state.dir)
+
+    return encode_partial
+
+
 def info(cfg: CtfConfig, state: CtfState) -> dict[str, torch.Tensor]:
     """The 11 distance features, (B,) float32 each.
 

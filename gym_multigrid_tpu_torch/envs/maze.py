@@ -144,6 +144,45 @@ def encode(cfg: MazeConfig, state: MazeState):
     return m
 
 
+def make_maze_partial_encode(
+    cfg: MazeConfig, view_size: int = 7, see_through_walls: bool = True
+):
+    """The agent's field of view: ``fn(states) -> (B, 1, V, V, 3)`` uint8
+    (JAX's ``make_maze_partial_encode``): white background, grey obstacles,
+    red flags and the blue agent with its direction; the board's edge reads
+    as a grey obstacle, and nothing on the board blocks sight."""
+    from gym_multigrid_tpu_torch.envs.partial_obs import (
+        device_tables, draw_cells, make_partial_obs_fn)
+
+    fm = cfg.field_map
+    W, H = fm.shape
+    CI = MazeWorld.COLOR_TO_IDX
+    typ = np.zeros((W, H), np.int32)
+    col = np.zeros((W, H), np.int32)
+    col[fm == BACKGROUND] = CI["white"]
+    typ[fm == M_OBSTACLE] = M_OBSTACLE
+    col[fm == M_OBSTACLE] = CI["grey"]
+    typ[fm == FLAG] = FLAG
+    col[fm == FLAG] = CI["red"]
+    base = device_tables(planes=torch.from_numpy(np.stack([typ, col, np.zeros_like(typ)])))
+    obs_fn = make_partial_obs_fn(
+        W, H, view_size, wall_encode=(M_OBSTACLE, CI["grey"], 0),
+        see_through_walls=see_through_walls,
+    )
+
+    def encode_partial(state: MazeState) -> torch.Tensor:
+        B, dev = state.pos.shape[0], state.pos.device
+        planes = base(dev)["planes"].repeat(B, 1, 1, 1)
+        agent = torch.full((B,), M_AGENT, device=dev)
+        draw_cells(planes, torch.arange(B, device=dev), state.pos,
+              (agent, torch.full_like(agent, CI["blue"]), state.dir))
+        # Obstacles can be seen through: no cell on the board is opaque.
+        opaque = torch.zeros((B, W, H), dtype=torch.bool, device=dev)
+        return obs_fn(planes, opaque, state.pos[:, None], state.dir[:, None])
+
+    return encode_partial
+
+
 def info(cfg: MazeConfig, state: MazeState) -> dict[str, torch.Tensor]:
     """``d_a_f`` and ``d_a_ob``: the agent's Euclidean distance to the
     closest flag and obstacle cell, (B,) float32, inf when the map has no

@@ -183,10 +183,9 @@ def wildfire_state_from_numpy(arrays, device) -> WildfireState:
     })
 
 
-def encode(cfg: WildfireConfig, state: WildfireState) -> torch.Tensor:
-    """(B, W, H, 3) uint8 (type, color, state), transposed like the other
-    families: cells coloured by type, then each agent written over its cell
-    in agent order, channel 2 = 3 on agents."""
+def _typ_color(cfg: WildfireConfig, state: WildfireState):
+    """(type, color) planes, (B, H, W) y-major: cells coloured by type,
+    then each agent written over its cell in agent order."""
     cells = state.cells
     B, dev = cells.shape[0], cells.device
     color = torch.zeros_like(cells)
@@ -199,6 +198,35 @@ def encode(cfg: WildfireConfig, state: WildfireState) -> torch.Tensor:
         x, y = state.agent_pos[:, i, 0].long(), state.agent_pos[:, i, 1].long()
         typ[rows, y, x] = W_AGENT
         color[rows, y, x] = agent_color
+    return typ, color
+
+
+def make_wildfire_partial_encode(cfg: WildfireConfig, view_size: int = 7):
+    """Each agent's field of view: ``fn(states) -> (B, A, V, V, 3)`` uint8
+    (JAX's ``make_wildfire_partial_encode``): agents face dir 3, nothing
+    blocks sight, and the cells beyond the board's edge read as empty."""
+    from gym_multigrid_tpu_torch.envs.partial_obs import make_partial_obs_fn
+
+    obs_fn = make_partial_obs_fn(
+        cfg.width, cfg.height, view_size, wall_encode=(EMPTY, 0, 0), see_through_walls=True
+    )
+
+    def encode_partial(state: WildfireState) -> torch.Tensor:
+        typ, color = _typ_color(cfg, state)
+        ch2 = torch.where(typ == W_AGENT, 3, 0).to(typ.dtype)
+        planes = torch.stack([typ, color, ch2], dim=1).transpose(2, 3)  # xy-indexed
+        opaque = torch.zeros_like(planes[:, 0], dtype=torch.bool)
+        dirs = torch.full(state.agent_pos.shape[:2], 3, device=typ.device)
+        return obs_fn(planes, opaque, state.agent_pos, dirs)
+
+    return encode_partial
+
+
+def encode(cfg: WildfireConfig, state: WildfireState) -> torch.Tensor:
+    """(B, W, H, 3) uint8 (type, color, state), transposed like the other
+    families: cells coloured by type, then each agent written over its cell
+    in agent order, channel 2 = 3 on agents."""
+    typ, color = _typ_color(cfg, state)
     ch2 = torch.where(typ == W_AGENT, 3, 0)
     return torch.stack([typ.transpose(1, 2), color.transpose(1, 2), ch2.transpose(1, 2)],
                        dim=-1).to(torch.uint8)

@@ -22,6 +22,12 @@ Counterpart of ``gym_multigrid_tpu/ops/pallas_ctf.py``: its Pallas kernel
   state, termination, truncation, obs and info.  Their uniforms come from
   a ``torch.Generator``, or from an ``rnd`` tensor used as is (which is
   how the tests hold them to JAX bit for bit).
+* :func:`step_spec` is the scripted reds' actions and the move order
+  drawn from its uniforms, then :func:`step_actions_spec`, the transition
+  with every agent's action given (JAX's ``_transition`` under
+  ``step_actions_fn``).  :func:`step_actions_batch` is its batch glue for
+  self-play and the match evaluator; no kernel computes it, in either
+  package, so it runs as PyTorch ops on the batch's device.
 * :func:`ms_spec` is ``_ctf_ms_math``: K steps with the per-env auto-reset
   and the return accounting.  :func:`ctf_ms_slab` runs it, or for CUDA
   tensors the kernel entry ``ctf_steps`` of ``csrc/ctf_step.cu``, which
@@ -196,46 +202,32 @@ def _optimal_action(cr, cc, tr, tc):
     ).to(torch.int32)
 
 
-def step_spec(t: CtfKTables, pos, dirs, term, coll, blue_actions, rnd, cells, border, pool):
-    """One CtF transition (both variants) for a batch, in plain PyTorch.
+@functools.cache
+def _table(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A constant table on ``device``, copied there once (a copy to the card
+    made every step would wait for it).  Read only."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
-    pos:   (B, 2A) int32 [a0 row, a0 col, a1 row, ...], blue agents first
-    dirs, term, coll: (B, A) int32 (term and coll 0/1 flags)
-    blue_actions: (B, n_blue) int32; ids outside 0..4 are clamped
-    rnd:   (B, rnd_width(t)) float32 uniforms
-    cells: (4, N) int32; border (2, nb), pool (2, np) int32
 
-    Returns (pos, dirs, term, coll, reward (B, 1) float32, episode_term
-    (B, 1), red flag captured (B, 1), blue flag captured (B, 1), blue
-    battle lost (B, n_blue), red battle lost (B, n_red)), all int32 but
-    the reward.
-    """
-    B = pos.shape[0]
-    nb, A = t.n_blue, t.n_blue + t.n_red
-    dev = pos.device
+def _f32(v: float, device) -> torch.Tensor:
+    """A double rounded to float32 once, as a 0-d tensor on ``device``."""
+    return _table(v, torch.float32, torch.device(device))
 
-    def f32(v):  # a double rounded to float32 once
-        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+def _red_actions(t: CtfKTables, px, py, rnd, cells, border, pool):
+    """(B, n_red) int32: each scripted red policy's action from the
+    pre-move positions, with its three uniforms of ``rnd``."""
+    B, nb, dev = px.shape[0], t.n_blue, px.device
 
     def col(x, i):
         return x[:, i : i + 1]
-
-    def flag(row, cx, cy):  # static cell flag at the clipped position
-        q = cx.clamp(0, t.s0 - 1) * t.s1 + cy.clamp(0, t.s1 - 1)
-        return cells[row][q.long()] > 0
 
     def sq(a, b):  # float32 squared distance of integer points, exact
         dx, dy = (a[0] - b[0]).to(torch.float32), (a[1] - b[1]).to(torch.float32)
         return dx * dx + dy * dy
 
-    px, py = pos[:, 0::2].clone(), pos[:, 1::2].clone()
-    tm, cl, dr_ = term.clone(), coll.clone(), dirs.clone()
-    agent = torch.arange(A, dtype=torch.int32, device=dev)[None, :]
-    CAN_ENTER, BLUE_MASK, RED_MASK, OBSTACLE_MASK = range(4)
-
-    # ---- scripted red actions from the pre-move state ----
     perm_draws = n_perm_draws(t)
-    acts = [blue_actions.clamp(0, NUM_ACTIONS - 1)]
+    acts = []
     for r, (kind, p_opt) in enumerate(t.policies):
         base = perm_draws + 3 * r
         u_t, u_g, u_a = col(rnd, base), col(rnd, base + 1), col(rnd, base + 2)
@@ -270,40 +262,108 @@ def step_spec(t: CtfKTables, pos, dirs, term, coll, blue_actions, rnd, cells, bo
                 trow, tcol = patrol_row, patrol_col
             else:
                 # chase once any blue stands in red territory (flag included)
-                opp_in = flag(RED_MASK, px[:, :nb], py[:, :nb]).any(dim=1, keepdim=True)
+                q = px[:, :nb].clamp(0, t.s0 - 1) * t.s1 + py[:, :nb].clamp(0, t.s1 - 1)
+                opp_in = (cells[2][q.long()] > 0).any(dim=1, keepdim=True)
                 trow = torch.where(opp_in, trow, patrol_row)
                 tcol = torch.where(opp_in, tcol, patrol_col)
         optimal = _optimal_action(cr, cc, trow, tcol)
-        acts.append(torch.where(u_g < f32(p_opt), optimal, rand_act))
-    acts = torch.cat(acts, dim=1)
+        acts.append(torch.where(u_g < _f32(p_opt, dev), optimal, rand_act))
+    return torch.cat(acts, dim=1)
 
-    # ---- sequential moves: MvN shuffles the order, 1v1 is blue then red ----
+
+def _move_order(t: CtfKTables, rnd):
+    """(B, A) int32, the agent that moves in each slot: MvN shuffles with
+    the first ``n_perm_draws(t)`` uniforms of ``rnd`` (an index into the A!
+    permutations up to 4 agents, Fisher-Yates beyond), 1v1 is blue then
+    red."""
+    B, A, dev = rnd.shape[0], t.n_blue + t.n_red, rnd.device
+    agent = torch.arange(A, dtype=torch.int32, device=dev)[None, :]
     if t.mvn and A <= 4:
-        perms = torch.tensor(list(itertools.permutations(range(A))), dtype=torch.int32, device=dev)
-        j = ((col(rnd, 0) * len(perms)).to(torch.int32)).clamp(max=len(perms) - 1)
-        order = perms[j[:, 0].long()]  # (B, A): the mover of each slot
-    elif t.mvn:
-        # Fisher-Yates: slot s moves the floor(u_s * (A - s))-th agent not
-        # yet moved.
-        taken = torch.zeros((B, A), dtype=torch.bool, device=dev)
-        movers = []
-        for slot in range(A):
-            remaining = A - slot
-            if slot < A - 1:
-                r_pick = ((col(rnd, slot) * remaining).to(torch.int32)).clamp(max=remaining - 1)
-            else:
-                r_pick = torch.zeros((B, 1), dtype=torch.int32, device=dev)
-            rank = torch.cumsum(~taken, dim=1, dtype=torch.int32) - 1
-            hit = ~taken & (rank == r_pick)
-            i_vec = torch.where(hit, agent, 0).sum(dim=1, keepdim=True, dtype=torch.int32)
-            taken = taken | (agent == i_vec)
-            movers.append(i_vec)
-        order = torch.cat(movers, dim=1)
-    else:
-        order = agent.expand(B, A)
+        perms = _table(tuple(itertools.permutations(range(A))), torch.int32, dev)
+        j = ((rnd[:, :1] * len(perms)).to(torch.int32)).clamp(max=len(perms) - 1)
+        return perms[j[:, 0].long()]
+    if not t.mvn:
+        return agent.expand(B, A)
+    # Fisher-Yates: slot s moves the floor(u_s * (A - s))-th agent not yet
+    # moved.
+    taken = torch.zeros((B, A), dtype=torch.bool, device=dev)
+    movers = []
+    for slot in range(A):
+        remaining = A - slot
+        if slot < A - 1:
+            r_pick = ((rnd[:, slot : slot + 1] * remaining).to(torch.int32)).clamp(
+                max=remaining - 1)
+        else:
+            r_pick = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+        rank = torch.cumsum(~taken, dim=1, dtype=torch.int32) - 1
+        hit = ~taken & (rank == r_pick)
+        i_vec = torch.where(hit, agent, 0).sum(dim=1, keepdim=True, dtype=torch.int32)
+        taken = taken | (agent == i_vec)
+        movers.append(i_vec)
+    return torch.cat(movers, dim=1)
 
-    dx_of, dy_of = torch.as_tensor(CTF_ACTION_TO_VEC, device=dev).T
-    dir_of = torch.tensor(_A2DIR, dtype=torch.int32, device=dev)
+
+def step_spec(t: CtfKTables, pos, dirs, term, coll, blue_actions, rnd, cells, border, pool):
+    """One CtF transition (both variants) for a batch, in plain PyTorch.
+
+    pos:   (B, 2A) int32 [a0 row, a0 col, a1 row, ...], blue agents first
+    dirs, term, coll: (B, A) int32 (term and coll 0/1 flags)
+    blue_actions: (B, n_blue) int32; ids outside 0..4 are clamped
+    rnd:   (B, rnd_width(t)) float32 uniforms
+    cells: (4, N) int32; border (2, nb), pool (2, np) int32
+
+    The scripted red actions from the pre-move state, then
+    :func:`step_actions_spec` with the move order and the battle uniforms
+    taken from ``rnd``.  Returns (pos, dirs, term, coll, reward (B, 1)
+    float32, episode_term (B, 1), red flag captured (B, 1), blue flag
+    captured (B, 1), blue battle lost (B, n_blue), red battle lost (B,
+    n_red)), all int32 but the reward.
+    """
+    red = _red_actions(t, pos[:, 0::2], pos[:, 1::2], rnd, cells, border, pool)
+    ub_base = n_perm_draws(t) + 3 * t.n_red
+    return step_actions_spec(
+        t, pos, dirs, term, coll, torch.cat([blue_actions, red], dim=1), _move_order(t, rnd),
+        rnd[:, ub_base : ub_base + t.n_blue * t.n_red], cells,
+    )
+
+
+def step_actions_spec(t: CtfKTables, pos, dirs, term, coll, actions, order, battle_u, cells):
+    """One CtF transition with every agent's action given: JAX's
+    ``_transition`` (``step_actions_fn``), in plain PyTorch.
+
+    pos (B, 2A) int32, blue agents first; dirs, term, coll (B, A) int32;
+    actions (B, A) int32, blue first, every id clamped into 0..4; order
+    (B, A) the agent that moves in each slot; battle_u (B, n_blue * n_red)
+    float32, the uniform of each (blue, red) battle in row-major order (1v1:
+    one); cells (4, N) int32.  Returns what :func:`step_spec` returns.
+
+    A battle is won by blue when its uniform is below p_blue, JAX's
+    ``bernoulli``; the range test compares squared distances, exact for
+    board coordinates, and each reward term is added on its own."""
+    B = pos.shape[0]
+    nb, A = t.n_blue, t.n_blue + t.n_red
+    dev = pos.device
+
+    def col(x, i):
+        return x[:, i : i + 1]
+
+    def flag(row, cx, cy):  # static cell flag at the clipped position
+        q = cx.clamp(0, t.s0 - 1) * t.s1 + cy.clamp(0, t.s1 - 1)
+        return cells[row][q.long()] > 0
+
+    def sq(a, b):  # float32 squared distance of integer points, exact
+        dx, dy = (a[0] - b[0]).to(torch.float32), (a[1] - b[1]).to(torch.float32)
+        return dx * dx + dy * dy
+
+    px, py = pos[:, 0::2].clone(), pos[:, 1::2].clone()
+    tm, cl, dr_ = term.clone(), coll.clone(), dirs.clone()
+    agent = torch.arange(A, dtype=torch.int32, device=dev)[None, :]
+    CAN_ENTER, BLUE_MASK, RED_MASK, OBSTACLE_MASK = range(4)
+    acts = actions.clamp(0, NUM_ACTIONS - 1)
+
+    # ---- sequential moves in ``order``; later movers see earlier ones ----
+    dx_of, dy_of = _table(tuple(map(tuple, CTF_ACTION_TO_VEC.T.tolist())), torch.int32, dev)
+    dir_of = _table(_A2DIR, torch.int32, dev)
     for slot in range(A):
         i_vec = order[:, slot : slot + 1].long()
         mine = agent == i_vec
@@ -328,11 +388,11 @@ def step_spec(t: CtfKTables, pos, dirs, term, coll, blue_actions, rnd, cells, bo
     episode_term = torch.zeros((B, 1), dtype=torch.bool, device=dev)
     if t.mvn and t.obstacle_penalty != 0:
         for b in range(nb):
-            reward = reward - f32(t.obstacle_penalty) * col(cl, b).to(torch.float32)
+            reward = reward - _f32(t.obstacle_penalty, dev) * col(cl, b).to(torch.float32)
         tm = torch.maximum(tm, cl)
 
     # ---- flag captures, terminated agents included ----
-    flag_reward = f32(t.flag_reward)
+    flag_reward = _f32(t.flag_reward, dev)
     on_red = (px[:, :nb] == t.red_flag[0]) & (py[:, :nb] == t.red_flag[1])
     on_blue = (px[:, nb:] == t.blue_flag[0]) & (py[:, nb:] == t.blue_flag[1])
     for b in range(nb):
@@ -344,11 +404,12 @@ def step_spec(t: CtfKTables, pos, dirs, term, coll, blue_actions, rnd, cells, bo
     episode_term = episode_term | rfc | bfc
 
     # ---- battles, row-major and sequential ----
-    ub_base = perm_draws + 3 * t.n_red
     bin_own = flag(BLUE_MASK, px[:, :nb], py[:, :nb])
     rin_own = flag(RED_MASK, px[:, nb:], py[:, nb:])
-    battle_reward, range2 = f32(t.battle_reward), f32(t.battle_range * t.battle_range)
-    p_half, p_own, p_away = f32(0.5), f32(t.randomness), f32(1.0 - t.randomness)
+    battle_reward = _f32(t.battle_reward, dev)
+    range2 = _f32(t.battle_range * t.battle_range, dev)
+    p_half, p_own = _f32(0.5, dev), _f32(t.randomness, dev)
+    p_away = _f32(1.0 - t.randomness, dev)
     bbl = torch.zeros((B, nb), dtype=torch.bool, device=dev)
     brl = torch.zeros((B, t.n_red), dtype=torch.bool, device=dev)
     k = 0
@@ -361,7 +422,7 @@ def step_spec(t: CtfKTables, pos, dirs, term, coll, blue_actions, rnd, cells, bo
             eligible = (d2 <= range2) & (col(tm, b) == 0) & (col(tm, i) == 0)
             bo, ro = col(bin_own, b), col(rin_own, r)
             p_blue = torch.where(bo == ro, p_half, torch.where(bo, p_own, p_away))
-            blue_win = col(rnd, ub_base + k) < p_blue
+            blue_win = col(battle_u, k) < p_blue
             k += 1
             win, lose = eligible & blue_win, eligible & ~blue_win
             reward = reward + battle_reward * win.to(torch.float32)
@@ -377,14 +438,14 @@ def step_spec(t: CtfKTables, pos, dirs, term, coll, blue_actions, rnd, cells, bo
 
     if t.mvn:
         episode_term = episode_term | (tm[:, :nb] == 1).all(dim=1, keepdim=True)
-        reward = reward - f32(t.step_penalty * t.n_blue)
+        reward = reward - _f32(t.step_penalty * t.n_blue, dev)
     else:
         # 1v1: standing on an obstacle cell costs and ends the episode
         if t.obstacle_penalty != 0:
             on_obs = flag(OBSTACLE_MASK, col(px, 0), col(py, 0))
-            reward = reward - f32(t.obstacle_penalty) * on_obs.to(torch.float32)
+            reward = reward - _f32(t.obstacle_penalty, dev) * on_obs.to(torch.float32)
             episode_term = episode_term | on_obs
-        reward = reward - f32(t.step_penalty)
+        reward = reward - _f32(t.step_penalty, dev)
 
     def i32(x):
         return x.to(torch.int32)
@@ -702,10 +763,11 @@ class CtfSlab:
         return self.cfg.num_agents
 
 
-def make_ctf_slab(cfg: CtfConfig, device) -> CtfSlab:
+def make_ctf_slab(cfg: CtfConfig, device, kernel: bool = True) -> CtfSlab:
     """The slab of ``cfg`` on ``device``.  A CUDA slab must fit the step
-    kernel's envelope (:func:`check_envelope`); the plain version on the
-    CPU takes any config."""
+    kernel's envelope (:func:`check_envelope`) unless ``kernel`` is False,
+    for callers that step only through :func:`step_actions_batch`, which no
+    kernel computes; the plain version on the CPU takes any config."""
     device = torch.device(device)
     t = make_ctf_ktables(cfg)
     if any(k in ("patrol", "patrol_fight") for k, _ in t.policies) and not (
@@ -713,7 +775,7 @@ def make_ctf_slab(cfg: CtfConfig, device) -> CtfSlab:
     ):
         raise ValueError("a patrol policy needs a red border, and this map has none")
     cells, border, pool = ctf_static_inputs(cfg)
-    if device.type == "cuda":
+    if kernel and device.type == "cuda":
         check_envelope(t, border.shape[1], pool.shape[1])
     bterr, rterr = ctf_reset_inputs(cfg, device)
     cells = cells.to(device)
@@ -742,7 +804,7 @@ def step_batch(
     B, A = states.pos.shape[0], slab.cfg.num_agents
     if rnd is None:
         rnd = torch.rand((B, slab.step_draws), generator=generator, device=slab.device)
-    pos, dirs, term, coll, reward, ep_term, rfc, bfc, bbl, brl = ctf_step_slab(
+    out = ctf_step_slab(
         t,
         states.pos.reshape(B, 2 * A),
         states.dir,
@@ -754,6 +816,56 @@ def step_batch(
         slab.border,
         slab.pool,
     )
+    return _step_result(slab, states, *out, encode_obs, with_info)
+
+
+def step_actions_batch(
+    slab: CtfSlab,
+    states: CtfState,
+    actions: torch.Tensor,
+    *,
+    generator: torch.Generator | None = None,
+    order: torch.Tensor | None = None,
+    battle_u: torch.Tensor | None = None,
+    encode_obs: bool = True,
+    with_info: bool = True,
+):
+    """Batch-level CtF step with every agent's action given, blue first:
+    (B, n_blue + n_red) ids (JAX's ``step_actions_fn`` under ``vmap``).
+    No kernel computes it, in either package: it is :func:`step_actions_spec`
+    on the batch's device.
+
+    ``order`` (B, A), the agent that moves in each slot, and ``battle_u``
+    (B, n_blue * n_red) are used as given, else drawn from ``generator``:
+    MvN a uniform order (the argsort of uniform keys), 1v1 blue then red.
+    Returns what :func:`step_batch` returns."""
+    t = slab.t
+    B, A = states.pos.shape[0], slab.cfg.num_agents
+    dev = slab.device
+    if order is None:
+        if t.mvn:
+            keys = torch.rand((B, A), generator=generator, device=dev)
+            order = keys.argsort(dim=1).to(torch.int32)
+        else:
+            order = torch.arange(A, dtype=torch.int32, device=dev).expand(B, A)
+    if battle_u is None:
+        battle_u = torch.rand((B, t.n_blue * t.n_red), generator=generator, device=dev)
+    out = step_actions_spec(
+        t, states.pos.reshape(B, 2 * A), states.dir, states.terminated.to(torch.int32),
+        states.collided.to(torch.int32), actions.reshape(B, A).to(torch.int32), order,
+        battle_u, slab.cells,
+    )
+    pos, dirs, term, coll, reward, ep_term, rfc, bfc, bbl, brl = out
+    return _step_result(slab, states, pos, dirs, term.to(torch.bool), coll.to(torch.bool),
+                        reward, ep_term.to(torch.bool), rfc.to(torch.bool), bfc.to(torch.bool),
+                        bbl.to(torch.bool), brl.to(torch.bool), encode_obs, with_info)
+
+
+def _step_result(slab, states, pos, dirs, term, coll, reward, ep_term, rfc, bfc, bbl, brl,
+                 encode_obs, with_info):
+    """The batch step's (states', obs, reward, terminated, truncated,
+    info) from the transition's outputs, the flags bool."""
+    B, A = states.pos.shape[0], slab.cfg.num_agents
     step_count = states.step_count + 1
     new_states = CtfState(
         pos=pos.reshape(B, A, 2),
@@ -775,7 +887,7 @@ def step_batch(
         )
     return (
         new_states, obs, reward[:, 0], ep_term[:, 0],
-        step_count >= t.max_steps, step_info,
+        step_count >= slab.t.max_steps, step_info,
     )
 
 

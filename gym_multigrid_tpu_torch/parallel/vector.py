@@ -40,10 +40,13 @@ class BatchedEnv:
     step(states, actions) -> (states', obs, rewards, terminated, truncated)
 
     ``step`` applies the transition to every env, then resets the envs that
-    finished; the obs and rewards it returns are the *pre-reset* ones
-    (gymnasium's autoreset convention: the final step is visible, and the
-    next step starts from the reset state).  Rewards are (B, A) per agent
-    for Collect and Wildfire and (B,) per env for CtF and Maze.
+    finished (unless ``auto_reset`` is False); the obs and rewards it
+    returns are the *pre-reset* ones (gymnasium's autoreset convention: the
+    final step is visible, and the next step starts from the reset state).
+    Rewards are (B, A) per agent for Collect and Wildfire and (B,) per env
+    for CtF and Maze.  The obs is ``encode(cfg, states)`` of the post-step
+    states: the family's configured observation, or each agent's field of
+    view where the batch was built with ``partial_obs_view``.
     """
 
     slab: (collect_slab.CollectSlab | ctf_slab.CtfSlab | maze_slab.MazeSlab
@@ -60,6 +63,8 @@ class BatchedEnv:
     #: or one id with no action axis when action_cols is None (Maze).
     num_actions: int
     action_cols: int | None
+    #: False: ``step`` returns the post-step states without resetting any.
+    auto_reset: bool = True
 
     @property
     def actions_shape(self) -> tuple[int, ...]:
@@ -91,10 +96,14 @@ class BatchedEnv:
         return self._step(states, actions, encode_obs=True)
 
     def _step(self, states, actions, encode_obs):
-        new_states, obs, rewards, term, trunc, _ = self.step_batch(
-            self.slab, states, actions, generator=self.generator,
-            encode_obs=encode_obs,
+        # The obs is taken here, before the reset (Collect's resets the
+        # finished rows in place), and never computed by the step.
+        new_states, _, rewards, term, trunc, _ = self.step_batch(
+            self.slab, states, actions, generator=self.generator, encode_obs=False,
         )
+        obs = self.encode(self.cfg, new_states) if encode_obs else None
+        if not self.auto_reset:
+            return new_states, obs, rewards, term, trunc
         states = self.reset_batch(
             self.slab, self.num_envs, generator=self.generator,
             done=term | trunc, states=new_states,
@@ -105,9 +114,18 @@ class BatchedEnv:
         self,
         states,
         num_steps: int,
+        policy: Callable | None = None,
         run_return: torch.Tensor | None = None,
+        num_actions: int | None = None,
+        actions_shape: tuple[int, ...] | None = None,
     ):
-        """Run ``num_steps`` lockstep steps with uniform random actions.
+        """Run ``num_steps`` lockstep steps.
+
+        ``policy(generator, states) -> actions`` chooses each step's actions
+        (it is handed the env's generator); without one they are uniform
+        over ``num_actions`` ids (default the env's) in one env's
+        ``actions_shape`` (default ``actions_shape[1:]``), as JAX's rollout
+        draws them.
 
         Returns (final_states, metrics), with the per-episode accounting
         kept exact across the auto-reset:
@@ -123,6 +141,8 @@ class BatchedEnv:
         The obs of each step is not computed, since nothing reads it.
         """
         B, dev = self.num_envs, self.device
+        num_actions = self.num_actions if num_actions is None else num_actions
+        shape = self.actions_shape if actions_shape is None else (B, *actions_shape)
         if run_return is None:
             run_return = torch.zeros((B,), dtype=torch.float32, device=dev)
         ret_sum = torch.zeros((), dtype=torch.float32, device=dev)
@@ -130,10 +150,13 @@ class BatchedEnv:
         ep_ret_sum = torch.zeros((), dtype=torch.float32, device=dev)
         run_ret = run_return
         for _ in range(num_steps):
-            actions = torch.randint(
-                0, self.num_actions, self.actions_shape, generator=self.generator,
-                device=dev, dtype=torch.int32,
-            )
+            if policy is None:
+                actions = torch.randint(
+                    0, num_actions, shape, generator=self.generator, device=dev,
+                    dtype=torch.int32,
+                )
+            else:
+                actions = policy(self.generator, states)
             states, _, rewards, term, trunc = self._step(
                 states, actions, encode_obs=False
             )
@@ -154,10 +177,23 @@ class BatchedEnv:
         }
 
 
+def _encoder(encode, make_partial_encode, cfg, partial_obs_view):
+    """The batch's ``encode(cfg, states)``: the family's configured
+    observation, or with ``partial_obs_view=V`` each agent's field of view,
+    (B, agents, V, V, 3) uint8 (JAX's ``_swap_obs``: ``step`` returns it
+    for the post-step, pre-reset states)."""
+    if partial_obs_view is None:
+        return encode
+    encode_partial = make_partial_encode(cfg, partial_obs_view)
+    return lambda _cfg, states: encode_partial(states)
+
+
 def make_collect_batch(
     cfg: collect.CollectConfig,
     num_envs: int,
     device: str | torch.device | None = None,
+    auto_reset: bool = True,
+    partial_obs_view: int | None = None,
 ) -> BatchedEnv:
     """A batch of ``num_envs`` Collect envs on ``device``.
 
@@ -166,7 +202,12 @@ def make_collect_batch(
     PyTorch versions of the kernels.  Actions are (num_envs, num_agents)
     ids 0..3.  The kernels take one or two agents; more step and reset
     through the plain any-agent functions on ``device``, as JAX runs
-    ``vmap(step_one)`` there (``ops/collect_slab.py``)."""
+    ``vmap(step_one)`` there (``ops/collect_slab.py``).
+
+    ``auto_reset=False`` leaves finished envs as they are.
+    ``partial_obs_view=V`` swaps the full-grid encode for each agent's
+    field of view (``make_collect_partial_encode``): obs (num_envs, A, V,
+    V, 3) uint8; the other families' ``partial_obs_view`` is the same."""
     device = _build.default_device(device, "make_collect_batch")
     return BatchedEnv(
         slab=collect_slab.make_collect_slab(cfg, device),
@@ -174,9 +215,11 @@ def make_collect_batch(
         generator=torch.Generator(device=device),
         step_batch=collect_slab.step_batch,
         reset_batch=collect_slab.reset_batch,
-        encode=collect.encode,
+        encode=_encoder(collect.encode, collect.make_collect_partial_encode, cfg,
+                        partial_obs_view),
         num_actions=len(COLLECT_ACTION_TO_VEC),
         action_cols=cfg.num_agents,
+        auto_reset=auto_reset,
     )
 
 
@@ -184,6 +227,8 @@ def make_ctf_batch(
     cfg: ctf.CtfConfig,
     num_envs: int,
     device: str | torch.device | None = None,
+    auto_reset: bool = True,
+    partial_obs_view: int | None = None,
 ) -> BatchedEnv:
     """A batch of ``num_envs`` CtF envs with the scripted red policies in
     the step, on ``device`` (default and CPU as for
@@ -197,9 +242,10 @@ def make_ctf_batch(
         generator=torch.Generator(device=device),
         step_batch=functools.partial(ctf_slab.step_batch, with_info=False),
         reset_batch=ctf_slab.reset_batch,
-        encode=ctf.encode,
+        encode=_encoder(ctf.encode, ctf.make_ctf_partial_encode, cfg, partial_obs_view),
         num_actions=ctf.NUM_ACTIONS,
         action_cols=cfg.num_blue_agents,
+        auto_reset=auto_reset,
     )
 
 
@@ -207,6 +253,8 @@ def make_maze_batch(
     cfg: maze.MazeConfig,
     num_envs: int,
     device: str | torch.device | None = None,
+    auto_reset: bool = True,
+    partial_obs_view: int | None = None,
 ) -> BatchedEnv:
     """A batch of ``num_envs`` Maze envs on ``device`` (default and CPU as
     for :func:`make_collect_batch`).  Actions are (num_envs,) ids 0..4, one
@@ -218,9 +266,10 @@ def make_maze_batch(
         generator=torch.Generator(device=device),
         step_batch=functools.partial(maze_slab.step_batch, with_info=False),
         reset_batch=maze_slab.reset_batch,
-        encode=maze.encode,
+        encode=_encoder(maze.encode, maze.make_maze_partial_encode, cfg, partial_obs_view),
         num_actions=maze.NUM_ACTIONS,
         action_cols=None,
+        auto_reset=auto_reset,
     )
 
 
@@ -228,6 +277,8 @@ def make_wildfire_batch(
     cfg: wildfire.WildfireConfig,
     num_envs: int,
     device: str | torch.device | None = None,
+    auto_reset: bool = True,
+    partial_obs_view: int | None = None,
 ) -> BatchedEnv:
     """A batch of ``num_envs`` Wildfire envs on ``device`` (default and CPU
     as for :func:`make_collect_batch`).  Actions are (num_envs, num_agents)
@@ -240,7 +291,9 @@ def make_wildfire_batch(
         generator=torch.Generator(device=device),
         step_batch=functools.partial(wildfire_slab.step_batch, with_info=False),
         reset_batch=wildfire_slab.reset_batch,
-        encode=wildfire.encode,
+        encode=_encoder(wildfire.encode, wildfire.make_wildfire_partial_encode, cfg,
+                        partial_obs_view),
         num_actions=wildfire.NUM_ACTIONS,
         action_cols=cfg.num_agents,
+        auto_reset=auto_reset,
     )
