@@ -43,7 +43,20 @@ without them.  Phases, each of which fails the run on any fault:
    of its rows.  The CtF all-agent step (``step_actions_batch``, plain
    PyTorch) on the card, on CTF_MAIN and the 2v2 patrol config, bit-equal
    to the CPU over 60 chained steps with masked resets given the same
-   actions, move orders and battle uniforms, launching no kernel.
+   actions, move orders and battle uniforms, launching no kernel.  The
+   per-env functions (``make_ctf``, ``make_maze``, ``make_wildfire``: the
+   batch functions at B = 1, so one step-kernel launch a step on the card)
+   on the card against the plain versions on the CPU over 60 chained
+   steps of CTF_MAIN, MAZE_MAIN and WF_MAIN at a max_steps of 30, given the
+   same actions and explicit draws, exactly 60 launches of each step
+   kernel; the adapters' host-policy path (a subclass of each stock CtF
+   policy class acting on the host, then ``step_actions_fn``) on the card
+   against the CPU over 60 steps, launching no kernel.  ``next_step_autoreset`` (the gymnasium NEXT_STEP
+   step of the vector env) at B = 8192 on each family's main config at a
+   max_steps of 30, 200 steps: the rows not masked bit-equal to
+   ``BatchedEnv.step`` of a second env seeded alike on the same states,
+   the masked rows held with ``encode`` of their states, reward 0 and no
+   flag.
 3. Drive each path, with every launch count set to 0 just before it and
    read just after: Collect (``make_collect_batch`` of the
    respawn-clustered config at B = 8192, ``reset(seed=0)``, ``rollout`` of
@@ -85,14 +98,23 @@ without them.  Phases, each of which fails the run on any fault:
    partial-obs CtF path (``make_ctf_batch(CTF_MAIN, 8192,
    partial_obs_view=7)``, ``reset(seed=0)``, 50 steps of random blue
    actions): 50 ``ctf_step``, obs (8192, 4, 7, 7, 3) uint8, the encode's
-   and the step's µs.
+   and the step's µs.  The vector envs: ``make_vector_env(family, 8192)``
+   drives ``NextStepEnv(make_vector_batch(family, 8192))`` (gymnasium is
+   not installed on the card's machine, so the gymnasium shell is left
+   out), ``reset(seed=0)`` and 200 steps of host numpy actions for each
+   family: one step-kernel launch a step (and one masked
+   ``collect_reset``), no other kernel; agent-steps/s of 50-step calls,
+   timed as the rollouts.  One env's steps/s through ``make_collect`` and
+   ``make_ctf`` on the card (what the single-env adapters step).
 4. Profile 50 steps of each ``BatchedEnv`` rollout, 100 of each episode
    path, one iteration of each training path, one self-play iteration and
-   one Collect evaluation call: device time by kernel and idle share.
+   one Collect evaluation call and one Collect vector-env step: device time
+   by kernel and idle share.
 
 Prints the timing lines, one JSON line of kernel records (with each
-kernel's launches in one evaluation call), the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.
+kernel's launches in one evaluation call and in the four 200-step vector
+env runs), the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -107,6 +129,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 
@@ -117,12 +140,15 @@ from gym_multigrid_tpu_torch.envs.collect import (  # noqa: E402
     AGENT,
     BALL,
     CollectConfig,
+    make_collect,
     make_collect_partial_encode,
 )
 from gym_multigrid_tpu_torch.envs.ctf import (  # noqa: E402
     CtfConfig,
     CtfState,
     PolicySpec,
+    host_red_actions,
+    make_ctf,
     make_ctf_partial_encode,
 )
 from gym_multigrid_tpu_torch.envs.maze import (  # noqa: E402
@@ -131,6 +157,7 @@ from gym_multigrid_tpu_torch.envs.maze import (  # noqa: E402
     M_OBSTACLE,
     MazeConfig,
     MazeState,
+    make_maze,
     make_maze_partial_encode,
 )
 from gym_multigrid_tpu_torch.envs.wildfire import (  # noqa: E402
@@ -138,6 +165,7 @@ from gym_multigrid_tpu_torch.envs.wildfire import (  # noqa: E402
     TREE,
     WildfireConfig,
     WildfireState,
+    make_wildfire,
     make_wildfire_partial_encode,
 )
 from gym_multigrid_tpu_torch.ops import _build, ctf_slab, maze_slab, wildfire_slab  # noqa: E402
@@ -168,10 +196,20 @@ from gym_multigrid_tpu_torch.ops.wildfire_slab import (  # noqa: E402
     wildfire_step_slab,
 )
 from gym_multigrid_tpu_torch.parallel.vector import (  # noqa: E402
+    NextStepEnv,
     make_collect_batch,
     make_ctf_batch,
     make_maze_batch,
+    make_vector_batch,
     make_wildfire_batch,
+    next_step_autoreset,
+)
+from gym_multigrid_tpu_torch.policy.ctf.heuristic import (  # noqa: E402
+    CapturePolicy,
+    FightPolicy,
+    PatrolFightPolicy,
+    PatrolPolicy,
+    RwPolicy,
 )
 from gym_multigrid_tpu_torch.rl.evaluate import evaluate, evaluate_ctf  # noqa: E402
 from gym_multigrid_tpu_torch.rl.families import make_family_batch  # noqa: E402
@@ -325,6 +363,22 @@ SELFPLAY_WARMUP, SELFPLAY_TIMED = 2, 5
 VIEW = 7
 PARTIAL_ROWS = 512
 PARTIAL_STEPS = 50
+# The gymnasium-facing layer: the per-env functions and the host-policy
+# path, PER_ENV_STEPS chained steps card against CPU; the NEXT_STEP vector
+# step, VEC_STEPS steps a family, at a max_steps of VEC_MAX_STEPS in phase 2
+# (every row resets several times) and with make_vector_env's configs in
+# phase 3, timed as calls of VEC_STEPS_PER_CALL steps.
+PER_ENV_STEPS = 60
+VEC_STEPS = 200
+VEC_MAX_STEPS = 30
+VEC_STEPS_PER_CALL = 50
+VEC_WARMUP_MAX = 10
+# Five reds, each a subclass of one stock policy class: the adapters act
+# them on the host and step with every action given.
+HOST_POLICY_CFG = CtfConfig.from_map_path(
+    MAP, num_blue_agents=2, num_red_agents=5, enemy_policies=(PolicySpec("rw"),) * 5,
+    observation_option="flattened", max_steps=VEC_MAX_STEPS,
+)
 DEV = torch.device("cuda", 0)
 
 
@@ -539,6 +593,207 @@ def ctf_step_args(slab, states, blue_actions, rnd):
     B = states.pos.shape[0]
     return (slab.t, states.pos.reshape(B, -1), states.dir, states.terminated,
             states.collided, blue_actions, rnd, slab.flags, slab.border, slab.pool)
+
+
+def flat_step(out):
+    """A per-env step's (state, obs, reward, terminated, truncated, info)
+    as a list of tensors: the state's fields, the obs (a dict by key), the
+    scalars, the info by key."""
+    state, obs, *scalars, info = out
+    obs = [obs[k] for k in sorted(obs)] if isinstance(obs, dict) else [obs]
+    return state_fields(state) + obs + scalars + [info[k] for k in sorted(info)]
+
+
+def per_env_draws(name, cfg, gen):
+    """(reset_kwargs(), step_args()) of a family's per-env functions: each
+    draws its actions and uniforms on the CPU from ``gen``."""
+    if name == "CtF":
+        nb, width = cfg.num_blue_agents, ctf_slab.rnd_width(ctf_slab.make_ctf_ktables(cfg))
+        return (lambda: {"rnd": torch.rand(cfg.num_agents, generator=gen)},
+                lambda: ((torch.randint(-1, 7, (nb,), generator=gen, dtype=torch.int32),),
+                         {"rnd": torch.rand(width, generator=gen)}))
+    if name == "Maze":
+        return (lambda: {"rnd": torch.rand(1, generator=gen)},
+                lambda: ((torch.randint(-1, 8, (), generator=gen, dtype=torch.int32),), {}))
+    t = wildfire_slab.wf_tables(cfg)
+    return (lambda: {"rnd": torch.rand(t.n_cells + t.n_fires + t.n_agents, generator=gen)},
+            lambda: ((torch.randint(-1, 7, (t.n_agents,), generator=gen, dtype=torch.int32),),
+                     {"rnd": torch.rand(1 + t.n_cells, generator=gen)}))
+
+
+def on_card(args, kwargs):
+    return (tuple(a.to(DEV) for a in args), {k: v.to(DEV) for k, v in kwargs.items()})
+
+
+def check_per_env_functions(seed):
+    """``make_ctf``, ``make_maze`` and ``make_wildfire`` on the card against
+    the same functions on the CPU: PER_ENV_STEPS chained steps each on
+    CTF_MAIN, MAZE_MAIN and WF_MAIN at a max_steps of VEC_MAX_STEPS from
+    one spawn, with the same actions
+    and explicit draws (made on the CPU, copied to the card), a finished
+    episode restarting both from the same spawn draws: states, obs,
+    rewards, flags and infos bit for bit.  The per-env functions take the
+    batch functions' route at B = 1: on the card each step launches the
+    family's step kernel once (``ctf_step``, ``maze_step``,
+    ``wildfire_step``), on the CPU the plain version runs."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def run():
+        err, episodes = 0.0, {}
+        for name, make, cfg in (("CtF", make_ctf, CTF_MAIN), ("Maze", make_maze, MAZE_MAIN),
+                                ("Wildfire", make_wildfire, WF_MAIN)):
+            cfg = dataclasses.replace(cfg, max_steps=VEC_MAX_STEPS)
+            card, cpu = make(cfg, DEV), make(cfg, "cpu")
+            reset_kw, step_args = per_env_draws(name, cfg, gen)
+            episodes[name] = 0
+            for step in range(PER_ENV_STEPS + 1):
+                if step == 0 or bool(want[3] | want[4]):
+                    kw = reset_kw()
+                    s_cpu, s_card = cpu.reset_fn(**kw), card.reset_fn(**on_card((), kw)[1])
+                    err = max(err, card_equals_cpu(state_fields(s_card), state_fields(s_cpu)))
+                    episodes[name] += step > 0
+                if step == PER_ENV_STEPS:
+                    break
+                args, kw = step_args()
+                want = cpu.step_fn(s_cpu, *args, **kw)
+                got = card.step_fn(s_card, *on_card(args, kw)[0], **on_card(args, kw)[1])
+                err = max(err, card_equals_cpu(flat_step(got), flat_step(want)))
+                s_cpu, s_card = want[0], got[0]
+        return err, episodes
+
+    counts, (err, episodes) = run_counted(run)
+    check_launches(counts, {k: PER_ENV_STEPS for k in ("ctf_step", "maze_step", "wildfire_step")},
+                   "per-env functions")
+    check(all(n > 0 for n in episodes.values()), f"episodes ended: {episodes}")
+    log(f"per-env functions on the card == the CPU: {PER_ENV_STEPS} steps each of CTF_MAIN, "
+        f"MAZE_MAIN and WF_MAIN, episodes ended {episodes}, max_abs_err {err}")
+    return err
+
+
+def custom_policies(seed):
+    """A subclass of each stock policy class, on the board's map, drawing
+    from one numpy generator seeded ``seed``."""
+    from gym_multigrid_tpu_torch.utils.map import load_text_map
+
+    rng, fm = np.random.default_rng(seed), load_text_map(MAP)
+    out = []
+    for cls in (RwPolicy, FightPolicy, CapturePolicy, PatrolPolicy, PatrolFightPolicy):
+        sub = type(f"Custom{cls.__name__}", (cls,), {})
+        out.append(sub(random_generator=rng) if cls is RwPolicy
+                   else sub(field_map=fm, random_generator=rng))
+    return out
+
+
+def check_host_policy_path(seed):
+    """The adapters' host-policy path on HOST_POLICY_CFG, the card against
+    the CPU: each side's five custom policies (equal-seeded generators)
+    act on ``host_observation`` of its own state, and ``make_ctf``'s
+    ``step_actions_fn`` takes the blue actions and theirs, with the same
+    move order and battle uniforms; PER_ENV_STEPS chained steps, the
+    reds' actions, states, obs, rewards, flags and infos bit for bit; no
+    kernel launches."""
+    cfg = HOST_POLICY_CFG
+    gen = torch.Generator().manual_seed(seed)
+    card, cpu = make_ctf(cfg, DEV), make_ctf(cfg, "cpu")
+    pol_card, pol_cpu = custom_policies(seed), custom_policies(seed)
+    A, nb, nr = cfg.num_agents, cfg.num_blue_agents, cfg.num_red_agents
+
+    def run():
+        err, episodes, moves = 0.0, 0, 0
+        for step in range(PER_ENV_STEPS + 1):
+            if step == 0 or bool(want[3] | want[4]):
+                rnd = torch.rand(A, generator=gen)
+                s_cpu, s_card = cpu.reset_fn(rnd=rnd), card.reset_fn(rnd=rnd.to(DEV))
+                episodes += step > 0
+            if step == PER_ENV_STEPS:
+                break
+            red_cpu = host_red_actions(cfg, pol_cpu, s_cpu)
+            red_card = host_red_actions(cfg, pol_card, s_card)
+            check(np.array_equal(red_card, red_cpu), f"host reds {red_card} vs {red_cpu}")
+            moves += int((red_cpu != 0).sum())
+            acts = torch.cat([torch.randint(0, 5, (nb,), generator=gen, dtype=torch.int32),
+                              torch.from_numpy(red_cpu)])
+            order = torch.rand(A, generator=gen).argsort().to(torch.int32)
+            bu = torch.rand(nb * nr, generator=gen)
+            want = cpu.step_actions_fn(s_cpu, acts, order=order, battle_u=bu)
+            got = card.step_actions_fn(s_card, acts.to(DEV), order=order.to(DEV),
+                                       battle_u=bu.to(DEV))
+            err = max(err, card_equals_cpu(flat_step(got), flat_step(want)))
+            s_cpu, s_card = want[0], got[0]
+        return err, episodes, moves
+
+    counts, (err, episodes, moves) = run_counted(run)
+    check_launches(counts, {}, "host-policy path")
+    check(moves > 0, "the host reds never moved")
+    log(f"host-policy path on the card == the CPU: {PER_ENV_STEPS} steps of 2 blue against "
+        f"{[type(p).__name__ for p in pol_card]}, {episodes} episodes ended, {moves} red "
+        f"moves, max_abs_err {err}")
+    return err
+
+
+def clone_state(states):
+    return type(states)(*(x.clone() for x in state_fields(states)))
+
+
+def flat_obs(obs):
+    return [obs[k] for k in sorted(obs)] if isinstance(obs, dict) else [obs]
+
+
+def check_next_step(name, make, cfg, seed):
+    """``next_step_autoreset`` at B = 8192 on a family's main config at a
+    max_steps of VEC_MAX_STEPS, VEC_STEPS steps, against ``BatchedEnv.step``
+    of a second env seeded alike and handed the same states each step:
+    the rows not masked bit-equal (states, obs, rewards, flags); the
+    masked rows (finished on the step before) keep their states and report
+    ``encode`` of them with reward 0 and no flag; the input states never
+    written.  Launches: the step kernel twice a step (both envs), and
+    Collect's masked reset twice."""
+    cfg = dataclasses.replace(cfg, max_steps=VEC_MAX_STEPS)
+    env, ref = make(cfg, B), make(cfg, B)
+    states, _ = env.reset(seed=seed)
+    ref.reset(seed=seed)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    mask = torch.zeros((B,), dtype=torch.bool, device=DEV)
+
+    def rows(m, x):
+        return m.reshape(m.shape + (1,) * (x.ndim - 1))
+
+    def differ(got, want, m):
+        return torch.stack([((g != w) & rows(m, g)).any() for g, w in zip(got, want)]).any()
+
+    def run():
+        nonlocal states, mask
+        bad = torch.zeros((), dtype=torch.bool, device=DEV)
+        masked = torch.zeros((), dtype=torch.int64, device=DEV)
+        for _ in range(VEC_STEPS):
+            acts = torch.randint(-1, env.num_actions + 1, env.actions_shape, generator=gen,
+                                 device=DEV, dtype=torch.int32)
+            before = clone_state(states)
+            out, obs, rew, term, trunc = next_step_autoreset(env, states, acts, mask)
+            r_out, r_obs, r_rew, r_term, r_trunc = ref.step(clone_state(states), acts)
+            keep = ~mask
+            bad |= differ(state_fields(out) + flat_obs(obs) + [rew, term, trunc],
+                          state_fields(r_out) + flat_obs(r_obs) + [r_rew, r_term, r_trunc], keep)
+            bad |= differ(state_fields(states), state_fields(before), torch.ones_like(mask))
+            bad |= differ(state_fields(out) + flat_obs(obs),
+                          state_fields(states) + flat_obs(env.encode(env.cfg, states)), mask)
+            bad |= ((rew != 0) & rows(mask, rew)).any() | ((term | trunc) & mask).any()
+            masked += mask.sum()
+            states, mask = out, term | trunc
+        return bool(bad), int(masked)
+
+    counts, (bad, masked) = run_counted(run)
+    step_kernel = {"Collect": "collect_step", "CtF": "ctf_step", "Maze": "maze_step",
+                   "Wildfire": "wildfire_step"}[name]
+    want = {step_kernel: 2 * VEC_STEPS}
+    if name == "Collect":
+        want["collect_reset"] = 2 * VEC_STEPS
+    check_launches(counts, want, f"{name} NEXT_STEP")
+    check(not bad, f"{name}: next_step_autoreset differs from BatchedEnv.step or its contract")
+    check(masked >= 2 * B, f"{name}: only {masked} masked rows")
+    log(f"next_step_autoreset == BatchedEnv.step on the unmasked rows, {name}, {VEC_STEPS} "
+        f"steps at B={B}, max_steps {VEC_MAX_STEPS}: {masked} masked rows held with their "
+        f"encode, reward 0, no flag")
 
 
 def check_ctf_step_kernel(cfg, name, steps, seed, n=B, need_events=True):
@@ -1370,6 +1625,92 @@ def run_partial_obs_path():
     return counts
 
 
+#: Each family's step kernel, and the agents a vector-env step counts
+#: (make_vector_batch's configs; CtF counts both teams, as bench_all.py).
+VEC_FAMILIES = {"collect": ("collect_step", 2), "ctf": ("ctf_step", 4), "maze": ("maze_step", 1),
+                "wildfire": ("wildfire_step", 2)}
+
+
+def run_vector_envs():
+    """``make_vector_env(family, 8192)`` as its ``VectorEnv`` drives it:
+    gymnasium is not installed on the card's machine, so its core,
+    ``NextStepEnv(make_vector_batch(family, 8192))``, numpy actions in and
+    numpy results out.  ``reset(seed=0)`` and VEC_STEPS steps of uniform
+    random actions drawn on the host, counted: one step-kernel launch a
+    step, plus Collect's reset (one all-rows at the reset, one masked a
+    step), and no other kernel.  Then agent-steps/s of calls of
+    VEC_STEPS_PER_CALL steps (CUDA events around each call, warm-up and
+    11 timed calls as the rollouts).  Returns ({family: launches}, the
+    Collect env and an action batch, for the profile)."""
+    launches, collect = {}, None
+    for family, (kernel, agents) in VEC_FAMILIES.items():
+        vec = NextStepEnv(make_vector_batch(family, B))
+        env = vec.env
+        rng = np.random.default_rng(100)
+        actions = [rng.integers(0, env.num_actions, env.actions_shape) for _ in range(16)]
+
+        def drive():
+            obs = vec.reset(seed=0)
+            dones, rew_sum = 0, 0.0
+            for i in range(VEC_STEPS):
+                obs, rew, term, trunc = vec.step(actions[i % len(actions)])
+                dones += int((term | trunc).sum())
+                rew_sum += float(rew.sum())
+            return obs, rew, dones, rew_sum
+
+        counts, (obs, rew, dones, rew_sum) = run_counted(drive)
+        want = {kernel: VEC_STEPS}
+        if family == "collect":
+            want["collect_reset"] = VEC_STEPS + 1
+        check_launches(counts, want, f"{family} vector env")
+        launches[family] = counts
+        obs_shape = {"collect": (B, 10, 10, 3), "ctf": (B, 216), "maze": (B, 13, 13),
+                     "wildfire": (B, 16, 16, 3)}[family]
+        check(isinstance(obs, np.ndarray) and obs.shape == obs_shape, f"{family} obs {obs.shape}")
+        check(rew.dtype == np.float64 and np.isfinite(rew).all() and dones > 0,
+              f"{family}: rewards {rew.dtype}, {dones} done flags")
+        if family == "collect":  # truncation at 50, then a held step: 3 episodes in 200
+            check(dones == 3 * B, f"collect vector env: {dones} done flags")
+        log(f"{family} vector env: reset(seed=0) and {VEC_STEPS} steps at B={B}: obs "
+            f"{obs.dtype}{obs.shape}, {dones} done flags, reward sum {rew_sum}")
+
+        def call(_, steps):
+            for i in range(steps):
+                vec.step(actions[i % len(actions)])
+            return None, None
+
+        time_rollout(call, f"{family} vector env (NextStepEnv)", None, VEC_STEPS_PER_CALL,
+                     agents, VEC_WARMUP_MAX)
+        if family == "collect":
+            collect = (vec, actions[0])
+    return launches, collect
+
+
+def time_single_envs(steps=200):
+    """One env's steps/s on the card through the per-env functions the
+    single-env adapters step (``make_collect`` on MAIN, ``make_ctf`` on
+    CTF_MAIN): each step reads its done flags on the host, as an adapter
+    does, and a finished episode resets; host wall over ``steps`` steps,
+    after as many untimed."""
+    ctf_fns = make_ctf(CTF_MAIN, DEV)
+    for name, (reset_fn, step_fn), n_act in (
+            ("Collect", make_collect(MAIN, DEV)[:2], MAIN.num_agents),
+            ("CtF", (ctf_fns.reset_fn, ctf_fns.step_fn), CTF_MAIN.num_blue_agents)):
+        gen = torch.Generator(device=DEV).manual_seed(7)
+        rng = np.random.default_rng(0)
+        rates = []
+        for _ in range(2):
+            state = reset_fn(gen)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, _, _, term, trunc, _ = step_fn(state, rng.integers(0, 4, n_act), gen)
+                if bool(term | trunc):
+                    state = reset_fn(gen)
+            rates.append(steps / (time.perf_counter() - t0))
+        log(f"one {name} env through its per-env functions on the card: {rates[-1]} steps/s "
+            f"({steps} steps after {steps} untimed, each reading its done flags)")
+
+
 def profile_rollout(rollout, states, name, steps=50):
     """Device time by kernel and the idle share over ``steps`` steps of
     ``rollout(states, steps)`` under ``torch.profiler``."""
@@ -1442,6 +1783,12 @@ def main():
     check_partial_encodes(seed=24)
     check_step_actions(CTF_MAIN, "CTF_MAIN", 60, seed=25)
     check_step_actions(CTF_PATROL, "2v2 patrol, obstacle penalty", 60, seed=26)
+    per_env_err = check_per_env_functions(seed=27)
+    host_err = check_host_policy_path(seed=28)
+    for i, (name, make, cfg) in enumerate((
+            ("Collect", make_collect_batch, MAIN), ("CtF", make_ctf_batch, CTF_MAIN),
+            ("Maze", make_maze_batch, MAZE_MAIN), ("Wildfire", make_wildfire_batch, WF_MAIN))):
+        check_next_step(name, make, cfg, seed=90 + i)
 
     ctf_err = max(
         check_ctf_step_kernel(CTF_MAIN, "CTF_MAIN", 100, seed=30),
@@ -1775,6 +2122,9 @@ def main():
     eval_launches, eval_collect_call = run_evaluations()
     sp_step, sp_state, sp_gen = run_selfplay()
     run_partial_obs_path()
+    # The vector envs (one step-kernel launch a step, and Collect's reset).
+    vec_launches, (vec_collect, vec_actions) = run_vector_envs()
+    time_single_envs()
     log("library_ms: null for every kernel (no single PyTorch call computes any)")
 
     # Phase 4: where each rollout's time goes.
@@ -1793,6 +2143,7 @@ def main():
     profile_call(lambda: sp_step(sp_state, sp_gen), "one self-play iteration",
                  SELFPLAY_CFG.rollout_len, "rollout step")
     profile_call(eval_collect_call, "one Collect evaluation call", EVAL_STEPS, "step")
+    profile_call(lambda: vec_collect.step(vec_actions), "one Collect vector-env step", 1, "step")
 
     record = {"kernels": [
         {"name": "collect_step", "route": "cuda",
@@ -1859,8 +2210,12 @@ def main():
     # batch, evaluate_ctf() of CTF_MAIN (self-play and the match evaluator
     # launch none).
     per_eval = dict(eval_launches["collect"], ctf_step=eval_launches["evaluate_ctf"]["ctf_step"])
+    per_vec = {name: sum(c[name] for c in vec_launches.values()) for name in WRAPPERS}
     for r in record["kernels"]:
         r["launches_evaluation_call"] = per_eval[r["name"]]
+        r["launches_vector_env"] = per_vec[r["name"]]
+    log(f"per-env functions and host-policy path, card == CPU: max_abs_err {per_env_err}, "
+        f"{host_err}")
     log(json.dumps(record))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -28,6 +28,7 @@ import torch
 
 from gym_multigrid_tpu_torch.core.constants import COLOR_TO_IDX
 from gym_multigrid_tpu_torch.core.world import CollectWorld
+from gym_multigrid_tpu_torch.envs.single import batch, given, row, step_row
 
 EMPTY = CollectWorld.OBJECT_TO_IDX["empty"]
 WALL = CollectWorld.OBJECT_TO_IDX["wall"]
@@ -358,14 +359,6 @@ def make_collect_partial_encode(
     return encode_partial
 
 
-def _row(state: CollectState, i: int = 0) -> CollectState:
-    return CollectState(**{f.name: getattr(state, f.name)[i] for f in fields(state)})
-
-
-def _batch(state: CollectState) -> CollectState:
-    return CollectState(**{f.name: getattr(state, f.name)[None] for f in fields(state)})
-
-
 def make_collect(cfg: CollectConfig, device=None):
     """(reset_fn, step_fn, encode_fn) for one env on ``device``: the
     counterpart of JAX's ``make_collect``.  A state of one env is a
@@ -389,19 +382,16 @@ def make_collect(cfg: CollectConfig, device=None):
     slab = collect_slab.build_slab(cfg, device, kernel=False)
 
     def reset_fn(generator):
-        return _row(collect_slab.reset_batch(slab, 1, generator=generator))
+        return row(collect_slab.reset_batch(slab, 1, generator=generator))
 
     def step_fn(state, actions, generator=None, *, perm=None):
         actions = torch.as_tensor(actions, device=device).reshape(1, cfg.num_agents)
-        if perm is not None:
-            perm = torch.as_tensor(perm, device=device)[None]
-        new, obs, rew, term, trunc, info = collect_slab.step_batch(
-            slab, _batch(state), actions, generator=generator, perm=perm
-        )
-        return _row(new), obs[0], rew[0], term[0], trunc[0], info[0]
+        return step_row(collect_slab.step_batch(
+            slab, batch(state), actions, generator=generator, perm=given(perm, device)
+        ))
 
     def encode_fn(state):
-        return encode(cfg, _batch(state))[0]
+        return encode(cfg, batch(state))[0]
 
     return reset_fn, step_fn, encode_fn
 

@@ -20,12 +20,13 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, fields
-from typing import Literal
+from typing import Callable, Literal, TypeAlias, TypedDict
 
 import numpy as np
 import torch
 
 from gym_multigrid_tpu_torch.core.world import CtfWorld
+from gym_multigrid_tpu_torch.envs.single import batch, given, row, step_row
 from gym_multigrid_tpu_torch.utils.map import load_text_map
 
 _W = CtfWorld.OBJECT_TO_IDX
@@ -44,6 +45,51 @@ SPAWN_DIR = 3
 
 ObservationOption = Literal["positional", "map", "flattened"]
 POLICY_KINDS = ("rw", "fight", "capture", "patrol", "patrol_fight")
+
+
+# -- typing surface of the reference's env module --------------------------
+#
+# The adapters' positional obs and ``game_stats`` carry exactly these
+# keys, as int64 numpy arrays (``adapters/ctf_adapter.py``).
+
+
+class ObservationDict(TypedDict):
+    """1v1 positional observation (one red opponent)."""
+
+    blue_agent: np.ndarray
+    red_agent: np.ndarray
+    blue_flag: np.ndarray
+    red_flag: np.ndarray
+    blue_territory: np.ndarray
+    red_territory: np.ndarray
+    obstacle: np.ndarray
+    is_red_agent_defeated: int
+
+
+class MultiAgentObservationDict(TypedDict):
+    """MvN positional observation (flattened agent position lists)."""
+
+    blue_agent: np.ndarray
+    red_agent: np.ndarray
+    blue_flag: np.ndarray
+    red_flag: np.ndarray
+    blue_territory: np.ndarray
+    red_territory: np.ndarray
+    obstacle: np.ndarray
+    terminated_agents: np.ndarray
+
+
+#: Any CtF observation: positional dicts or the map/flattened arrays.
+Observation: TypeAlias = "ObservationDict | MultiAgentObservationDict | np.ndarray"
+
+
+class GameStats(TypedDict):
+    """Cumulative per-episode event flags (the adapters' ``game_stats``)."""
+
+    blue_agent_defeated: list[bool]
+    red_agent_defeated: list[bool]
+    blue_flag_captured: bool
+    red_flag_captured: bool
 
 
 @dataclass(frozen=True)
@@ -403,3 +449,131 @@ def info(cfg: CtfConfig, state: CtfState) -> dict[str, torch.Tensor]:
             else torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
         ),
     }
+
+
+# ---------------------------------------------------------------------------
+# One env: per-env functions and the host policies' observation
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class CtfFns:
+    """The functions of one CtF env (JAX's ``CtfFns``).  A state of one
+    env is a :class:`CtfState` whose fields have no batch axis."""
+
+    #: (generator, *, rnd=None) -> state
+    reset_fn: Callable
+    #: (state, blue_actions, generator=None, *, rnd=None)
+    #: -> (state', obs, reward, terminated, truncated, info)
+    step_fn: Callable
+    #: (state, actions, generator=None, *, order=None, battle_u=None)
+    #: -> the same; every agent's action given, blue first
+    step_actions_fn: Callable
+    #: (state, generator=None, *, rnd=None) -> (n_red,) int32
+    red_actions_fn: Callable
+    #: state -> obs (a dict of tensors for "positional")
+    obs_fn: Callable
+    #: state -> the 11 distances of :func:`info`, 0-d float32 tensors
+    info_fn: Callable
+
+
+def make_ctf(cfg: CtfConfig, device=None) -> CtfFns:
+    """The functions of one env of ``cfg`` on ``device`` (JAX's
+    ``make_ctf``): the batch functions of ``ops/ctf_slab.py`` at B = 1, so
+    ``step_fn`` takes the slab's route: the step kernel on a CUDA device
+    (the config must fit its envelope, as for ``make_ctf_batch``), the
+    plain version on the CPU.  ``step_actions_fn`` and ``red_actions_fn``
+    are plain PyTorch on either device (no kernel computes them).  The
+    device is the current CUDA device by default and ``device="cpu"`` the
+    CPU, as for ``make_ctf_batch``.
+
+    Randomness comes from the ``generator`` argument where JAX splits the
+    state's key; each function also takes its draws explicitly:
+    ``reset_fn``'s ``rnd`` (A,) spawn uniforms; ``step_fn``'s and
+    ``red_actions_fn``'s ``rnd`` (``ctf_slab.rnd_width``,) step uniforms
+    (move order, three a red policy, the battles), of which
+    ``red_actions_fn`` reads the reds'; ``step_actions_fn``'s ``order``
+    (A,), the agent that moves in each slot, and ``battle_u`` (n_blue *
+    n_red,).  The reward is a 0-d float32 tensor, the flags 0-d bool
+    tensors, and the info the 11 distances with the step's flags."""
+    from gym_multigrid_tpu_torch.ops import _build, ctf_slab
+
+    device = _build.default_device(device, "make_ctf")
+    slab = ctf_slab.make_ctf_slab(cfg, device)
+    A, nb = cfg.num_agents, cfg.num_blue_agents
+
+    def reset_fn(generator=None, *, rnd=None):
+        return row(ctf_slab.reset_batch(slab, 1, generator=generator, rnd=given(rnd, device)))
+
+    def step_fn(state, blue_actions, generator=None, *, rnd=None):
+        actions = torch.as_tensor(blue_actions, device=device).reshape(1, nb)
+        return step_row(ctf_slab.step_batch(
+            slab, batch(state), actions, generator=generator, rnd=given(rnd, device)))
+
+    def step_actions_fn(state, actions, generator=None, *, order=None, battle_u=None):
+        actions = torch.as_tensor(actions, device=device).reshape(1, A)
+        return step_row(ctf_slab.step_actions_batch(
+            slab, batch(state), actions, generator=generator, order=given(order, device),
+            battle_u=given(battle_u, device)))
+
+    def red_actions_fn(state, generator=None, *, rnd=None):
+        rnd = given(rnd, device)
+        if rnd is None:
+            rnd = torch.rand((1, slab.step_draws), generator=generator, device=device)
+        pos = state.pos.reshape(1, 2 * A)
+        return ctf_slab._red_actions(slab.t, pos[:, 0::2], pos[:, 1::2], rnd, slab.cells,
+                                     slab.border, slab.pool)[0]
+
+    def obs_fn(state):
+        return row(encode(cfg, batch(state)))
+
+    def info_fn(state):
+        return row(info(cfg, batch(state)))
+
+    return CtfFns(reset_fn, step_fn, step_actions_fn, red_actions_fn, obs_fn, info_fn)
+
+
+@functools.cache
+def _cached_ctf(cfg: CtfConfig, device: torch.device) -> CtfFns:
+    return make_ctf(cfg, device)
+
+
+def cached_ctf(cfg: CtfConfig, device=None) -> CtfFns:
+    """Memoised :func:`make_ctf`, one per (config, device)."""
+    from gym_multigrid_tpu_torch.ops import _build
+
+    return _cached_ctf(cfg, _build.default_device(device, "cached_ctf"))
+
+
+def host_observation(cfg: CtfConfig, state: CtfState) -> ObservationDict | MultiAgentObservationDict:
+    """The positional observation of one env as int64 numpy arrays on the
+    host: what a host policy's ``act`` reads, before the move (the JAX
+    adapter's ``_get_dict_obs``)."""
+    t = build_tables(cfg)
+    pos = state.pos.cpu().numpy().astype(np.int64)
+    term = state.terminated.cpu().numpy()
+    nb = cfg.num_blue_agents
+    obs = {
+        "blue_flag": t.blue_flag.astype(np.int64),
+        "red_flag": t.red_flag.astype(np.int64),
+        "blue_territory": t.blue_territory.astype(np.int64).reshape(-1),
+        "red_territory": t.red_territory.astype(np.int64).reshape(-1),
+        "obstacle": t.obstacle.astype(np.int64).reshape(-1),
+    }
+    if cfg.variant == "1v1":
+        obs.update(blue_agent=pos[0], red_agent=pos[1], is_red_agent_defeated=int(term[1]))
+    else:
+        obs.update(blue_agent=pos[:nb].reshape(-1), red_agent=pos[nb:].reshape(-1),
+                   terminated_agents=term.astype(np.int64))
+    return obs
+
+
+def host_red_actions(cfg: CtfConfig, policies, state: CtfState) -> np.ndarray:
+    """(n_red,) int32: each red agent's action from its host policy's
+    ``act(observation, curr_pos)``, on :func:`host_observation` of the
+    pre-move state, in agent order."""
+    obs = host_observation(cfg, state)
+    pos = state.pos.cpu().numpy()
+    nb = cfg.num_blue_agents
+    return np.asarray([int(p.act(obs, pos[nb + i])) for i, p in enumerate(policies)],
+                      dtype=np.int32)

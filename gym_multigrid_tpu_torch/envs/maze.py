@@ -17,13 +17,15 @@ and the spawn uniform over the background cells.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, fields
-from typing import Literal
+from typing import Callable, Literal
 
 import numpy as np
 import torch
 
 from gym_multigrid_tpu_torch.core.world import MazeWorld
+from gym_multigrid_tpu_torch.envs.single import batch, given, row, step_row
 from gym_multigrid_tpu_torch.utils.map import load_text_map
 
 _W = MazeWorld.OBJECT_TO_IDX
@@ -199,3 +201,58 @@ def info(cfg: MazeConfig, state: MazeState) -> dict[str, torch.Tensor]:
         return torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]).amin(dim=1)
 
     return {"d_a_f": d_area(flags), "d_a_ob": d_area(obstacles)}
+
+
+@dataclass(frozen=True)
+class MazeFns:
+    """The functions of one Maze env (JAX's ``MazeFns``).  A state of one
+    env is a :class:`MazeState` whose fields have no batch axis."""
+
+    #: (generator, *, rnd=None) -> state
+    reset_fn: Callable
+    #: (state, action) -> (state', obs, reward, terminated, truncated, info)
+    step_fn: Callable
+    #: state -> obs (a dict of tensors for "positional")
+    obs_fn: Callable
+    #: state -> {"d_a_f", "d_a_ob"}, 0-d float32 tensors
+    info_fn: Callable
+
+
+def make_maze(cfg: MazeConfig, device=None) -> MazeFns:
+    """The functions of one env of ``cfg`` on ``device`` (JAX's
+    ``make_maze``): the batch functions of ``ops/maze_slab.py`` at B = 1,
+    so ``step_fn`` launches the step kernel on a CUDA device and runs the
+    plain version on the CPU.  The device is the current CUDA device by
+    default and ``device="cpu"`` the CPU, as for ``make_maze_batch``.  The step draws nothing; ``reset_fn`` draws its
+    spawn uniform from ``generator``, or takes it as ``rnd`` (1,)."""
+    from gym_multigrid_tpu_torch.ops import _build, maze_slab
+
+    device = _build.default_device(device, "make_maze")
+    slab = maze_slab.make_maze_slab(cfg, device)
+
+    def reset_fn(generator=None, *, rnd=None):
+        return row(maze_slab.reset_batch(slab, 1, generator=generator, rnd=given(rnd, device)))
+
+    def step_fn(state, action):
+        action = torch.as_tensor(action, device=device).reshape(1)
+        return step_row(maze_slab.step_batch(slab, batch(state), action))
+
+    def obs_fn(state):
+        return row(encode(cfg, batch(state)))
+
+    def info_fn(state):
+        return row(info(cfg, batch(state)))
+
+    return MazeFns(reset_fn, step_fn, obs_fn, info_fn)
+
+
+@functools.cache
+def _cached_maze(cfg: MazeConfig, device: torch.device) -> MazeFns:
+    return make_maze(cfg, device)
+
+
+def cached_maze(cfg: MazeConfig, device=None) -> MazeFns:
+    """Memoised :func:`make_maze`, one per (config, device)."""
+    from gym_multigrid_tpu_torch.ops import _build
+
+    return _cached_maze(cfg, _build.default_device(device, "cached_maze"))

@@ -19,15 +19,17 @@ ends when no fire is left.  Action ids are clipped into 0..4.
 
 from __future__ import annotations
 
+import functools
 import itertools
 from dataclasses import dataclass, fields
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from gym_multigrid_tpu_torch.core.constants import COLOR_TO_IDX, CTF_ACTION_TO_VEC
 from gym_multigrid_tpu_torch.core.world import WildfireWorld
+from gym_multigrid_tpu_torch.envs.single import batch, given, row, step_row
 
 _W = WildfireWorld.OBJECT_TO_IDX
 EMPTY = _W["empty"]
@@ -230,3 +232,64 @@ def encode(cfg: WildfireConfig, state: WildfireState) -> torch.Tensor:
     ch2 = torch.where(typ == W_AGENT, 3, 0)
     return torch.stack([typ.transpose(1, 2), color.transpose(1, 2), ch2.transpose(1, 2)],
                        dim=-1).to(torch.uint8)
+
+
+@dataclass(frozen=True)
+class WildfireFns:
+    """The functions of one Wildfire env (JAX's ``WildfireFns``).  A state
+    of one env is a :class:`WildfireState` whose fields have no batch
+    axis."""
+
+    #: (generator, *, rnd=None) -> state
+    reset_fn: Callable
+    #: (state, actions, generator=None, *, rnd=None)
+    #: -> (state', obs, rewards (A,), terminated, truncated, info)
+    step_fn: Callable
+    #: state -> (W, H, 3) uint8
+    encode_fn: Callable
+
+
+def make_wildfire(cfg: WildfireConfig, device=None) -> WildfireFns:
+    """The functions of one env of ``cfg`` on ``device`` (JAX's
+    ``make_wildfire``): the batch functions of ``ops/wildfire_slab.py`` at
+    B = 1, so ``step_fn`` launches the step kernel on a CUDA device (the
+    config must fit its envelope, as for ``make_wildfire_batch``) and runs
+    the plain version on the CPU.  The device is the current CUDA device
+    by default and ``device="cpu"`` the CPU, as for
+    ``make_wildfire_batch``.
+
+    Randomness comes from ``generator`` where JAX splits the state's key,
+    or as ``rnd``: ``reset_fn``'s (``reset_rnd_width``,) and ``step_fn``'s
+    (``step_rnd_width``,) uniforms, JAX's own ``rnd`` row.  The info is
+    ``extinguished`` (the episode's count), ``burning`` and ``burnt``, 0-d
+    int32 tensors."""
+    from gym_multigrid_tpu_torch.ops import _build, wildfire_slab
+
+    device = _build.default_device(device, "make_wildfire")
+    slab = wildfire_slab.make_wildfire_slab(cfg, device)
+
+    def reset_fn(generator=None, *, rnd=None):
+        return row(wildfire_slab.reset_batch(slab, 1, generator=generator,
+                                             rnd=given(rnd, device)))
+
+    def step_fn(state, actions, generator=None, *, rnd=None):
+        actions = torch.as_tensor(actions, device=device).reshape(1, cfg.num_agents)
+        return step_row(wildfire_slab.step_batch(
+            slab, batch(state), actions, generator=generator, rnd=given(rnd, device)))
+
+    def encode_fn(state):
+        return encode(cfg, batch(state))[0]
+
+    return WildfireFns(reset_fn, step_fn, encode_fn)
+
+
+@functools.cache
+def _cached_wildfire(cfg: WildfireConfig, device: torch.device) -> WildfireFns:
+    return make_wildfire(cfg, device)
+
+
+def cached_wildfire(cfg: WildfireConfig, device=None) -> WildfireFns:
+    """Memoised :func:`make_wildfire`, one per (config, device)."""
+    from gym_multigrid_tpu_torch.ops import _build
+
+    return _cached_wildfire(cfg, _build.default_device(device, "cached_wildfire"))

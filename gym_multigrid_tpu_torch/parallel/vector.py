@@ -11,6 +11,13 @@ neither ``step`` nor ``rollout`` waits on the device inside its loop.
 Randomness comes from the env's ``torch.Generator``, seeded by
 ``reset(seed)``.
 
+:func:`next_step_autoreset` steps a batch under gymnasium's NEXT_STEP
+autoreset, and :class:`NextStepEnv` drives it from the host with numpy
+actions and results: the core of the gymnasium ``VectorEnv`` in
+``adapters/vector_adapter.py``, with no gymnasium import here.
+:func:`make_vector_batch` builds each family's batch with that adapter's
+default configs.
+
 The episode rollouts ``make_collect_episode_rollout``,
 ``make_maze_episode_rollout``, ``make_ctf_episode_rollout`` and
 ``make_wildfire_episode_rollout`` (``ops/*_slab.py``) are the fewer-launch
@@ -22,9 +29,11 @@ launch a chunk of steps, the auto-reset inside the kernel.
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+import os
+from dataclasses import dataclass, fields
 from typing import Callable
 
+import numpy as np
 import torch
 
 from gym_multigrid_tpu_torch.core.constants import COLLECT_ACTION_TO_VEC
@@ -297,3 +306,152 @@ def make_wildfire_batch(
         action_cols=cfg.num_agents,
         auto_reset=auto_reset,
     )
+
+
+# ---------------------------------------------------------------------------
+# Gymnasium's NEXT_STEP autoreset
+# ---------------------------------------------------------------------------
+
+
+def _rows(mask, x):
+    """``mask`` (B,) shaped to broadcast over the rows of ``x``."""
+    return mask.reshape(mask.shape + (1,) * (x.ndim - 1))
+
+
+def _select_rows(mask, a, b):
+    """The batch state with ``a``'s rows where ``mask`` is True and
+    ``b``'s elsewhere, in new tensors."""
+    return type(a)(**{
+        f.name: torch.where(_rows(mask, getattr(a, f.name)), getattr(a, f.name),
+                            getattr(b, f.name))
+        for f in fields(a)
+    })
+
+
+def next_step_autoreset(env: BatchedEnv, states, actions, mask):
+    """One step of ``env`` under gymnasium's NEXT_STEP autoreset (JAX's
+    ``JaxVectorEnv._step``).
+
+    The rows where ``mask`` (B,) bool is True finished on the previous
+    call and were reset then: their action is ignored, and they keep their
+    states and report ``encode`` of them with reward 0 and no done flag.
+    Every other row steps as ``env.step`` steps it, with the same draws
+    from ``env.generator``, and is reset when it finishes; its obs is that
+    of the post-step, pre-reset state.  One launch of the family's step
+    kernel on a CUDA device (and of Collect's masked reset kernel).
+
+    ``states`` is not written: the step returns new tensors, and the
+    finished rows are reset in the selected states, which are new tensors
+    too (Collect's reset writes in place).  Returns (states', obs, rewards,
+    terminated, truncated); the next call's ``mask`` is ``terminated |
+    truncated``."""
+    actions = torch.as_tensor(actions, device=env.device)
+    if tuple(actions.shape) != env.actions_shape:
+        raise ValueError(
+            f"actions must have shape {env.actions_shape}, got {tuple(actions.shape)}"
+        )
+    new_states, _, rewards, term, trunc, _ = env.step_batch(
+        env.slab, states, actions, generator=env.generator, encode_obs=False,
+    )
+    shown = _select_rows(mask, states, new_states)
+    obs = env.encode(env.cfg, shown)
+    rewards = torch.where(_rows(mask, rewards), 0.0, rewards)
+    term, trunc = term & ~mask, trunc & ~mask
+    states = env.reset_batch(
+        env.slab, env.num_envs, generator=env.generator, done=term | trunc, states=shown,
+    )
+    return states, obs, rewards, term, trunc
+
+
+def _to_host(device: torch.device, tensors):
+    """numpy copies of ``tensors``: one copy each, queued together, and one
+    wait for the device."""
+    out = [x.to("cpu", non_blocking=True) for x in tensors]
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    return [x.numpy() for x in out]
+
+
+class NextStepEnv:
+    """A :class:`BatchedEnv` driven from the host under the NEXT_STEP
+    autoreset: numpy actions in; numpy obs, float64 rewards and bool flags
+    out.  The states and the autoreset mask stay on the device; a step is
+    :func:`next_step_autoreset` and one copy of its results to the host.
+    The generator starts at seed 0, so a first ``reset()`` is
+    ``reset(seed=0)``."""
+
+    def __init__(self, env: BatchedEnv):
+        self.env = env
+        self.num_envs = env.num_envs
+        self.states = None
+        self.autoreset = None
+        env.generator.manual_seed(0)
+
+    def _host_obs(self, obs, *rest):
+        """(obs, *rest) on the host; a dict obs stays a dict."""
+        keys = sorted(obs) if isinstance(obs, dict) else None
+        parts = [obs[k] for k in keys] if keys else [obs]
+        host = _to_host(self.env.device, parts + list(rest))
+        obs = dict(zip(keys, host[: len(keys)])) if keys else host[0]
+        return obs, host[len(parts):]
+
+    def reset(self, seed: int | None = None):
+        """Reset every env (the generator reseeded when ``seed`` is given);
+        returns the obs."""
+        env = self.env
+        if seed is not None:
+            env.generator.manual_seed(seed)
+        self.states = env.reset_batch(env.slab, env.num_envs, generator=env.generator)
+        self.autoreset = torch.zeros((env.num_envs,), dtype=torch.bool, device=env.device)
+        return self._host_obs(env.encode(env.cfg, self.states))[0]
+
+    def step(self, actions):
+        """(obs, rewards, terminated, truncated) of one step; ``actions``
+        of one env each, or all of them flat."""
+        env = self.env
+        actions = np.asarray(actions)
+        if actions.ndim == 1 and env.action_cols is not None:
+            actions = actions.reshape(env.actions_shape)
+        self.states, obs, rewards, term, trunc = next_step_autoreset(
+            env, self.states, actions, self.autoreset)
+        self.autoreset = term | trunc
+        obs, (rewards, term, trunc) = self._host_obs(obs, rewards, term, trunc)
+        return obs, rewards.astype(np.float64), term, trunc
+
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def make_vector_batch(family: str, num_envs: int, device=None, **cfg_kwargs) -> BatchedEnv:
+    """The batch of ``make_vector_env`` (``adapters/vector_adapter.py``):
+    each family's config with that function's defaults, ``cfg_kwargs``
+    overriding them.  Collect: the quadrants-respawn config at 50 steps;
+    CtF: 2 blue against 2 ``rw`` reds on ``tests/assets/board.txt``, MvN,
+    flattened obs; Maze: ``tests/assets/board_maze.txt``; Wildfire: the
+    default config.  ``map_path`` picks another CtF or Maze map.  Device
+    as for :func:`make_collect_batch`."""
+    if family == "collect":
+        cfg_kwargs.setdefault("layout", "quadrants_respawn")
+        cfg_kwargs.setdefault("respawn", True)
+        cfg_kwargs.setdefault("max_steps", 50)
+        return make_collect_batch(collect.CollectConfig(**cfg_kwargs), num_envs, device)
+    if family == "ctf":
+        map_path = cfg_kwargs.pop("map_path", os.path.join(_REPO_ROOT, "tests/assets/board.txt"))
+        cfg_kwargs.setdefault("num_blue_agents", 2)
+        cfg_kwargs.setdefault("num_red_agents", 2)
+        cfg_kwargs.setdefault("variant", "mvn")
+        cfg_kwargs.setdefault(
+            "enemy_policies",
+            tuple(ctf.PolicySpec("rw") for _ in range(cfg_kwargs["num_red_agents"])),
+        )
+        cfg_kwargs.setdefault("observation_option", "flattened")
+        return make_ctf_batch(ctf.CtfConfig.from_map_path(map_path, **cfg_kwargs), num_envs,
+                              device)
+    if family == "maze":
+        map_path = cfg_kwargs.pop(
+            "map_path", os.path.join(_REPO_ROOT, "tests/assets/board_maze.txt"))
+        return make_maze_batch(maze.MazeConfig.from_map_path(map_path, **cfg_kwargs), num_envs,
+                               device)
+    if family == "wildfire":
+        return make_wildfire_batch(wildfire.WildfireConfig(**cfg_kwargs), num_envs, device)
+    raise ValueError(f"unknown family {family!r}")

@@ -5,6 +5,7 @@
                                           [--ctf-variant FILE.cu ...]
                                           [--wf-variant FILE.cu ...]
                                           [--only reset|maze|ctf|wildfire ...]
+    python3 scripts/torch_kernel_probe.py --only isolated [--after-checks]
 
 From the root of a checkout, with a CUDA device and ``nvcc``.  It
 
@@ -32,7 +33,17 @@ From the root of a checkout, with a CUDA device and ``nvcc``.  It
    and each variant are timed in turns (checkout, variants, variants
    reversed, checkout, twice).  A variant has the checkout's C interface.
 
-``--only`` runs the named sections (default: all).
+``--only`` runs the named sections (default: all but ``isolated``).
+``--only isolated`` times the host-bound paths of ``chip_smoke.py`` alone
+in this fresh process, as its phase 3 times them: the Collect and Maze
+episode paths, the Collect and CtF training paths, evaluation and
+self-play, then the vector envs where the checkout has them
+(``chip_smoke.run_vector_envs``).  ``--after-checks`` first runs the
+gymnasium-facing checks of its phase 2 (the per-env functions, the
+host-policy path, ``next_step_autoreset`` on each family).  The probe
+reads ``chip_smoke.py`` and the package of the checkout it sits in, so a
+copy of this file put in another checkout's ``scripts/`` times that one
+(an older checkout without those checks takes no ``--after-checks``).
 
 Times are CUDA events around windows of launches queued behind a device
 sleep (``chip_smoke.time_ms``), each beside the card's name and power
@@ -235,9 +246,12 @@ def main():
     parser.add_argument("--ctf-variant", type=Path, action="append", default=[])
     parser.add_argument("--wf-variant", type=Path, action="append", default=[])
     parser.add_argument("--only", action="append", default=[],
-                        choices=("reset", "maze", "ctf", "wildfire"))
+                        choices=("reset", "maze", "ctf", "wildfire", "isolated"))
+    parser.add_argument("--after-checks", action="store_true")
     args = parser.parse_args()
     sections = set(args.only or ("reset", "maze", "ctf", "wildfire"))
+    if args.after_checks and "isolated" not in sections:
+        parser.error("--after-checks goes with --only isolated")
     if not torch.cuda.is_available():
         sys.exit("torch_kernel_probe.py: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -252,6 +266,8 @@ def main():
     record = {"card": smi}
     gen = torch.Generator(device=DEV).manual_seed(0)
 
+    if "isolated" in sections:
+        probe_isolated(args.after_checks)
     if "reset" in sections:
         record.update(probe_resets(args.reset_variant, probe_dir, gen, smi))
     if "maze" in sections:
@@ -305,6 +321,35 @@ def main():
             "wildfire", runners, wf_args, lambda K, a: wildfire_slab.ms_spec(wslab.t, K, *a),
             wf_one, 24, smi))
     log(json.dumps(record))
+
+
+def probe_isolated(after_checks: bool):
+    """The Collect and Maze episode paths, the learner paths and the
+    vector envs, timed as ``chip_smoke.py``'s phase 3 times them, with
+    nothing before them in the process but the build (and, with
+    ``after_checks``, the gymnasium-facing checks of its phase 2)."""
+    import chip_smoke as cs
+
+    if after_checks:
+        cs.check_per_env_functions(seed=27)
+        cs.check_host_policy_path(seed=28)
+        for i, (name, make, cfg) in enumerate((
+                ("Collect", cs.make_collect_batch, cs.MAIN), ("CtF", cs.make_ctf_batch, cs.CTF_MAIN),
+                ("Maze", cs.make_maze_batch, cs.MAZE_MAIN), ("Wildfire", cs.make_wildfire_batch,
+                                                            cs.WF_MAIN))):
+            cs.check_next_step(name, make, cfg, seed=90 + i)
+    roll, states, *_ = cs.collect_episode_path()
+    cs.time_rollout(roll, "Collect episode", states, cs.STEPS_PER_CALL, cs.MAIN.num_agents,
+                    cs.COLLECT_WARMUP_MAX)
+    roll, _, _, states, _ = cs.maze_episode_path()
+    cs.time_rollout(roll, "Maze episode", states, cs.MAZE_STEPS_PER_CALL, 1, cs.MAZE_WARMUP_MAX)
+    per_iter = cs.TRAIN_CFG.rollout_len
+    cs.run_training("collect", {"collect_step": per_iter, "collect_reset": per_iter})
+    cs.run_training("ctf", {"ctf_step": per_iter})
+    cs.run_evaluations()
+    cs.run_selfplay()
+    if hasattr(cs, "run_vector_envs"):
+        cs.run_vector_envs()
 
 
 def probe_resets(variants, probe_dir, gen, smi):
