@@ -105,16 +105,27 @@ without them.  Phases, each of which fails the run on any fault:
    family: one step-kernel launch a step (and one masked
    ``collect_reset``), no other kernel; agent-steps/s of 50-step calls,
    timed as the rollouts.  One env's steps/s through ``make_collect`` and
-   ``make_ctf`` on the card (what the single-env adapters step).
+   ``make_ctf`` on the card (what the single-env adapters step).  The
+   render phase (no kernel of the port): each family's
+   ``render_<family>_batch`` at B = 8192 and T = 32 (Collect main,
+   CTF_MAIN, MAZE_MAIN, WF_MAIN after a reset and 20 steps), 64 rows
+   spread over the batch pixel-equal to the CPU's render of the same
+   states and the whole batch equal to a two-pass gather, timed (ms, GB/s,
+   the byte bound, peak memory) beside it; hand-built CtF and Wildfire
+   batches with stacked agents card against CPU; ``toroid_obs_fn``
+   batched on Collect main, 512 rows against the CPU; and the ``evaluate
+   --gif`` frame function (``policy_frames``) of Collect main and CTF_MAIN
+   at B = 1 for 50 steps with an untrained full-width net, counted: one
+   step-kernel launch a frame after the first reset, uint8 frames.
 4. Profile 50 steps of each ``BatchedEnv`` rollout, 100 of each episode
    path, one iteration of each training path, one self-play iteration and
    one Collect evaluation call and one Collect vector-env step: device time
    by kernel and idle share.
 
-Prints the timing lines, one JSON line of kernel records (with each
-kernel's launches in one evaluation call and in the four 200-step vector
-env runs), the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``.
+Prints the timing lines, one JSON line of the render phase's readings,
+one JSON line of kernel records (with each kernel's launches in one
+evaluation call and in the four 200-step vector env runs), the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -220,6 +231,15 @@ from gym_multigrid_tpu_torch.rl.selfplay import (  # noqa: E402
     make_league_ppo,
     make_selfplay_ppo,
 )
+from gym_multigrid_tpu_torch.render import tiles  # noqa: E402
+from gym_multigrid_tpu_torch.render.tiles import (  # noqa: E402
+    render_collect_batch,
+    render_ctf_batch,
+    render_maze_batch,
+    render_wildfire_batch,
+)
+from gym_multigrid_tpu_torch.scripts.evaluate import policy_frames  # noqa: E402
+from gym_multigrid_tpu_torch.wrappers.toroid import toroid_obs_fn  # noqa: E402
 
 B = 8192
 # Batches that are no multiple of the Wildfire tile (8, or 4 at 32x32) nor
@@ -369,6 +389,15 @@ PARTIAL_STEPS = 50
 # (every row resets several times) and with make_vector_env's configs in
 # phase 3, timed as calls of VEC_STEPS_PER_CALL steps.
 PER_ENV_STEPS = 60
+# The render phase: T-pixel tiles on states after a reset and RENDER_STEPS
+# kernel-stepped steps; RENDER_ROWS rows spread over the batch, the last
+# included, held to the CPU, and TOROID_ROWS of the toroidal obs; the gif
+# frame path at B = 1 for GIF_STEPS steps.
+RENDER_T = 32
+RENDER_STEPS = 20
+RENDER_ROWS = 64
+TOROID_ROWS = 512
+GIF_STEPS = 50
 VEC_STEPS = 200
 VEC_MAX_STEPS = 30
 VEC_STEPS_PER_CALL = 50
@@ -1711,6 +1740,198 @@ def time_single_envs(steps=200):
             f"({steps} steps after {steps} untimed, each reading its done flags)")
 
 
+#: The render phase's cases: each family's batch, config, tile ids, bank
+#: and renderer, and the state fields the renderer reads.
+RENDER_CASES = (
+    ("Collect main", make_collect_batch, MAIN, tiles.collect_tile_ids, tiles._collect_bank,
+     render_collect_batch, ("grid_obj", "grid_color")),
+    ("CTF_MAIN", make_ctf_batch, CTF_MAIN, tiles.ctf_tile_ids, tiles._ctf_bank,
+     render_ctf_batch, ("pos", "dir", "terminated")),
+    ("MAZE_MAIN", make_maze_batch, MAZE_MAIN, tiles.maze_tile_ids, tiles._maze_bank,
+     render_maze_batch, ("pos", "dir")),
+    ("WF_MAIN", make_wildfire_batch, WF_MAIN, tiles.wildfire_tile_ids, tiles._wildfire_bank,
+     render_wildfire_batch, ("cells", "agent_pos")),
+)
+
+
+def spread_rows(n_rows, n):
+    """``n_rows`` row indices spread over a batch of ``n``, 0 and n - 1
+    included."""
+    return torch.linspace(0, n - 1, n_rows, device=DEV).round().long()
+
+
+def rows_to_cpu(states, idx):
+    """Rows ``idx`` of a batch state, copied to the CPU."""
+    return type(states)(**{f.name: getattr(states, f.name)[idx].cpu()
+                           for f in dataclasses.fields(states)})
+
+
+def time_events(fn, untimed=2, timed=5):
+    """(median ms, all ms) of ``timed`` calls of ``fn`` after ``untimed``
+    ones, each call between CUDA events."""
+    for _ in range(untimed):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(timed):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[timed // 2], times
+
+
+def check_batch_renders(seed):
+    """Each family's ``render_<family>_batch`` at B = 8192 and T = 32 on
+    states after a reset and RENDER_STEPS steps (each launching the
+    family's step kernel): RENDER_ROWS rows spread over the batch, the last
+    included, pixel-equal to the same function on the CPU for the same
+    states copied over, and the whole batch equal to a two-pass gather
+    (``bank[ids]``, then a permuted copy).  Times both (CUDA events, median
+    of 5 after 2 untimed), with the bytes the render must move (the fields
+    it reads and the bank once, the frames once) and its peak memory.
+    Returns {name: reading}."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    readings = {}
+    for name, make_batch, cfg, tile_ids, make_bank, render, fields in RENDER_CASES:
+        env = make_batch(cfg, B)
+        states, _ = env.reset(seed)
+        for _ in range(RENDER_STEPS):
+            acts = torch.randint(0, env.num_actions, env.actions_shape, generator=gen,
+                                 device=DEV, dtype=torch.int32)
+            states, *_ = env.step(states, acts)
+        frames = render(cfg, states)
+        check(frames.dtype == torch.uint8 and frames.device == DEV,
+              f"{name}: frames {frames.dtype} on {frames.device}")
+        idx = spread_rows(RENDER_ROWS, B)
+        want = render(cfg, rows_to_cpu(states, idx))
+        err = max_abs_err([frames[idx].cpu()], [want])
+        ids = tile_ids(cfg, states)
+        bank = torch.from_numpy(make_bank(RENDER_T)).to(DEV)
+        n, h, w = ids.shape
+
+        def two_pass():
+            return bank[ids].permute(0, 1, 3, 2, 4, 5).reshape(n, h * RENDER_T, w * RENDER_T, 3)
+
+        check(torch.equal(two_pass(), frames), f"{name}: the two-pass gather differs")
+        in_bytes = bank.numel() + sum(getattr(states, f).numel() * getattr(states, f).element_size()
+                                      for f in fields)
+        nbytes = in_bytes + frames.numel()
+        del frames
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms, all_ms = time_events(lambda: render(cfg, states))
+        peak = torch.cuda.max_memory_allocated() - base
+        two_ms, two_all = time_events(two_pass)
+        ids_ms, _ = time_events(lambda: tile_ids(cfg, states))
+        bound_ms = nbytes / MEM_BYTES_PER_S * 1e3
+        readings[name] = {"ms": ms, "tile_ids_ms": ids_ms, "two_pass_ms": two_ms,
+                          "bound_ms": bound_ms, "bytes": nbytes, "peak_bytes": peak,
+                          "max_abs_err": err}
+        log(f"render {name}: B={B}, T={RENDER_T}, frames {tuple(want.shape[1:])} uint8; "
+            f"{RENDER_ROWS} rows == CPU (max_abs_err {err}); {ms:.3f} ms a call (median of 5 "
+            f"after 2 untimed, {[round(t, 3) for t in all_ms]}), {nbytes / ms / 1e6:.1f} GB/s, "
+            f"of which the tile ids {ids_ms:.3f} ms; bound {bound_ms:.3f} ms (bytes: {nbytes} "
+            f"B, {in_bytes} read); peak {peak} bytes above the {base} allocated before the "
+            f"calls; two-pass gather {two_ms:.3f} ms {[round(t, 3) for t in two_all]}")
+    return readings
+
+
+def check_stacked_renders(seed, n=64):
+    """Hand-built CtF and Wildfire batches with agents stacked on one cell
+    in every other env (the last agent on a cell wins), CtF agents
+    terminated at random, rendered on the card and on the CPU."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    s0, s1 = CTF_MAIN.field_map.shape
+    A = CTF_MAIN.num_agents
+    pos = torch.stack([torch.randint(0, s0, (n, A), generator=gen, device=DEV),
+                       torch.randint(0, s1, (n, A), generator=gen, device=DEV)], -1).int()
+    pos[::2, 1:] = pos[::2, :1]
+    ctf_states = CtfState(
+        pos=pos, dir=torch.randint(0, 4, (n, A), generator=gen, device=DEV, dtype=torch.int32),
+        terminated=torch.rand((n, A), generator=gen, device=DEV) < 0.3,
+        collided=torch.zeros((n, A), dtype=torch.bool, device=DEV),
+        step_count=torch.zeros((n,), dtype=torch.int32, device=DEV))
+    A = WF_MAIN.num_agents
+    wpos = torch.randint(0, WF_MAIN.size, (n, A, 2), generator=gen, device=DEV,
+                         dtype=torch.int32)
+    wpos[::2, 1:] = wpos[::2, :1]
+    wf_states = WildfireState(
+        cells=torch.randint(0, 4, (n, WF_MAIN.size, WF_MAIN.size), generator=gen, device=DEV,
+                            dtype=torch.int32),
+        agent_pos=wpos, step_count=torch.zeros((n,), dtype=torch.int32, device=DEV),
+        extinguished=torch.zeros((n,), dtype=torch.int32, device=DEV))
+    err = 0.0
+    for name, render, cfg, states in (("CTF_MAIN", render_ctf_batch, CTF_MAIN, ctf_states),
+                                      ("WF_MAIN", render_wildfire_batch, WF_MAIN, wf_states)):
+        idx = torch.arange(n, device=DEV)
+        err = max(err, max_abs_err([render(cfg, states).cpu()],
+                                   [render(cfg, rows_to_cpu(states, idx))]))
+    log(f"render, stacked agents in every other env ({n} envs each, CtF agents terminated at "
+        f"random): card == CPU, max_abs_err {err}")
+    return err
+
+
+def check_toroid_obs(seed):
+    """``toroid_obs_fn``, batched, on Collect main at B = 8192 after a
+    reset and RENDER_STEPS steps: TOROID_ROWS rows spread over the batch
+    equal to the CPU's on the same states.  Times it."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    env = make_collect_batch(MAIN, B)
+    states, _ = env.reset(seed)
+    for _ in range(RENDER_STEPS):
+        states, *_ = env.step(states, torch.randint(0, 4, env.actions_shape, generator=gen,
+                                                    device=DEV, dtype=torch.int32))
+    fn = toroid_obs_fn(MAIN)
+    obs = fn(states)
+    depth = MAIN.num_ball_types + MAIN.num_agents
+    check(obs.dtype == torch.float32 and tuple(obs.shape) == (
+        B, MAIN.num_agents, MAIN.height, MAIN.width, depth), f"toroid obs {tuple(obs.shape)}")
+    idx = spread_rows(TOROID_ROWS, B)
+    err = max_abs_err([obs[idx].cpu()], [fn(rows_to_cpu(states, idx))])
+    ms, all_ms = time_events(lambda: fn(states))
+    log(f"toroid_obs_fn batched, Collect main at B={B}: obs {tuple(obs.shape)} float32, "
+        f"{TOROID_ROWS} rows == CPU (max_abs_err {err}); {ms:.3f} ms a call "
+        f"{[round(t, 3) for t in all_ms]}")
+    return err
+
+
+def check_gif_frames():
+    """The ``evaluate --gif`` frame function (``policy_frames``) on the
+    card for Collect main and CTF_MAIN (max_steps GIF_STEPS), one env,
+    an untrained full-width ``ActorCritic``, counted: after the first
+    reset, one step-kernel launch a frame and no other kernel; uint8
+    frames of the board's shape.  Returns {family: launches}."""
+    launches = {}
+    ctf_cfg = dataclasses.replace(CTF_MAIN, max_steps=GIF_STEPS)
+    for family, make_batch, cfg, kernel, n_actions, agents, reset_launches in (
+            ("collect", make_collect_batch, MAIN, "collect_step", 4, MAIN.num_agents,
+             {"collect_reset": 1}),
+            ("ctf", make_ctf_batch, ctf_cfg, "ctf_step", 5, ctf_cfg.num_blue_agents, {})):
+        check(cfg.max_steps == GIF_STEPS, f"{family}: max_steps {cfg.max_steps}")
+        net = full_width_net(make_batch(cfg, 1), n_actions, agents)
+        t0 = time.perf_counter()
+        counts, frames = run_counted(lambda: policy_frames(family, cfg, net, seed=0))
+        wall = time.perf_counter() - t0
+        steps = len(frames) - 1
+        check(1 <= steps <= GIF_STEPS, f"{family} gif: {steps} steps")
+        if family == "collect":  # respawn: no termination, truncation at max_steps
+            check(steps == GIF_STEPS, f"collect gif: {steps} steps")
+        check_launches(counts, {kernel: steps, **reset_launches}, f"{family} gif frame")
+        h, w = ((cfg.height, cfg.width) if family == "collect"
+                else cfg.field_map.shape[::-1])
+        shapes = {(f.dtype, f.shape) for f in frames}
+        check(shapes == {(np.dtype(np.uint8), (h * RENDER_T, w * RENDER_T, 3))},
+              f"{family} gif frames {shapes}")
+        launches[family] = counts
+        log(f"gif frame path {family}: {len(frames)} frames, {steps} steps, {counts[kernel]} "
+            f"{kernel} launches (one a step), {wall:.2f} s of host wall")
+    return launches
+
+
 def profile_rollout(rollout, states, name, steps=50):
     """Device time by kernel and the idle share over ``steps`` steps of
     ``rollout(states, steps)`` under ``torch.profiler``."""
@@ -2125,6 +2346,12 @@ def main():
     # The vector envs (one step-kernel launch a step, and Collect's reset).
     vec_launches, (vec_collect, vec_actions) = run_vector_envs()
     time_single_envs()
+    # Rendering (no kernel of the port): the four batch renders, stacked
+    # agents, the toroidal obs, and the gif frame path (a step kernel a frame).
+    render_readings = check_batch_renders(seed=100)
+    stacked_err = check_stacked_renders(seed=101)
+    toroid_err = check_toroid_obs(seed=102)
+    gif_launches = check_gif_frames()
     log("library_ms: null for every kernel (no single PyTorch call computes any)")
 
     # Phase 4: where each rollout's time goes.
@@ -2216,6 +2443,8 @@ def main():
         r["launches_vector_env"] = per_vec[r["name"]]
     log(f"per-env functions and host-policy path, card == CPU: max_abs_err {per_env_err}, "
         f"{host_err}")
+    log(json.dumps({"render": render_readings, "stacked_max_abs_err": stacked_err,
+                    "toroid_max_abs_err": toroid_err, "gif_launches": gif_launches}))
     log(json.dumps(record))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -5,15 +5,17 @@ on an NVIDIA GPU (Hopper, sm_90a): one hand-written CUDA kernel per
 transition of the whole batch (and per reset, for Collect), each with a
 plain PyTorch version beside it that the CPU runs.  The package imports
 torch, numpy and the standard library only (``adapters/`` and
-``envs/collect_game.py`` also gymnasium); the JAX package
-``gym_multigrid_tpu`` is its reference and is tested against it.
+``envs/collect_game.py`` also gymnasium, ``render/window.py`` matplotlib,
+the gif writers imageio); the JAX package ``gym_multigrid_tpu`` is its
+reference and is tested against it.
 
 Entry points: ``make_collect_batch``, ``make_ctf_batch``,
 ``make_maze_batch`` and ``make_wildfire_batch`` in
 ``gym_multigrid_tpu_torch.parallel.vector``; the PPO learner over them,
 ``make_family_batch`` in ``rl/families.py`` and ``train_loop`` in
-``rl/trainer.py``; the reference's gymnasium classes and a ``VectorEnv``
-in ``adapters/``, registered by :func:`register_envs`.
+``rl/trainer.py``; the sprite-bank renderer ``render/tiles.py``; the
+reference's gymnasium classes, ``MultiGridEnv`` and a ``VectorEnv`` in
+``adapters/``, registered by :func:`register_envs`.
 """
 
 __version__ = "0.1.0"

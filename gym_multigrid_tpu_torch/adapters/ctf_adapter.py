@@ -17,7 +17,7 @@ import gymnasium as gym
 import numpy as np
 from gymnasium import spaces
 
-from gym_multigrid_tpu_torch.adapters.gym_adapter import new_generator, render_unported
+from gym_multigrid_tpu_torch.adapters.gym_adapter import new_generator
 from gym_multigrid_tpu_torch.core.actions import CtfActions
 from gym_multigrid_tpu_torch.core.world import CtfWorld
 from gym_multigrid_tpu_torch.envs.ctf import (
@@ -200,6 +200,7 @@ class _CtfBase(gym.Env):
         self.step_count = 0
         self._generator = new_generator(self.device)
         self._state = None
+        self.window = None
 
     # -- spaces -------------------------------------------------------------
     def _set_observation_space(self):
@@ -393,7 +394,22 @@ class _CtfBase(gym.Env):
         )
 
     def render(self):
-        render_unported()
+        from gym_multigrid_tpu_torch.render.tiles import render_ctf
+
+        img = render_ctf(self.cfg, self._state)
+        if self.render_mode == "human":
+            from gym_multigrid_tpu_torch.render.window import Window
+
+            if self.window is None:
+                self.window = Window("gym_multigrid_tpu_torch")
+                self.window.show(block=False)
+            self.window.show_img(img)
+        return img
+
+    def close(self):
+        if self.window is not None:
+            self.window.close()
+            self.window = None
 
 
 class Ctf1v1Env(_CtfBase):

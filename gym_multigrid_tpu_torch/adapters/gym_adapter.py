@@ -8,8 +8,8 @@ from the host; the batched API is ``parallel/vector.py``.
 
 ``device`` (None: the current CUDA device, which raises when there is
 none; ``"cpu"``: the CPU) places the env's state and its plain PyTorch
-step.  ``render()`` raises: the renderer (``render/tiles.py``) is not
-ported yet.
+step.  ``render()`` returns the frame of ``render/tiles.py``, and with
+``render_mode="human"`` shows it in a ``render/window.py`` window.
 """
 
 from __future__ import annotations
@@ -31,13 +31,6 @@ def new_generator(device: torch.device) -> torch.Generator:
     """A generator on ``device`` seeded from ``np.random``, as the JAX
     adapters draw their first PRNG key."""
     return torch.Generator(device=device).manual_seed(int(np.random.randint(0, 2**31 - 1)))
-
-
-def render_unported():
-    raise NotImplementedError(
-        "render() needs the renderer, gym_multigrid_tpu/render/tiles.py, which the "
-        "PyTorch port does not have yet"
-    )
 
 
 @dataclass
@@ -133,6 +126,7 @@ class CollectGameEnv(gym.Env):
 
         self._generator = new_generator(self.device)
         self._state = None
+        self.window = None
 
     # -- helpers -----------------------------------------------------------
     def _sync_proxies(self):
@@ -184,7 +178,22 @@ class CollectGameEnv(gym.Env):
         return self.num_ball_types
 
     def render(self):
-        render_unported()
+        from gym_multigrid_tpu_torch.render.tiles import render_collect
+
+        img = render_collect(self.cfg, self._state)
+        if self.render_mode == "human":
+            from gym_multigrid_tpu_torch.render.window import Window
+
+            if self.window is None:
+                self.window = Window("gym_multigrid_tpu_torch")
+                self.window.show(block=False)
+            self.window.show_img(img)
+        return img
+
+    def close(self):
+        if self.window is not None:
+            self.window.close()
+            self.window = None
 
 
 class CollectGameEvenDist(CollectGameEnv):

@@ -11,7 +11,7 @@ import gymnasium as gym
 import numpy as np
 from gymnasium import spaces
 
-from gym_multigrid_tpu_torch.adapters.gym_adapter import new_generator, render_unported
+from gym_multigrid_tpu_torch.adapters.gym_adapter import new_generator
 from gym_multigrid_tpu_torch.core.actions import WildfireActions
 from gym_multigrid_tpu_torch.core.world import WildfireWorld
 from gym_multigrid_tpu_torch.envs.wildfire import FIRE, BURNT, WildfireConfig, cached_wildfire
@@ -62,6 +62,7 @@ class WildfireEnv(gym.Env):
         self.step_count = 0
         self._generator = new_generator(self.device)
         self._state = None
+        self.window = None
 
     def _sync(self):
         pos = self._state.agent_pos.cpu().numpy()
@@ -104,4 +105,19 @@ class WildfireEnv(gym.Env):
         )
 
     def render(self):
-        render_unported()
+        from gym_multigrid_tpu_torch.render.tiles import render_wildfire
+
+        img = render_wildfire(self.cfg, self._state)
+        if self.render_mode == "human":
+            from gym_multigrid_tpu_torch.render.window import Window
+
+            if self.window is None:
+                self.window = Window("gym_multigrid_tpu_torch")
+                self.window.show(block=False)
+            self.window.show_img(img)
+        return img
+
+    def close(self):
+        if self.window is not None:
+            self.window.close()
+            self.window = None

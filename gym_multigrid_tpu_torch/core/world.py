@@ -47,6 +47,14 @@ def _schema(encode_dim: int, colors, *object_names: str) -> World:
     )
 
 
+#: The 13-type, 6-dim default schema of the host object model
+#: (``adapters/multigrid.py``).
+DefaultWorld = _schema(
+    6, COLORS,
+    "unseen", "empty", "wall", "floor", "door", "key", "ball", "box",
+    "goal", "lava", "agent", "objgoal", "switch",
+)
+
 #: Collect: empty/wall/ball/agent = 0..3
 CollectWorld = _schema(3, COLORS, "empty", "wall", "ball", "agent")
 

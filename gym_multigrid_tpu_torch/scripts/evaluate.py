@@ -10,10 +10,13 @@ Usage:
   python -m gym_multigrid_tpu_torch.scripts.evaluate --family ctf \\
       --model out/models/ctf_ppo --envs 256 --cpu
   python -m gym_multigrid_tpu_torch.scripts.evaluate --family wildfire --random --cpu
+  python -m gym_multigrid_tpu_torch.scripts.evaluate --family ctf \\
+      --model out/models/ctf_ppo --gif out/animations/ctf_eval.gif --cpu
 
 ``--model`` names a snapshot the port wrote (``train``'s full state or
-``train_selfplay``'s ``models/selfplay``), without ``.npz``.  Snapshots
-of the JAX package and ``--gif`` are not supported.
+``train_selfplay``'s ``models/selfplay``), without ``.npz``; snapshots of
+the JAX package are not supported.  ``--gif PATH`` also saves one greedy
+episode of one env as a gif (imageio).
 """
 
 from __future__ import annotations
@@ -21,6 +24,53 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
+
+_MAKERS = {
+    "collect": "make_collect_batch",
+    "ctf": "make_ctf_batch",
+    "maze": "make_maze_batch",
+    "wildfire": "make_wildfire_batch",
+}
+
+
+def policy_frames(family, cfg, net, *, seed=0, device=None):
+    """One greedy episode of one env, rendered: a batch of one with no
+    auto-reset (the episode ends on screen), stepped until ``term | trunc``
+    or ``cfg.max_steps`` steps, one frame before the first step and one
+    after each.  Returns a list of (H*T, W*T, 3) uint8 numpy frames.  On a
+    CUDA device each step launches the family's step kernel once."""
+    from gym_multigrid_tpu_torch.parallel import vector
+    from gym_multigrid_tpu_torch.render import tiles
+    from gym_multigrid_tpu_torch.rl.evaluate import make_policy
+
+    env = getattr(vector, _MAKERS[family])(cfg, 1, device=device, auto_reset=False)
+    render = getattr(tiles, f"render_{family}_batch")
+    net.to(env.device)
+    policy = make_policy(env, net)
+    states, _ = env.reset(seed)
+    frames = [render(cfg, states)[0].cpu().numpy()]
+    for _ in range(cfg.max_steps):
+        states, _, _, term, trunc = env.step(states, policy(env.generator, states))
+        frames.append(render(cfg, states)[0].cpu().numpy())
+        if bool(term[0] | trunc[0]):
+            break
+    return frames
+
+
+def save_gif(frames, path, *, fps=5, what="rollout"):
+    """Write ``frames`` to ``path`` as a gif with imageio, imported here:
+    the package runs without it."""
+    import imageio
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    imageio.mimsave(path, frames, duration=1000 / fps)
+    print(f"saved {what} to {path}", file=sys.stderr)
+
+
+def save_policy_gif(family, cfg, net, path, *, fps=5, seed=0, device=None):
+    """:func:`policy_frames` saved as a gif at ``path``."""
+    save_gif(policy_frames(family, cfg, net, seed=seed, device=device), path, fps=fps)
 
 
 def main(argv=None) -> None:
@@ -37,6 +87,8 @@ def main(argv=None) -> None:
                    help="sample the policy instead of greedy argmax")
     p.add_argument("--random", action="store_true",
                    help="also report a random-policy baseline column")
+    p.add_argument("--gif", default=None,
+                   help="save a greedy single-episode gif to this path")
     p.add_argument("--map", default=None)
     p.add_argument("--opponents", default="rw,rw",
                    help="ctf: comma list of red PolicySpec kinds")
@@ -101,6 +153,9 @@ def main(argv=None) -> None:
             k: rand[k] for k in ("ep_return_mean", "win_rate", "episodes") if k in rand
         }
     print(json.dumps(result))
+
+    if args.gif:
+        save_policy_gif(args.family, cfg, net, args.gif, seed=args.seed, device=env.device)
 
 
 if __name__ == "__main__":

@@ -5,7 +5,9 @@ red in the frozen-opponent pool and the final live red (the port's
 The pool is the opponents' history: scoring blue against each slot shows
 whether it stayed strong against past strategies.  Uses one
 ``make_ctf_match_evaluator`` for every pairing (learned against learned,
-through the all-agent CtF step) and writes ``<run_dir>/league_matrix.json``.
+through the all-agent CtF step) and writes ``<run_dir>/league_matrix.json``;
+``--gif`` also saves one greedy match of the final blue against the final
+red as ``<run_dir>/match.gif`` (imageio).
 
     python -m gym_multigrid_tpu_torch.scripts.league_matrix out/selfplay [--envs 256] [--cpu]
 """
@@ -19,12 +21,42 @@ import os
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+def match_frames(cfg, blue_net, red_net, *, seed=0, device=None):
+    """One greedy learned-against-learned match of one env, rendered: a
+    self-play batch of one with no auto-reset, both nets reading the same
+    obs, stepped until ``term | trunc`` or ``cfg.max_steps`` steps.
+    Returns a list of (H*T, W*T, 3) uint8 numpy frames, one before the
+    first step and one after each."""
+    import torch
+
+    from gym_multigrid_tpu_torch.render.tiles import render_ctf_batch
+    from gym_multigrid_tpu_torch.rl.selfplay import make_ctf_selfplay_batch
+
+    env = make_ctf_selfplay_batch(cfg, 1, auto_reset=False, device=device)
+    blue_net.to(env.device)
+    red_net.to(env.device)
+    states, obs = env.reset(seed)
+    frames = [render_ctf_batch(cfg, states)[0].cpu().numpy()]
+    for _ in range(cfg.max_steps):
+        with torch.no_grad():
+            b_act = blue_net(obs)[0].argmax(dim=-1)
+            r_act = red_net(obs)[0].argmax(dim=-1)
+        actions = torch.cat([b_act, r_act], dim=1).to(torch.int32)
+        states, obs, _, term, trunc = env.step(states, actions)
+        frames.append(render_ctf_batch(cfg, states)[0].cpu().numpy())
+        if bool(term[0] | trunc[0]):
+            break
+    return frames
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("run_dir", help="a train_selfplay --out directory")
     p.add_argument("--envs", type=int, default=256)
     p.add_argument("--steps", type=int, default=300)
     p.add_argument("--map", default="tests/assets/board.txt")
+    p.add_argument("--gif", action="store_true",
+                   help="also save a blue-vs-final-red match gif into <run_dir>/match.gif")
     p.add_argument("--cpu", action="store_true", help="run on the CPU, not the CUDA device")
     args = p.parse_args(argv)
 
@@ -62,6 +94,13 @@ def main(argv=None):
         json.dump(rows, f, indent=1)
         f.write("\n")
     print(f"wrote {out}")
+    if args.gif:
+        from gym_multigrid_tpu_torch.scripts.evaluate import save_gif
+
+        blue_net.load_state_dict(ck["blue_params"])
+        red_net.load_state_dict(ck["red_params"])
+        frames = match_frames(cfg, blue_net, red_net, device=device)
+        save_gif(frames, os.path.join(args.run_dir, "match.gif"), what="match rollout")
 
 
 if __name__ == "__main__":

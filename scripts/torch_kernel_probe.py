@@ -6,6 +6,8 @@
                                           [--wf-variant FILE.cu ...]
                                           [--only reset|maze|ctf|wildfire ...]
     python3 scripts/torch_kernel_probe.py --only isolated [--after-checks]
+    python3 scripts/torch_kernel_probe.py --only rollouts
+    python3 scripts/torch_kernel_probe.py --only render
 
 From the root of a checkout, with a CUDA device and ``nvcc``.  It
 
@@ -44,6 +46,14 @@ host-policy path, ``next_step_autoreset`` on each family).  The probe
 reads ``chip_smoke.py`` and the package of the checkout it sits in, so a
 copy of this file put in another checkout's ``scripts/`` times that one
 (an older checkout without those checks takes no ``--after-checks``).
+``--only rollouts`` times the four ``BatchedEnv`` rollouts, the Collect
+episode path and the vector envs the same way (a copy of the probe in
+another checkout's ``scripts/`` times that one: same-call parent/change
+pairs).  ``--only render`` times each family's batch render at B = 8192,
+T = 32 (``chip_smoke.RENDER_CASES``) beside the gathers it was chosen
+over, each checked equal to it: a gather indexed by a materialised
+(B, H, T, W) row tensor (bytes, and 8-byte words), and a two-pass gather
+(``bank[ids]``, then a permuted copy; its first pass alone too).
 
 Times are CUDA events around windows of launches queued behind a device
 sleep (``chip_smoke.time_ms``), each beside the card's name and power
@@ -246,7 +256,8 @@ def main():
     parser.add_argument("--ctf-variant", type=Path, action="append", default=[])
     parser.add_argument("--wf-variant", type=Path, action="append", default=[])
     parser.add_argument("--only", action="append", default=[],
-                        choices=("reset", "maze", "ctf", "wildfire", "isolated"))
+                        choices=("reset", "maze", "ctf", "wildfire", "isolated", "rollouts",
+                                 "render"))
     parser.add_argument("--after-checks", action="store_true")
     args = parser.parse_args()
     sections = set(args.only or ("reset", "maze", "ctf", "wildfire"))
@@ -268,6 +279,10 @@ def main():
 
     if "isolated" in sections:
         probe_isolated(args.after_checks)
+    if "rollouts" in sections:
+        probe_rollouts()
+    if "render" in sections:
+        record.update(probe_render(smi))
     if "reset" in sections:
         record.update(probe_resets(args.reset_variant, probe_dir, gen, smi))
     if "maze" in sections:
@@ -350,6 +365,67 @@ def probe_isolated(after_checks: bool):
     cs.run_selfplay()
     if hasattr(cs, "run_vector_envs"):
         cs.run_vector_envs()
+
+
+def probe_rollouts():
+    """The four ``BatchedEnv`` rollouts, the Collect episode path and the
+    vector envs, timed as ``chip_smoke.py``'s phase 3 times them, with
+    nothing before them in the process but the build."""
+    import chip_smoke as cs
+
+    env, states, _, _ = cs.collect_main_path()
+    cs.time_rollout(env.rollout, "CollectSlab", states, cs.STEPS_PER_CALL, cs.MAIN.num_agents,
+                    cs.COLLECT_WARMUP_MAX)
+    for name, path, steps, agents, warmup in (
+            ("CtfSlab", cs.ctf_main_path, cs.CTF_STEPS_PER_CALL, CTF_MAIN.num_agents,
+             cs.CTF_WARMUP_MAX),
+            ("MazeSlab", cs.maze_main_path, cs.MAZE_STEPS_PER_CALL, 1, cs.MAZE_WARMUP_MAX),
+            ("WildfireSlab", cs.wildfire_main_path, cs.WF_STEPS_PER_CALL, WF_MAIN.num_agents,
+             cs.WF_WARMUP_MAX)):
+        env, _, _, states, _ = path()
+        cs.time_rollout(env.rollout, name, states, steps, agents, warmup)
+    roll, states, _, _ = cs.collect_episode_path()
+    cs.time_rollout(roll, "Collect episode", states, cs.STEPS_PER_CALL, MAIN.num_agents,
+                    cs.COLLECT_WARMUP_MAX)
+    cs.run_vector_envs()
+
+
+def probe_render(smi):
+    """Each family's batch render at B = 8192 beside the gathers it was
+    chosen over, each checked equal to it; CUDA events, median of 5 after
+    2 untimed calls (``chip_smoke.time_events``)."""
+    import chip_smoke as cs
+    from gym_multigrid_tpu_torch.render import tiles
+
+    record = {}
+    t = cs.RENDER_T
+    for name, make_batch, cfg, tile_ids, make_bank, render, _ in cs.RENDER_CASES:
+        states, _ = make_batch(cfg, B).reset(0)
+        ids = tile_ids(cfg, states)
+        n, h, w = ids.shape
+        bank = tiles._device_bank(make_bank, t, DEV)  # (K * T, T * 3) uint8
+        rows = (ids.to(torch.int32)[:, :, None, :] * t
+                + torch.arange(t, dtype=torch.int32, device=DEV)[None, None, :, None])
+        tile_bank = bank.view(-1, t, t, 3)
+        want = render(cfg, states)
+        variants = {
+            "renderer": lambda: render(cfg, states),
+            "row-index gather, bytes": lambda: bank.index_select(
+                0, rows.reshape(-1)).view(n, h * t, w * t, 3),
+            "row-index gather, 8-byte words": lambda: bank.view(torch.int64).index_select(
+                0, rows.reshape(-1)).view(torch.uint8).view(n, h * t, w * t, 3),
+            "two-pass gather": lambda: tile_bank[ids].permute(0, 1, 3, 2, 4, 5).reshape(
+                n, h * t, w * t, 3),
+        }
+        for variant, fn in variants.items():
+            assert torch.equal(fn(), want), f"{name}: {variant} differs"
+        variants["two-pass, the tile gather alone"] = lambda: tile_bank[ids]
+        for variant, fn in variants.items():
+            ms, all_ms = cs.time_events(fn)
+            record[f"render {name} {variant} ms"] = ms
+            log(f"render {name}, {variant}: {ms:.3f} ms {[round(x, 3) for x in all_ms]}, "
+                f"{want.numel() / ms / 1e6:.1f} GB/s of frames ({want.numel()} B; {smi})")
+    return record
 
 
 def probe_resets(variants, probe_dir, gen, smi):

@@ -302,23 +302,49 @@ def test_game_stats_after_a_forced_capture_equal_jax():
     np.testing.assert_array_equal(tenv.blue_traj[0][-1], [1, 6])
 
 
-@pytest.mark.parametrize("which", ["collect", "ctf", "maze", "wildfire"])
-def test_render_is_not_ported_and_raises(which):
+def _render_pair(which):
+    """(JAX adapter, port adapter) of one family, the port's state carried
+    over from JAX's after a reset and a few steps of JAX's env."""
     if which == "collect":
-        from gym_multigrid_tpu_torch.adapters.gym_adapter import CollectGameEvenDist
-
-        env = CollectGameEvenDist(device="cpu")
+        _ids()
+        jenv = gym.make("multigrid-collect-quadrants-v0").unwrapped
+        tenv = gym.make("MultiGridTorch/multigrid-collect-quadrants-v0", device="cpu").unwrapped
+        state_cls, acts = tcollect.CollectState, [[0, 1], [2, 2], [3, 1]]
     elif which == "ctf":
-        env = tca.Ctf1v1Env(MAP, device="cpu")
+        jenv, tenv = _pair(jca, tca, "CtFMvNEnv", map_path=MAP)
+        state_cls, acts = tctf.CtfState, [[1, 3], [4, 2], [0, 1]]
     elif which == "maze":
-        env = tma.MazeSingleAgentEnv(MAZE_MAP, device="cpu")
+        jenv, tenv = _pair(jma, tma, "MazeSingleAgentEnv", map_path=MAZE_MAP)
+        state_cls, acts = tmaze.MazeState, [1, 3, 4]
     else:
+        from gym_multigrid_tpu.adapters.wildfire_adapter import WildfireEnv as JWildfireEnv
         from gym_multigrid_tpu_torch.adapters.wildfire_adapter import WildfireEnv
 
-        env = WildfireEnv(device="cpu", size=8)
-    env.reset(seed=0)
-    with pytest.raises(NotImplementedError, match="render/tiles.py"):
-        env.render()
+        jenv, tenv = JWildfireEnv(size=8), WildfireEnv(device="cpu", size=8)
+        state_cls, acts = twf.WildfireState, [[1, 2], [3, 4], [0, 1]]
+    jenv.reset(seed=4)
+    tenv.reset(seed=4)
+    for a in acts:
+        jenv.step(a)
+    tenv._state = _carry(jenv._state, state_cls)
+    return jenv, tenv
+
+
+@pytest.mark.parametrize("which", ["collect", "ctf", "maze", "wildfire"])
+def test_render_matches_jax(which):
+    """``render()`` of the port's adapter equals the JAX adapter's on the
+    same state, and ``render_mode="human"`` shows it headless (Agg) and
+    ``close()`` closes the window."""
+    jenv, tenv = _render_pair(which)
+    want = jenv.render()
+    got = tenv.render()
+    assert type(got) is np.ndarray and got.dtype == want.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    tenv.render_mode = "human"
+    np.testing.assert_array_equal(tenv.render(), want)
+    assert tenv.window is not None
+    tenv.close()
+    assert tenv.window is None
 
 
 def test_adapters_need_a_device(monkeypatch):
