@@ -31,8 +31,24 @@ without them.  Phases, each of which fails the run on any fault:
    configs, and the Wildfire K-step entry ``wf_steps`` to its ``ms_spec``
    as chunks of 24 and of 8 on the three Wildfire configs, each at a
    ``max_steps`` of 30 so that every env resets at least twice, at
-   B = 8192, 8189 and 5.  Finished envs are respawned by each family's
-   ``reset_batch`` under the ``done`` mask.  Misaligned Wildfire uniforms
+   B = 8192, 8189 and 5.  The Wildfire K-step entry that makes its draws
+   in the kernel, ``wf_steps_philox``, is held to ``ms_philox_spec`` (the
+   same steps on the draws of ``ops/philox.py``'s counters) on the same
+   three configs, chunks of 24 and of 8 starting at their running step, at
+   ``max_steps`` 30 and B = 8192, 8189 and 5; the Wildfire episode rollout
+   at B = 64 on the card equals the same seed's rollout on the CPU bit for
+   bit.  Configs outside a kernel's envelope take the plain route on the
+   card and launch no kernel, bit-equal to the CPU on the same draws:
+   Collect on a 20x20 board (``step_spec`` and ``reset_rows`` on the
+   card against ``make_collect_slab(cfg, "cpu")``), CtF 5 v 5 on
+   ``board_large.txt`` and a 40x40 Wildfire board (batch envs at
+   max_steps 10; their per-env functions), the 40x40 Wildfire episode
+   rollout from one seed, and the episode step of a Maze map whose K-step
+   table does not fit (6 x 6 copies of ``board_maze.txt``); the Collect
+   20x20 respawn and Wildfire 40x40 episode rollouts are driven on the
+   card, and the per-env functions of the Collect 20x20, CtF 5 v 5 and
+   Wildfire 40x40 configs are held to the CPU.  Finished envs are respawned
+   by each family's ``reset_batch`` under the ``done`` mask.  Misaligned Wildfire uniforms
    are refused, not copied.  Collect with three agents, which no kernel
    takes, runs its plain route (``step_perm``, ``reset_rows``) on the
    card at B = 8192 for 60 chained steps with masked resets, bit-equal to
@@ -44,12 +60,13 @@ without them.  Phases, each of which fails the run on any fault:
    PyTorch) on the card, on CTF_MAIN and the 2v2 patrol config, bit-equal
    to the CPU over 60 chained steps with masked resets given the same
    actions, move orders and battle uniforms, launching no kernel.  The
-   per-env functions (``make_ctf``, ``make_maze``, ``make_wildfire``: the
-   batch functions at B = 1, so one step-kernel launch a step on the card)
-   on the card against the plain versions on the CPU over 60 chained
-   steps of CTF_MAIN, MAZE_MAIN and WF_MAIN at a max_steps of 30, given the
-   same actions and explicit draws, exactly 60 launches of each step
-   kernel; the adapters' host-policy path (a subclass of each stock CtF
+   per-env functions (``make_collect``, ``make_ctf``, ``make_maze``,
+   ``make_wildfire``: the batch functions at B = 1, so one step-kernel
+   launch a step on the card) on the card against the plain versions on
+   the CPU over 60 chained steps of MAIN, CTF_MAIN, MAZE_MAIN and WF_MAIN
+   at a max_steps of 30, given the same actions and explicit draws,
+   exactly 60 launches of each step kernel and one ``collect_reset``
+   launch a Collect reset; the adapters' host-policy path (a subclass of each stock CtF
    policy class acting on the host, then ``step_actions_fn``) on the card
    against the CPU over 60 steps, launching no kernel.  ``next_step_autoreset`` (the gymnasium NEXT_STEP
    step of the vector env) at B = 8192 on each family's main config at a
@@ -74,9 +91,14 @@ without them.  Phases, each of which fails the run on any fault:
    chunk=50)``, ``reset(seed=0)`` and 400 steps: eight ``ctf_steps``
    launches) and the Wildfire one (``make_wildfire_episode_rollout(WF_MAIN,
    8192, chunk=24)``, ``reset(seed=0)`` and 400 steps: seventeen
-   ``wf_steps`` launches).  Check each rollout's invariants; then, after
-   untimed calls until the time per call settles, time it, each kernel and
-   its plain version.  Then the two training paths, Collect and CtF:
+   ``wf_steps_philox`` launches, no draw), and beside it the same call as
+   it ran before its draws moved into the kernel (``torch.rand`` draws and
+   seventeen ``wf_steps`` launches).  Check each rollout's invariants;
+   then, after untimed calls until the time per call settles, time it,
+   each kernel and its plain version (the bound of ``wf_steps_philox``
+   counts the Philox calls and words that its inputs need, replayed with
+   the plain version), and the launch floor (an empty kernel's device time
+   a launch, beside ``maze_step``'s bound).  Then the two training paths, Collect and CtF:
    ``make_family_batch(family, 8192)``, ``ActorCritic(hidden=(256,
    256))``, ``PPOConfig(rollout_len=32, num_epochs=2, num_minibatches=8)``,
    the card's forward within 3e-2 of the CPU's on the same params and obs,
@@ -118,7 +140,7 @@ without them.  Phases, each of which fails the run on any fault:
    at B = 1 for 50 steps with an untrained full-width net, counted: one
    step-kernel launch a frame after the first reset, uint8 frames.
 4. Profile 50 steps of each ``BatchedEnv`` rollout, 100 of each episode
-   path, one iteration of each training path, one self-play iteration and
+   path (and of the pre-drawn Wildfire one), one iteration of each training path, one self-play iteration and
    one Collect evaluation call and one Collect vector-env step: device time
    by kernel and idle share.
 
@@ -138,6 +160,7 @@ import math
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -172,6 +195,7 @@ from gym_multigrid_tpu_torch.envs.maze import (  # noqa: E402
     make_maze_partial_encode,
 )
 from gym_multigrid_tpu_torch.envs.wildfire import (  # noqa: E402
+    BURNT,
     FIRE,
     TREE,
     WildfireConfig,
@@ -179,8 +203,15 @@ from gym_multigrid_tpu_torch.envs.wildfire import (  # noqa: E402
     make_wildfire,
     make_wildfire_partial_encode,
 )
-from gym_multigrid_tpu_torch.ops import _build, ctf_slab, maze_slab, wildfire_slab  # noqa: E402
+from gym_multigrid_tpu_torch.ops import (  # noqa: E402
+    _build,
+    ctf_slab,
+    maze_slab,
+    philox,
+    wildfire_slab,
+)
 from gym_multigrid_tpu_torch.ops.collect_slab import (  # noqa: E402
+    AGENT_COUNTS,
     collect_reset_slab,
     collect_step_slab,
     make_collect_episode_rollout,
@@ -203,7 +234,9 @@ from gym_multigrid_tpu_torch.ops.maze_slab import (  # noqa: E402
 )
 from gym_multigrid_tpu_torch.ops.wildfire_slab import (  # noqa: E402
     make_wildfire_episode_rollout,
+    ms_philox_spec,
     wf_ms_slab,
+    wf_philox_slab,
     wildfire_step_slab,
 )
 from gym_multigrid_tpu_torch.parallel.vector import (  # noqa: E402
@@ -283,10 +316,40 @@ MAZE_MAP = str(Path(__file__).resolve().parent / "tests" / "assets" / "board_maz
 MAZE_STEPS_PER_CALL = 1000
 MAZE_MAIN = MazeConfig.from_map_path(MAZE_MAP, max_steps=100)
 MAZE_PENALTY = MazeConfig.from_map_path(MAZE_MAP, max_steps=100, obstacle_penalty_ratio=0.5)
+
+
+def tiled_maze(cfg, reps):
+    """``cfg``'s map as reps x reps copies, the flag of the first copy kept
+    and the others cleared to background."""
+    fm = np.tile(cfg.field_map, (reps, reps))
+    first = np.zeros(fm.shape, dtype=bool)
+    first[:cfg.field_map.shape[0], :cfg.field_map.shape[1]] = True
+    fm[(fm == FLAG) & ~first] = BACKGROUND
+    return dataclasses.replace(cfg, map_data=tuple(tuple(int(v) for v in row) for row in fm))
+
+
+MAZE_LARGE = tiled_maze(MAZE_MAIN, 6)
 WF_STEPS_PER_CALL = 400
 WF_MAIN = WildfireConfig(size=16, max_steps=100)
 WF_FOUR = WildfireConfig(size=10, num_agents=4, agents_index=(1, 2, 4, 5), step_penalty=0.01)
 WF_SPREAD = WildfireConfig(size=32, p_spread=1.0, p_burnout=0.0)
+# Configs outside a kernel's envelope, which JAX runs as plain XLA: on the
+# card their slabs take the plain route.  A board above the Collect
+# kernels' 256 cells and the Wildfire kernels' 1024, ten CtF agents (the
+# kernels take 2 to 8), and a Maze map whose K-step table does not fit the
+# kernel's shared memory (6 x 6 copies of board_maze.txt, one flag).
+COLLECT_LARGE = CollectConfig(size=20)
+COLLECT_LARGE_RESPAWN = CollectConfig(size=20, layout="quadrants_respawn", respawn=True,
+                                      max_steps=50)
+WF_LARGE = WildfireConfig(size=40)
+CTF_LARGE = CtfConfig.from_map_path(
+    str(Path(__file__).resolve().parent / "tests" / "assets" / "board_large.txt"),
+    num_blue_agents=5, num_red_agents=5, enemy_policies=(PolicySpec("rw"),) * 5)
+# Envs and chained steps of the out-of-envelope checks (the CPU steps them
+# too); the Wildfire episode rollout card against CPU at B = 64.
+OUT_ROWS = 1024
+OUT_STEPS = 30
+ROLLOUT_CHECK_ROWS = 64
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 rate, and
 # int32 ALU ops on the CUDA cores (132 SMs x 64 int32 lanes x 1.98 GHz).
@@ -351,6 +414,14 @@ CTF_SPAWN_OPS = 9
 CTF_SPAWN_PAIR_OPS = 4
 WF_FRESH_CELL_OPS = 3
 WF_FRESH_FIRE_OPS = 31
+# The in-kernel draws of wf_steps_philox: a Philox4x32-10 call is 10 rounds
+# of two 32 x 32 -> 64-bit products (a high and a low half each: 4 int32
+# operations) and two three-input XORs (one LOP3 each on sm_90: 2), and the
+# key's two adds in the 9 rounds after the first (18): 78; each word it
+# gives that is read then costs its shift, convert and scale (an action id
+# its high product): 3.
+PHILOX_CALL_OPS = 78
+PHILOX_WORD_OPS = 3
 # Steps a CtF and a Wildfire episode-path launch runs (bench_all.py's
 # MS_CHUNKS), and the max_steps of their phase-2 configs: every env resets
 # at least three times in 100 steps.
@@ -491,44 +562,46 @@ def state_fields(states):
     return [getattr(states, f.name) for f in dataclasses.fields(states)]
 
 
-def check_any_agent_route(cfg, steps, seed):
-    """The plain any-agent route (``step_perm``, ``reset_rows``) on the
-    card against the same functions on the CPU at B = 8192, given the same
-    move orders (drawn on the CPU, copied to the card) and uniforms: states,
-    obs, rewards and flags bit for bit over chained steps, finished and a
-    twentieth of other rows reset under the mask.  No kernel launches; the
-    card's ``move_order`` gives permutations."""
+def check_any_agent_route(cfg, steps, seed, n=B, what="three-agent Collect"):
+    """The plain route on the card (``reset_rows``, and ``step_perm`` for
+    three agents or ``step_spec`` for one or two) against the slab the
+    public API builds on the CPU at B = ``n``, given the same uniforms and,
+    for three agents, the same move orders (drawn on the CPU, copied to
+    the card): states, obs, rewards and flags bit for bit over chained
+    steps, finished and a twentieth of other rows reset under the mask.
+    No kernel launches; the card's ``move_order`` gives permutations."""
     slab, cpu = make_collect_slab(cfg, DEV), make_collect_slab(cfg, "cpu")
-    check(not slab.kernel, "three agents took the kernel route")
+    check(not slab.kernel, f"{what} took the kernel route")
     gen = torch.Generator(device=DEV).manual_seed(seed)
     A = cfg.num_agents
     same, fields = card_equals_cpu, state_fields
 
     def run():
-        rnd = torch.rand((B, slab.reset_draws), generator=gen, device=DEV)
-        s, sc = reset_batch(slab, B, rnd=rnd), reset_batch(cpu, B, rnd=rnd.cpu())
+        rnd = torch.rand((n, slab.reset_draws), generator=gen, device=DEV)
+        s, sc = reset_batch(slab, n, rnd=rnd), reset_batch(cpu, n, rnd=rnd.cpu())
         err, resets = same(fields(s), fields(sc)), 0
         for _ in range(steps):
-            acts = actions(gen, A)
-            rnd = torch.rand((B, slab.step_draws), generator=gen, device=DEV)
-            perm = move_order(torch.rand((B, A), generator=gen, device=DEV).cpu())
-            got = step_batch(slab, s, acts, rnd=rnd, perm=perm.to(DEV))
+            acts = actions(gen, A)[:n]
+            rnd = torch.rand((n, slab.step_draws), generator=gen, device=DEV)
+            perm = (None if A in AGENT_COUNTS
+                    else move_order(torch.rand((n, A), generator=gen, device=DEV).cpu()))
+            got = step_batch(slab, s, acts, rnd=rnd, perm=None if perm is None else perm.to(DEV))
             want = step_batch(cpu, sc, acts.cpu(), rnd=rnd.cpu(), perm=perm)
             err = max(err, same(fields(got[0]) + list(got[1:5]), fields(want[0]) + list(want[1:5])))
-            done = got[3] | got[4] | (torch.rand((B,), generator=gen, device=DEV) < 0.05)
-            rnd = torch.rand((B, slab.reset_draws), generator=gen, device=DEV)
-            s = reset_batch(slab, B, rnd=rnd, done=done, states=got[0])
-            sc = reset_batch(cpu, B, rnd=rnd.cpu(), done=done.cpu(), states=want[0])
+            done = got[3] | got[4] | (torch.rand((n,), generator=gen, device=DEV) < 0.05)
+            rnd = torch.rand((n, slab.reset_draws), generator=gen, device=DEV)
+            s = reset_batch(slab, n, rnd=rnd, done=done, states=got[0])
+            sc = reset_batch(cpu, n, rnd=rnd.cpu(), done=done.cpu(), states=want[0])
             err = max(err, same(fields(s), fields(sc)))
             resets += int(done.sum())
         return err, resets
 
     counts, (err, resets) = run_counted(run)
-    check_launches(counts, {}, "three-agent Collect")
-    order = move_order(torch.rand((B, A), generator=gen, device=DEV))
+    check_launches(counts, {}, what)
+    order = move_order(torch.rand((n, A), generator=gen, device=DEV))
     check(bool((order.sort(dim=1).values == torch.arange(A, device=DEV)).all()),
           "move_order on the card is no permutation")
-    log(f"three-agent route on the card == the CPU: {steps} steps at B={B}, {resets} rows "
+    log(f"{what}, plain route on the card == the CPU: {steps} steps at B={n}, {resets} rows "
         f"reset, max_abs_err {err}")
     return err
 
@@ -578,7 +651,7 @@ def check_step_actions(cfg, name, steps, seed):
     states, obs, rewards, flags and info bit for bit over chained steps,
     finished and a twentieth of other rows reset under the mask with the
     same spawn uniforms."""
-    slab, cpu = ctf_slab.make_ctf_slab(cfg, DEV, kernel=False), ctf_slab.make_ctf_slab(cfg, "cpu")
+    slab, cpu = ctf_slab.make_ctf_slab(cfg, DEV), ctf_slab.make_ctf_slab(cfg, "cpu")
     gen = torch.Generator(device=DEV).manual_seed(seed)
     A, n_battles = cfg.num_agents, cfg.num_blue_agents * cfg.num_red_agents
     same, fields = card_equals_cpu, state_fields
@@ -630,12 +703,19 @@ def flat_step(out):
     scalars, the info by key."""
     state, obs, *scalars, info = out
     obs = [obs[k] for k in sorted(obs)] if isinstance(obs, dict) else [obs]
-    return state_fields(state) + obs + scalars + [info[k] for k in sorted(info)]
+    info = [info[k] for k in sorted(info)] if isinstance(info, dict) else [info]
+    return state_fields(state) + obs + scalars + info
 
 
 def per_env_draws(name, cfg, gen):
     """(reset_kwargs(), step_args()) of a family's per-env functions: each
     draws its actions and uniforms on the CPU from ``gen``."""
+    if name == "Collect":
+        slab = make_collect_slab(cfg, "cpu")
+        return (lambda: {"rnd": torch.rand(slab.reset_draws, generator=gen)},
+                lambda: ((torch.randint(-1, 8, (cfg.num_agents,), generator=gen,
+                                        dtype=torch.int32),),
+                         {"rnd": torch.rand(slab.step_draws, generator=gen)}))
     if name == "CtF":
         nb, width = cfg.num_blue_agents, ctf_slab.rnd_width(ctf_slab.make_ctf_ktables(cfg))
         return (lambda: {"rnd": torch.rand(cfg.num_agents, generator=gen)},
@@ -654,34 +734,59 @@ def on_card(args, kwargs):
     return (tuple(a.to(DEV) for a in args), {k: v.to(DEV) for k, v in kwargs.items()})
 
 
+def collect_fns(cfg, device):
+    """``make_collect``'s (reset_fn, step_fn, encode_fn) by the names the
+    other families' per-env functions use."""
+    reset_fn, step_fn, encode_fn = make_collect(cfg, device)
+    return types.SimpleNamespace(reset_fn=reset_fn, step_fn=step_fn, encode_fn=encode_fn)
+
+
 def check_per_env_functions(seed):
-    """``make_ctf``, ``make_maze`` and ``make_wildfire`` on the card against
-    the same functions on the CPU: PER_ENV_STEPS chained steps each on
-    CTF_MAIN, MAZE_MAIN and WF_MAIN at a max_steps of VEC_MAX_STEPS from
-    one spawn, with the same actions
-    and explicit draws (made on the CPU, copied to the card), a finished
+    """``make_collect``, ``make_ctf``, ``make_maze`` and ``make_wildfire``
+    on the card against the same functions on the CPU: PER_ENV_STEPS
+    chained steps each on MAIN, CTF_MAIN, MAZE_MAIN and WF_MAIN at a
+    max_steps of VEC_MAX_STEPS from one spawn, with the same actions and
+    explicit draws (made on the CPU, copied to the card), a finished
     episode restarting both from the same spawn draws: states, obs,
     rewards, flags and infos bit for bit.  The per-env functions take the
     batch functions' route at B = 1: on the card each step launches the
-    family's step kernel once (``ctf_step``, ``maze_step``,
-    ``wildfire_step``), on the CPU the plain version runs."""
+    family's step kernel once (``collect_step``, ``ctf_step``,
+    ``maze_step``, ``wildfire_step``) and each Collect reset the reset
+    kernel once (MAIN is truncation-only, so it resets every
+    VEC_MAX_STEPS steps); on the CPU the plain versions run."""
+    cases = [(name, make, dataclasses.replace(cfg, max_steps=VEC_MAX_STEPS))
+             for name, make, cfg in (("Collect", collect_fns, MAIN), ("CtF", make_ctf, CTF_MAIN),
+                                     ("Maze", make_maze, MAZE_MAIN),
+                                     ("Wildfire", make_wildfire, WF_MAIN))]
+    want = {k: PER_ENV_STEPS for k in ("collect_step", "ctf_step", "maze_step", "wildfire_step")}
+    want["collect_reset"] = 1 + PER_ENV_STEPS // VEC_MAX_STEPS
+    err, episodes = run_per_env(cases, PER_ENV_STEPS, seed, want, "per-env functions")
+    check(all(n > 0 for n in episodes.values()), f"episodes ended: {episodes}")
+    log(f"per-env functions on the card == the CPU: {PER_ENV_STEPS} steps each of MAIN, "
+        f"CTF_MAIN, MAZE_MAIN and WF_MAIN, episodes ended {episodes}, max_abs_err {err}")
+    return err
+
+
+def run_per_env(cases, steps, seed, want_launches, what):
+    """The per-env functions of each (name, make, cfg) of ``cases`` on the
+    card against the same on the CPU over ``steps`` chained steps, counted
+    and checked against ``want_launches``: (max_abs_err, episodes ended by
+    name)."""
     gen = torch.Generator().manual_seed(seed)
 
     def run():
         err, episodes = 0.0, {}
-        for name, make, cfg in (("CtF", make_ctf, CTF_MAIN), ("Maze", make_maze, MAZE_MAIN),
-                                ("Wildfire", make_wildfire, WF_MAIN)):
-            cfg = dataclasses.replace(cfg, max_steps=VEC_MAX_STEPS)
+        for name, make, cfg in cases:
             card, cpu = make(cfg, DEV), make(cfg, "cpu")
             reset_kw, step_args = per_env_draws(name, cfg, gen)
             episodes[name] = 0
-            for step in range(PER_ENV_STEPS + 1):
+            for step in range(steps + 1):
                 if step == 0 or bool(want[3] | want[4]):
                     kw = reset_kw()
                     s_cpu, s_card = cpu.reset_fn(**kw), card.reset_fn(**on_card((), kw)[1])
                     err = max(err, card_equals_cpu(state_fields(s_card), state_fields(s_cpu)))
                     episodes[name] += step > 0
-                if step == PER_ENV_STEPS:
+                if step == steps:
                     break
                 args, kw = step_args()
                 want = cpu.step_fn(s_cpu, *args, **kw)
@@ -690,13 +795,9 @@ def check_per_env_functions(seed):
                 s_cpu, s_card = want[0], got[0]
         return err, episodes
 
-    counts, (err, episodes) = run_counted(run)
-    check_launches(counts, {k: PER_ENV_STEPS for k in ("ctf_step", "maze_step", "wildfire_step")},
-                   "per-env functions")
-    check(all(n > 0 for n in episodes.values()), f"episodes ended: {episodes}")
-    log(f"per-env functions on the card == the CPU: {PER_ENV_STEPS} steps each of CTF_MAIN, "
-        f"MAZE_MAIN and WF_MAIN, episodes ended {episodes}, max_abs_err {err}")
-    return err
+    counts, result = run_counted(run)
+    check_launches(counts, want_launches, what)
+    return result
 
 
 def custom_policies(seed):
@@ -1026,6 +1127,188 @@ def check_wf_steps_kernel(cfg, name, seed, n=B, steps=100, chunks=(WF_CHUNK, 8))
     return err
 
 
+def check_wf_philox_kernel(cfg, name, seed, n=B, steps=100, chunks=(WF_CHUNK, 8)):
+    """``wf_philox_slab`` (the kernel entry ``wf_steps_philox``, its draws
+    made in the kernel) against ``ms_philox_spec`` over ``steps`` steps
+    with the auto-reset from the first reset of a rollout keyed by
+    ``seed``, random step counts, extinguished counts and running returns;
+    the chunks start at their running step, as the rollout's do.  Fails
+    unless every env finished at least two episodes."""
+    slab = wildfire_slab.make_wildfire_slab(cfg, DEV)
+    check(slab.kernel, f"{name}: not on the kernel route")
+    t, key = slab.t, philox.key_of(seed)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    start = wildfire_slab.reset_batch(slab, n, rnd=philox.first_reset_draws(
+        key, n, t.n_cells, wildfire_slab.fresh_picks(t), DEV))
+    sc0 = torch.randint(0, cfg.max_steps, (n,), generator=gen, device=DEV, dtype=torch.int32)
+    ext0 = torch.randint(0, 5, (n,), generator=gen, device=DEV, dtype=torch.int32)
+    run0 = torch.rand((n,), generator=gen, device=DEV) - 0.5
+    # The global step of each step, laid out as (steps, n) draws so that a
+    # chunk's slice starts at its first step.
+    step_ids = torch.arange(steps, dtype=torch.int32).view(steps, 1).expand(steps, n)
+    err, eps = check_steps_kernel(
+        lambda *a: wf_philox_slab(slab, *a[:5], key, int(a[5][0, 0]), a[5].shape[0]),
+        lambda K, *a: ms_philox_spec(t, K, *a[:5], key, int(a[5][0, 0])),
+        (start.cells.reshape(n, -1), start.agent_pos.reshape(n, -1), sc0, ext0, run0),
+        (step_ids,), chunks, f"wf_steps_philox kernel == ms_philox_spec: {name}")
+    check(bool((eps >= 2).all()), f"{name}: an env finished fewer than two episodes")
+    return err
+
+
+def check_wildfire_rollout_card_equals_cpu(seed, n=ROLLOUT_CHECK_ROWS, steps=100):
+    """``make_wildfire_episode_rollout(WF_MAIN, n)`` on the card against
+    the same on the CPU, both reset with ``seed``: the counter-based draws
+    give the same trajectory, the states, each env's running return and the
+    episode count bit for bit after two calls (chunks of 24, the second
+    call continuing the step count), one ``wf_steps_philox`` launch a chunk
+    on the card and no other kernel.  The metrics' two float sums over the
+    batch are torch reductions, whose order differs between the devices:
+    they agree to 1e-5 of the summed magnitudes."""
+    card = make_wildfire_episode_rollout(WF_MAIN, n, chunk=WF_CHUNK)
+    cpu = make_wildfire_episode_rollout(WF_MAIN, n, device="cpu", chunk=WF_CHUNK)
+    exact = ("run_return", "episodes")
+
+    def run():
+        (s, _), (sc, _) = card.reset(seed), cpu.reset(seed)
+        err, m, mc = card_equals_cpu(state_fields(s), state_fields(sc)), None, None
+        for _ in range(2):
+            s, m = card(s, steps, run_return=m and m["run_return"])
+            sc, mc = cpu(sc, steps, run_return=mc and mc["run_return"])
+            err = max(err, card_equals_cpu(state_fields(s) + [m[k] for k in exact],
+                                           state_fields(sc) + [mc[k] for k in exact]))
+            for k in ("reward_sum", "ep_return_sum"):
+                check(abs(float(m[k]) - float(mc[k])) <= 1e-5 * n * steps,
+                      f"Wildfire episode {k}: card {float(m[k])}, CPU {float(mc[k])}")
+        return err, int(m["episodes"])
+
+    counts, (err, episodes) = run_counted(run)
+    check_launches(counts, {"wf_steps_philox": 2 * -(-steps // WF_CHUNK)},
+                   "Wildfire episode card against CPU")
+    check(episodes > 0, "no episode ended")
+    log(f"Wildfire episode rollout, card == CPU from the same seed: 2 x {steps} steps at B={n}, "
+        f"{episodes} episodes in the second call, max_abs_err {err}")
+    return err
+
+
+def check_plain_route(name, make_batch, cfg, seed, n=OUT_ROWS, steps=OUT_STEPS):
+    """``make_batch(cfg, n)`` of a config outside the kernels' envelope on
+    the card: its slab takes the plain route, and it equals the same batch
+    on the CPU given the same draws (made on the card, copied to the CPU):
+    states, obs, rewards, flags and infos bit for bit over chained steps
+    with masked resets, launching no kernel."""
+    card, cpu = make_batch(cfg, n), make_batch(cfg, n, device="cpu")
+    check(not card.slab.kernel, f"{name}: the kernel route")
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def run():
+        rnd = torch.rand((n, card.slab.reset_draws), generator=gen, device=DEV)
+        s, sc = card.reset_batch(card.slab, n, rnd=rnd), cpu.reset_batch(cpu.slab, n, rnd=rnd.cpu())
+        err, resets = card_equals_cpu(state_fields(s), state_fields(sc)), 0
+        for _ in range(steps):
+            acts = torch.randint(0, card.num_actions, card.actions_shape, generator=gen, device=DEV,
+                                 dtype=torch.int32)
+            rnd = torch.rand((n, card.slab.step_draws), generator=gen, device=DEV)
+            got = card.step_batch(card.slab, s, acts, rnd=rnd, with_info=True)
+            want = cpu.step_batch(cpu.slab, sc, acts.cpu(), rnd=rnd.cpu(), with_info=True)
+            err = max(err, card_equals_cpu(flat_step(got), flat_step(want)))
+            done = got[3] | got[4]
+            rnd = torch.rand((n, card.slab.reset_draws), generator=gen, device=DEV)
+            s = card.reset_batch(card.slab, n, rnd=rnd, done=done, states=got[0])
+            sc = cpu.reset_batch(cpu.slab, n, rnd=rnd.cpu(), done=done.cpu(), states=want[0])
+            err = max(err, card_equals_cpu(state_fields(s), state_fields(sc)))
+            resets += int(done.sum())
+        return err, resets
+
+    counts, (err, resets) = run_counted(run)
+    check_launches(counts, {}, f"{name}, outside the kernels' envelope")
+    log(f"{name} outside the kernels' envelope, plain route on the card == the CPU: {steps} "
+        f"steps at B={n}, {resets} rows reset, max_abs_err {err}")
+    return err
+
+
+def check_out_of_envelope(seed):
+    """The configs no kernel takes, each on the card's plain route with no
+    kernel launched, against the CPU as the public API builds it there:
+    Collect above 256 cells (``step_spec`` and ``reset_rows``), ten CtF
+    agents and a Wildfire board above 1024 cells (their batch envs), the
+    Wildfire one's episode rollout from the same seed, the per-env
+    functions of all three, and the Maze episode path of a map whose
+    K-step table does not fit (``ms_spec`` on the card against the CPU on
+    the same draws); then the Collect, Wildfire and Maze episode rollouts
+    driven on the card.  Returns the largest max_abs_err."""
+    err = max(
+        check_any_agent_route(COLLECT_LARGE, OUT_STEPS, seed, n=OUT_ROWS,
+                              what="Collect above 256 cells"),
+        # At a max_steps of 10, so that rows finish and reset in the run.
+        check_plain_route("CtF, 5 v 5", make_ctf_batch,
+                          dataclasses.replace(CTF_LARGE, max_steps=10), seed + 1),
+        check_plain_route("Wildfire 40x40", make_wildfire_batch,
+                          dataclasses.replace(WF_LARGE, max_steps=10), seed + 2),
+    )
+    per_env_err, _ = run_per_env(
+        (("Collect", collect_fns, COLLECT_LARGE), ("CtF", make_ctf, CTF_LARGE),
+         ("Wildfire", make_wildfire, WF_LARGE)), OUT_STEPS,
+        seed + 3, {}, "per-env functions outside the kernels' envelope")
+    err = max(err, per_env_err)
+
+    card = make_wildfire_episode_rollout(WF_LARGE, OUT_ROWS, chunk=WF_CHUNK)
+    cpu = make_wildfire_episode_rollout(WF_LARGE, OUT_ROWS, device="cpu", chunk=WF_CHUNK)
+    check(not card.slab.kernel, "Wildfire 40x40 episode rollout on the kernel route")
+
+    def wildfire_episode():
+        (s, _), (sc, _) = card.reset(seed), cpu.reset(seed)
+        (s, m), (sc, mc) = card(s, 2 * WF_CHUNK), cpu(sc, 2 * WF_CHUNK)
+        return card_equals_cpu(state_fields(s) + [m["run_return"], m["episodes"]],
+                               state_fields(sc) + [mc["run_return"], mc["episodes"]])
+
+    counts, wf_err = run_counted(wildfire_episode)
+    check_launches(counts, {}, "Wildfire 40x40 episode rollout")
+    err = max(err, wf_err)
+
+    mslab, mcpu = maze_slab.make_maze_slab(MAZE_LARGE, DEV), maze_slab.make_maze_slab(MAZE_LARGE, "cpu")
+    check(not mslab.kernel, "the large Maze map on the kernel route")
+    gen = torch.Generator(device=DEV).manual_seed(seed + 4)
+
+    def maze_episode():
+        start = maze_slab.reset_batch(mslab, OUT_ROWS, generator=gen)
+        state = (start.pos, start.dir, start.step_count, torch.zeros((OUT_ROWS,), device=DEV))
+        e = 0.0
+        for _ in range(2):
+            acts = torch.randint(0, 5, (MAZE_CHUNK, OUT_ROWS), generator=gen, device=DEV,
+                                 dtype=torch.int32)
+            rnd = torch.rand((MAZE_CHUNK, OUT_ROWS), generator=gen, device=DEV)
+            got = maze_slab.ms_spec(mslab.t, MAZE_CHUNK, *state, acts, rnd, mslab.cells, mslab.bg)
+            want = maze_slab.ms_spec(mcpu.t, MAZE_CHUNK, *(x.cpu() for x in (*state, acts, rnd)),
+                                     mcpu.cells, mcpu.bg)
+            e = max(e, card_equals_cpu(got, want))
+            state = got[:4]
+        roll = make_maze_episode_rollout(MAZE_LARGE, OUT_ROWS, chunk=MAZE_CHUNK)
+        states, m = roll(roll.reset(seed)[0], 2 * MAZE_CHUNK)
+        check(int(m["episodes"]) > 0, "no Maze episode ended")
+        return e
+
+    counts, maze_err = run_counted(maze_episode)
+    check_launches(counts, {}, "the large Maze map's episode path")
+    err = max(err, maze_err)
+
+    def drive():
+        roll = make_collect_episode_rollout(COLLECT_LARGE_RESPAWN, OUT_ROWS)
+        check(not roll.slab.kernel, "Collect 20x20 episode rollout on the kernel route")
+        states, m = roll(roll.reset(seed)[0], 2 * COLLECT_LARGE_RESPAWN.max_steps)
+        check(bool(((states.grid_obj == BALL).sum(1) == COLLECT_LARGE_RESPAWN.num_balls).all()),
+              "balls on the Collect 20x20 boards")
+        check(float(m["reward_sum"]) > 0, "no Collect 20x20 reward")
+        roll = make_wildfire_episode_rollout(WF_LARGE, OUT_ROWS, chunk=WF_CHUNK)
+        states, m = roll(roll.reset(seed)[0], 4 * WF_CHUNK)
+        check(int(m["episodes"]) > 0, "no Wildfire 40x40 episode ended")
+
+    counts, _ = run_counted(drive)
+    check_launches(counts, {}, "the episode rollouts outside the envelope")
+    log(f"outside the kernels' envelope: every route plain on the card, no launch, "
+        f"max_abs_err {err}")
+    return err
+
+
 def wildfire_args(slab, states, acts, rnd):
     """The step's inputs from a batch state, as ``step_batch`` passes them."""
     B = states.cells.shape[0]
@@ -1100,6 +1383,74 @@ def check_misaligned_refused():
     raise AssertionError("misaligned Wildfire uniforms were taken")
 
 
+def philox_draws_needed(t, state, key, step0, K):
+    """(Philox calls, words read) that ``K`` steps of ``wf_steps_philox``
+    from ``state`` at global step ``step0`` need on these inputs, by
+    ``ops/philox.py``'s layout, replayed step by step with the plain
+    version: per env and step the actions' call (A words) and the move
+    order's (1); the cell uniforms of each lane's 4-cell group holding a
+    fire or a tree with a burning neighbour after the moves and the
+    extinguish (a word a cell that is one); on a reset, the tree
+    uniforms (a word a cell, a call a lane's group) and the picks (a word
+    each, four to a call)."""
+    cells, pos, sc, ext, run = state
+    n, C, A = cells.shape[0], t.n_cells, t.n_agents
+    picks = wildfire_slab.fresh_picks(t)
+    groups = -(-C // 128)
+    tree_calls = sum(min(32, C - 128 * q) for q in range(groups))
+    calls = words = 0
+    for k in range(K):
+        acts, rnd_step, rnd_reset = philox.episode_draws(
+            key, torch.tensor([step0 + k], device=DEV), n, A, C, picks, DEV)
+        xs, ys = wildfire_slab.move_agents(t, pos, acts[0], rnd_step[0][:, :1])
+        under = torch.zeros((n, C), dtype=torch.bool, device=DEV)
+        under.scatter_(1, (ys * t.width + xs).long(), True)
+        board = torch.where(under & (cells == FIRE), BURNT, cells)
+        cand = (board == FIRE) | ((board == TREE) & (wildfire_slab.neighbor_fires(t, board) > 0))
+        cand = torch.nn.functional.pad(cand, (0, 128 * groups - C)).view(n, groups, 4, 32)
+        calls += 2 * n + int(cand.any(dim=2).sum())
+        words += n * (A + 1) + int(cand.sum())
+        cells, pos, sc, ext, run, _, _, eps = wildfire_slab.ms_spec(
+            t, 1, cells, pos, sc, ext, run, acts, rnd_step, rnd_reset)
+        done = int(eps.sum())
+        calls += done * (tree_calls + -(-picks // 4))
+        words += done * (C + picks)
+    return calls, words
+
+
+def predrawn_wildfire_call(slab, gen, chunk=WF_CHUNK):
+    """The Wildfire episode call as it ran before its draws moved into the
+    kernel: each chunk draws its (K, B, A) actions, its step uniforms and
+    its fresh-board uniforms with ``torch.randint``/``torch.rand`` from
+    ``gen`` and runs one ``wf_steps`` launch (``wf_ms_slab``).
+    ``call(states, num_steps, run_return=None)`` returns what the episode
+    rollout returns, so the two are timed alike in one run."""
+    t = slab.t
+
+    def call(states, num_steps, run_return=None):
+        n = states.cells.shape[0]
+        run_ret = torch.zeros((n,), device=DEV) if run_return is None else run_return
+        sums = torch.zeros((2,), device=DEV)
+        episodes = torch.zeros((), dtype=torch.int32, device=DEV)
+        state = (states.cells.reshape(n, -1), states.agent_pos.reshape(n, -1),
+                 states.step_count, states.extinguished)
+        for start in range(0, num_steps, chunk):
+            K = min(chunk, num_steps - start)
+            draws = (torch.randint(0, 5, (K, n, t.n_agents), generator=gen, device=DEV,
+                                   dtype=torch.int32),
+                     torch.rand((K, n, slab.step_draws), generator=gen, device=DEV),
+                     torch.rand((K, n, slab.reset_draws), generator=gen, device=DEV))
+            *state, run_ret, rew, ep, eps = wf_ms_slab(slab, *state, run_ret, *draws)
+            sums = sums + torch.stack([rew.sum(), ep.sum()])
+            episodes = episodes + eps.sum(dtype=torch.int32)
+        cells, pos, sc, ext = state
+        return WildfireState(cells.view_as(states.cells), pos.view_as(states.agent_pos), sc, ext), {
+            "reward_sum": sums[0], "episodes": episodes, "ep_return_sum": sums[1],
+            "run_return": run_ret}
+
+    return call
+
+
 def time_ms(fn, iters, windows=5):
     """ms per call over ``windows`` windows of ``iters`` calls: CUDA events
     around each window, queued behind a device sleep so that host launch
@@ -1152,7 +1503,7 @@ def bound(nbytes, ops):
 WRAPPERS = {"collect_step": collect_step_slab, "collect_reset": collect_reset_slab,
             "ctf_step": ctf_step_slab, "ctf_steps": ctf_ms_slab, "maze_step": maze_step_slab,
             "maze_steps": maze_ms_slab, "wildfire_step": wildfire_step_slab,
-            "wf_steps": wf_ms_slab}
+            "wf_steps": wf_ms_slab, "wf_steps_philox": wf_philox_slab}
 
 
 def run_counted(drive):
@@ -2083,6 +2434,19 @@ def main():
             (WF_SPREAD, "32x32 spread, ragged", RAGGED[1]),
         ))
     )
+    # The same entry with its draws made in the kernel, against
+    # ms_philox_spec on the counters' draws: the three configs at B = 8192,
+    # 8189 and 5.
+    wf_px_err = max(
+        check_wf_philox_kernel(dataclasses.replace(cfg, max_steps=MS_CHECK_MAX_STEPS), name,
+                               seed=110 + 3 * i + j, n=n)
+        for i, (cfg, name) in enumerate((
+            (WF_MAIN, "WF_MAIN"), (WF_FOUR, "10x10, 4 agents, step penalty"),
+            (WF_SPREAD, "32x32, p_spread 1, p_burnout 0")))
+        for j, n in enumerate((B, *RAGGED))
+    )
+    wf_px_err = max(wf_px_err, check_wildfire_rollout_card_equals_cpu(seed=120))
+    out_err = check_out_of_envelope(seed=130)
 
     # Phase 3: each path, with the launch counts of its own run.
     launches, (env, *result) = run_counted(collect_main_path)
@@ -2297,11 +2661,20 @@ def main():
 
     # The Wildfire episode path: WF_CHUNK steps a launch.
     wfe_launches, (wfe_roll, *wfe_result) = run_counted(wildfire_episode_path)
-    check_launches(wfe_launches, {"wf_steps": -(-WF_STEPS_PER_CALL // WF_CHUNK)},
-                   "Wildfire episode")
+    wf_chunks = -(-WF_STEPS_PER_CALL // WF_CHUNK)
+    check_launches(wfe_launches, {"wf_steps_philox": wf_chunks}, "Wildfire episode")
     check_wildfire_path(wfe_roll, *wfe_result)
+    # The same call with its draws made by torch.rand and read by wf_steps
+    # (how the path ran before), from the same first states.
+    pre_call = predrawn_wildfire_call(wfe_roll.slab, torch.Generator(device=DEV).manual_seed(0))
+    pre_launches, (pre_states, pre_metrics) = run_counted(
+        lambda: pre_call(wfe_result[0], WF_STEPS_PER_CALL))
+    check_launches(pre_launches, {"wf_steps": wf_chunks}, "pre-drawn Wildfire episode")
+    check_episode_metrics(pre_metrics, WF_STEPS_PER_CALL, "wildfire, pre-drawn")
     wfe_states = time_rollout(wfe_roll, "Wildfire episode", wfe_result[2], WF_STEPS_PER_CALL,
                               WF_MAIN.num_agents, WF_WARMUP_MAX)
+    pre_states = time_rollout(pre_call, "Wildfire episode, pre-drawn (torch.rand and wf_steps)",
+                              pre_states, WF_STEPS_PER_CALL, WF_MAIN.num_agents, WF_WARMUP_MAX)
     A, C = wt.n_agents, wt.n_cells
     wfe_args = (wfe_states.cells.reshape(B, -1), wfe_states.agent_pos.reshape(B, -1),
                 wfe_states.step_count, wfe_states.extinguished, torch.zeros((B,), device=DEV),
@@ -2332,6 +2705,38 @@ def main():
         f"{wms_parts[1] * 1e3:.2f} us), ms_spec {wms_plain_ms * 1e3:.1f} us "
         f"{us(wms_plain_all)}; the chunk's three draws ({wms_draw_bytes} bytes written) "
         f"{wms_draw_ms * 1e3:.2f} us {us(wms_draw_all)}")
+    # The entry with its draws in the kernel, on the same states, at the
+    # rollout's next step: it reads only the state and draws only what the
+    # data needs (counted by replaying the chunk with the plain version).
+    wpx_args, wpx_key, wpx_step = wfe_args[:5], wfe_roll.key, wfe_roll.step
+    wpx_ms, wpx_all = time_ms(
+        lambda: wf_philox_slab(wslab, *wpx_args, wpx_key, wpx_step, WF_CHUNK), 200)
+    wpx_plain_ms, wpx_plain_all = time_ms(
+        lambda: ms_philox_spec(wt, WF_CHUNK, *wpx_args, wpx_key, wpx_step), 1, windows=3)
+    wpx_out = wf_philox_slab(wslab, *wpx_args, wpx_key, wpx_step, WF_CHUNK)
+    wpx_done = int(wpx_out[7].sum())
+    wpx_calls, wpx_words = philox_draws_needed(wt, wpx_args, wpx_key, wpx_step, WF_CHUNK)
+    wpx_bytes = sum(x.numel() * x.element_size() for x in (*wpx_args, *wpx_out))
+    wpx_ops = WF_CHUNK * (wf_ops + B * MS_STEP_OPS) + wpx_done * (
+        C * WF_FRESH_CELL_OPS + wt.n_fires * WF_FRESH_FIRE_OPS
+        + A * (CTF_SPAWN_OPS + 2 + CTF_SPAWN_PAIR_OPS * (A - 1))) + (
+        wpx_calls * PHILOX_CALL_OPS + wpx_words * PHILOX_WORD_OPS)
+    wpx_bound, wpx_by, *wpx_parts = bound(wpx_bytes, wpx_ops)
+    log(f"wf_steps_philox: {wpx_ms * 1e3:.2f} us/launch of {WF_CHUNK} steps (median of windows "
+        f"{us(wpx_all)}) against wf_steps' {wms_ms * 1e3:.2f} plus its draws' "
+        f"{wms_draw_ms * 1e3:.2f}; bound {wpx_bound * 1e3:.2f} us ({wpx_by}; {wpx_bytes} bytes take "
+        f"{wpx_parts[0] * 1e3:.2f} us, {wpx_ops} operations ({wpx_done} fresh boards, "
+        f"{wpx_calls} Philox calls, {wpx_words} words read; "
+        f"{wpx_words / (B * WF_CHUNK):.1f} words an env-step against the pre-drawn "
+        f"{A + wslab.step_draws + wslab.reset_draws}) {wpx_parts[1] * 1e3:.2f} us), "
+        f"ms_philox_spec {wpx_plain_ms * 1e3:.1f} us {us(wpx_plain_all)}")
+    # The launch floor: an empty kernel's device time a launch, queued back
+    # to back (torch.cuda._sleep(0): a spin of 0 cycles), beside the bound
+    # of maze_step, the kernel furthest below it.
+    floor_ms, floor_all = time_ms(lambda: torch.cuda._sleep(0), 200)
+    log(f"launch floor: an empty kernel takes {floor_ms * 1e3:.2f} us a launch (median of "
+        f"windows {us(floor_all)}); maze_step's bound {maze_bound * 1e3:.3f} us, its time "
+        f"{maze_ms * 1e3:.2f} us")
     # The training paths: a step kernel launch each rollout step (and the
     # masked Collect reset), none in the update.
     per_iter = TRAIN_CFG.rollout_len
@@ -2363,6 +2768,8 @@ def main():
     profile_rollout(me_roll, me_states, "Maze episode", steps=MAZE_CHUNK)
     profile_rollout(cte_roll, cte_states, "CtF episode", steps=2 * CTF_CHUNK)
     profile_rollout(wfe_roll, wfe_states, "Wildfire episode", steps=4 * WF_CHUNK + 4)
+    profile_rollout(pre_call, pre_states, "Wildfire episode, pre-drawn",
+                    steps=4 * WF_CHUNK + 4)
     profile_call(lambda: tc_step(tc_carry, tc_gen), "one Collect training iteration",
                  per_iter, "rollout step")
     profile_call(lambda: tf_step(tf_carry, tf_gen), "one CtF training iteration",
@@ -2426,12 +2833,22 @@ def main():
          "launches": cte_launches["ctf_steps"], "max_abs_err": ctf_ms_err,
          "ms": cms_ms, "plain_ms": cms_plain_ms, "bound_ms": cms_bound,
          "bound_by": cms_by, "library_ms": None},
+        # wf_steps' launches are those of the pre-drawn Wildfire episode
+        # call, which the episode path ran before wf_steps_philox.
         {"name": "wf_steps", "route": "cuda",
          "source": "gym_multigrid_tpu_torch/csrc/wildfire_step.cu",
          "replaces": "gym_multigrid_tpu/ops/pallas_wildfire.py:50",
-         "launches": wfe_launches["wf_steps"], "max_abs_err": wf_ms_err,
+         "launches": pre_launches["wf_steps"], "max_abs_err": wf_ms_err,
          "ms": wms_ms, "plain_ms": wms_plain_ms, "bound_ms": wms_bound,
          "bound_by": wms_by, "library_ms": None},
+        # The same K steps with the draws made in the kernel (ops/philox.py's
+        # counters), 24 steps a launch on the Wildfire episode path.
+        {"name": "wf_steps_philox", "route": "cuda",
+         "source": "gym_multigrid_tpu_torch/csrc/wildfire_step.cu",
+         "replaces": "gym_multigrid_tpu/ops/pallas_wildfire.py:50",
+         "launches": wfe_launches["wf_steps_philox"], "max_abs_err": wf_px_err,
+         "ms": wpx_ms, "plain_ms": wpx_plain_ms, "bound_ms": wpx_bound,
+         "bound_by": wpx_by, "library_ms": None},
     ]}
     # Launches of one evaluation call: evaluate() of the Collect family
     # batch, evaluate_ctf() of CTF_MAIN (self-play and the match evaluator
@@ -2442,7 +2859,7 @@ def main():
         r["launches_evaluation_call"] = per_eval[r["name"]]
         r["launches_vector_env"] = per_vec[r["name"]]
     log(f"per-env functions and host-policy path, card == CPU: max_abs_err {per_env_err}, "
-        f"{host_err}")
+        f"{host_err}; configs outside the kernels' envelope, card == CPU: {out_err}")
     log(json.dumps({"render": render_readings, "stacked_max_abs_err": stacked_err,
                     "toroid_max_abs_err": toroid_err, "gif_launches": gif_launches}))
     log(json.dumps(record))

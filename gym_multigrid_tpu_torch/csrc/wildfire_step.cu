@@ -78,6 +78,18 @@
 // stream of 8.5 MB of uniforms and about 57 M integer operations a step;
 // the uniforms of the fresh boards (260 an env a step) are drawn for the
 // plain version's contract but read only where an episode ended.
+//
+// The entry wf_steps_philox is wf_steps with its draws made in the kernel
+// by Philox4x32-10 (csrc/philox.cuh) from the counters of ops/philox.py:
+// its plain version ms_philox_spec forms acts, rnd and rnd_reset from the
+// same counters and runs ms_spec on them.  It takes the key and the global
+// step of its first step in place of the three draw tensors, so no uniform
+// crosses HBM, and it makes a uniform only where one is read: the actions
+// and the move order every step, a lane's four cell uniforms (one call)
+// only when a word of its group holds a fire or a tree with a burning
+// neighbour, the fresh board's only on the step its episode ended.  Both
+// K-step entries, and wildfire_step, skip the spread of a word with no such
+// cell (the `todo` words of extinguish), whose cells no uniform can change.
 
 #include <cuda_runtime.h>
 
@@ -85,6 +97,7 @@
 
 #include "copy_async.cuh"
 #include "move_order.cuh"
+#include "philox.cuh"
 #include "picks.cuh"
 
 namespace wildfire {
@@ -254,23 +267,34 @@ struct Burn {
   bool any_fire;
 };
 
-// The step's cells, on the board in registers: lane l holds cells
-// l, l + 32, ... in v (kEmpty past the board) and their uniforms in uc.
-// Fires under the agents (at their moved cells) are put out, then the
-// spread and the burnout run on one uniform per cell; v holds the new
-// board.  The words the stencil needs move between lanes by shuffles.
+// What the extinguish leaves for the spread: lane k holds the bit planes of
+// word k's burning-neighbour counts; bit k of `todo` (the same in every
+// lane) is set where word k holds a fire or a tree with a burning
+// neighbour, the only cells whose uniform is read.
+struct Spread {
+  unsigned plane0, plane1, plane2, todo;
+  int n_ext;  // this lane's fires put out
+};
+
+// The step's first half, on the board in registers: lane l holds cells
+// l, l + 32, ... in v (kEmpty past the board).  Fires under the agents (at
+// their moved cells) are put out, then the burning neighbours of every
+// cell are counted on the post-extinguish board.  The words the stencil
+// needs move between lanes by shuffles.
 template <int NK>
-__device__ __forceinline__ Burn burn(const Params& p, int lane, const int (&xs)[kMaxAgents],
-                                     const int (&ys)[kMaxAgents], int (&v)[NK],
-                                     const float (&uc)[NK], EdgeWords edge) {
-  const int C = p.w * p.h, A = p.n_agents;
+__device__ __forceinline__ Spread extinguish(const Params& p, int lane,
+                                             const int (&xs)[kMaxAgents],
+                                             const int (&ys)[kMaxAgents], int (&v)[NK],
+                                             EdgeWords edge) {
+  const int A = p.n_agents;
 
   // ---- extinguish: a fire cell under any agent becomes burnt ----
   int under[kMaxAgents];
 #pragma unroll
   for (int i = 0; i < kMaxAgents; ++i) under[i] = i < A ? ys[i] * p.w + xs[i] : -1;
   int n_ext = 0;
-  unsigned fire = 0u;  // lane k < NK: word k of the post-extinguish fire cells
+  // lane k < NK: word k of the post-extinguish fire cells and of the trees
+  unsigned fire = 0u, tree = 0u;
 #pragma unroll
   for (int k = 0; k < NK; ++k) {
     const int c = 32 * k + lane;
@@ -281,7 +305,11 @@ __device__ __forceinline__ Burn burn(const Params& p, int lane, const int (&xs)[
     n_ext += put_out;
     if (put_out) v[k] = kBurnt;
     const unsigned word = __ballot_sync(kFull, v[k] == kFire);
-    if (lane == k) fire = word;
+    const unsigned trees = __ballot_sync(kFull, v[k] == kTree);
+    if (lane == k) {
+      fire = word;
+      tree = trees;
+    }
   }
 
   // ---- neighbour counts as bit planes, lane k for word k ----
@@ -299,29 +327,53 @@ __device__ __forceinline__ Burn burn(const Params& p, int lane, const int (&xs)[
   const unsigned t1 = north ^ south, c1 = north & south;
   const unsigned t2 = west ^ east, c2 = west & east;
   const unsigned plane0 = t1 ^ t2, plane1 = (c1 ^ c2) | (t1 & t2), plane2 = c1 & c2;
+  // Lanes NK and up hold no fire and no tree.
+  const unsigned todo = __ballot_sync(kFull, (fire | (tree & (plane0 | plane1 | plane2))) != 0u);
+  return Spread{plane0, plane1, plane2, todo, n_ext};
+}
 
-  // ---- spread and burnout on one uniform per cell ----
+// The spread and the burnout of cell 32 k + lane, value vk, on its uniform
+// u, for a word with a bit of `todo` set (warp-uniform: the other words
+// change nothing whatever their uniforms, since a tree with no burning
+// neighbour has threshold 0).
+template <int NK>
+__device__ __forceinline__ void spread_cell(const Params& p, int lane, int k, const Spread& s,
+                                            int& vk, float u, int& n_ig, bool& burning) {
+  const int c = 32 * k + lane;
+  const bool b0 = (__shfl_sync(kFull, s.plane0, k) >> lane) & 1u;
+  const bool b1 = (__shfl_sync(kFull, s.plane1, k) >> lane) & 1u;
+  const bool b2 = (__shfl_sync(kFull, s.plane2, k) >> lane) & 1u;
+  if (c < p.w * p.h) {
+    // The threshold for b0 + 2 b1 + 4 b2 burning neighbours (0 for none).
+    const float p01 = b0 ? p.p_ig1 : 0.f, p23 = b0 ? p.p_ig3 : p.p_ig2;
+    const float p_ig = b2 ? p.p_ig4 : (b1 ? p23 : p01);
+    const bool ignite = vk == kTree && u < p_ig;
+    const bool burnout = vk == kFire && u < p.p_burnout;
+    vk = burnout ? kBurnt : (ignite ? kFire : vk);
+    n_ig += ignite;
+    burning |= vk == kFire;
+  }
+}
+
+__device__ __forceinline__ Burn burn_totals(const Spread& s, int n_ig, bool burning) {
+  return Burn{__reduce_add_sync(kFull, s.n_ext), __reduce_add_sync(kFull, n_ig),
+              __any_sync(kFull, burning) != 0};
+}
+
+// The step's cells with their uniforms in uc (lane l's cells l + 32 k):
+// the extinguish, then the spread and the burnout of the words that hold a
+// cell they can change; v holds the new board.
+template <int NK>
+__device__ __forceinline__ Burn burn(const Params& p, int lane, const int (&xs)[kMaxAgents],
+                                     const int (&ys)[kMaxAgents], int (&v)[NK],
+                                     const float (&uc)[NK], EdgeWords edge) {
+  const Spread s = extinguish<NK>(p, lane, xs, ys, v, edge);
   int n_ig = 0;
   bool burning = false;
 #pragma unroll
-  for (int k = 0; k < NK; ++k) {
-    const int c = 32 * k + lane;
-    const bool b0 = (__shfl_sync(kFull, plane0, k) >> lane) & 1u;
-    const bool b1 = (__shfl_sync(kFull, plane1, k) >> lane) & 1u;
-    const bool b2 = (__shfl_sync(kFull, plane2, k) >> lane) & 1u;
-    if (c < C) {
-      // The threshold for b0 + 2 b1 + 4 b2 burning neighbours (0 for none).
-      const float p01 = b0 ? p.p_ig1 : 0.f, p23 = b0 ? p.p_ig3 : p.p_ig2;
-      const float p_ig = b2 ? p.p_ig4 : (b1 ? p23 : p01);
-      const bool ignite = v[k] == kTree && uc[k] < p_ig;
-      const bool burnout = v[k] == kFire && uc[k] < p.p_burnout;
-      v[k] = burnout ? kBurnt : (ignite ? kFire : v[k]);
-      n_ig += ignite;
-      burning |= v[k] == kFire;
-    }
-  }
-  return Burn{__reduce_add_sync(kFull, n_ext), __reduce_add_sync(kFull, n_ig),
-              __any_sync(kFull, burning) != 0};
+  for (int k = 0; k < NK; ++k)
+    if ((s.todo >> k) & 1u) spread_cell<NK>(p, lane, k, s, v[k], uc[k], n_ig, burning);
+  return burn_totals(s, n_ig, burning);
 }
 
 // The team reward, in the plain version's order with no contraction.
@@ -406,23 +458,27 @@ __device__ __forceinline__ int nth_set_bit(unsigned m, int n) {
   return at;
 }
 
-// A fresh board from the env's C + n_fires + A uniforms `u`, as
-// ops.wildfire_slab.reset_spec draws it: a tree where u[c] < tree_density,
-// the fires picked without replacement among the trees (none once they are
-// used up), the agents picked without replacement among all cells.  The
-// tree cells are one ballot word per 32 cells, held by lane k for word k;
-// a fire pick finds its word by a prefix sum of the words' popcounts over
-// the lanes, then its bit.
-template <int NK>
+// A fresh board from the env's C + n_fires + A uniforms, as
+// ops.wildfire_slab.reset_spec draws it: a tree on cell c where its
+// uniform is below tree_density, the fires picked without replacement
+// among the trees (none once they are used up), the agents picked without
+// replacement among all cells.  tree_u(k) is the uniform of the lane's
+// cell 32 k + lane, called for cells on the board only; pick_u(j) that of
+// pick j (the fires', then the agents'), the same in every lane.  The tree
+// cells are one ballot word per 32 cells, held by lane k for word k; a fire
+// pick finds its word by a prefix sum of the words' popcounts over the
+// lanes, then its bit.
+template <int NK, typename TreeU, typename PickU>
 __device__ __forceinline__ void fresh_board(const Params& p, float tree_density, int n_fires,
-                                            int lane, const float* u, int (&v)[NK],
-                                            int (&xs)[kMaxAgents], int (&ys)[kMaxAgents]) {
+                                            int lane, TreeU&& tree_u, PickU&& pick_u,
+                                            int (&v)[NK], int (&xs)[kMaxAgents],
+                                            int (&ys)[kMaxAgents]) {
   const int C = p.w * p.h, A = p.n_agents;
   unsigned trees = 0u;
 #pragma unroll
   for (int k = 0; k < NK; ++k) {
     const int c = 32 * k + lane;
-    const bool tree = c < C && u[c] < tree_density;
+    const bool tree = c < C && tree_u(k) < tree_density;
     v[k] = tree ? kTree : kEmpty;
     const unsigned word = __ballot_sync(kFull, tree);
     if (lane == k) trees = word;
@@ -437,7 +493,7 @@ __device__ __forceinline__ void fresh_board(const Params& p, float tree_density,
     }
     const int count = __shfl_sync(kFull, upto, 31);
     if (count == 0) break;  // no tree left: no more fires
-    const int r = picks::floor_pick(u[C + j], count);
+    const int r = picks::floor_pick(pick_u(j), count);
     const bool mine = r < upto && r >= upto - here;
     const int word = __ffs(__ballot_sync(kFull, mine)) - 1;
     const int bit = __shfl_sync(kFull, mine ? nth_set_bit(trees, r - (upto - here)) : 0, word);
@@ -450,7 +506,7 @@ __device__ __forceinline__ void fresh_board(const Params& p, float tree_density,
 #pragma unroll
   for (int i = 0; i < kMaxAgents; ++i) {
     if (i < A) {
-      const int cell = picks::pick_untaken(u[C + n_fires + i], C, i, taken);
+      const int cell = picks::pick_untaken(pick_u(n_fires + i), C, i, taken);
       xs[i] = cell % p.w;
       ys[i] = cell / p.w;
     }
@@ -590,7 +646,7 @@ cudaError_t launch(const void* const* in, int* cells_out, const Outputs& out, co
   return cudaGetLastError();
 }
 
-// ---- the K-step kernel ----
+// ---- the K-step kernels ----
 
 // Steps of uniforms a warp keeps in flight ahead of the one it runs.
 constexpr int kStages = 4;
@@ -601,9 +657,9 @@ struct MsInputs {
   const int* sc;
   const int* ext;
   const float* run_ret;
-  const int* acts;         // (K, B, A)
-  const float* rnd;        // (K, B, 1 + C)
-  const float* rnd_reset;  // (K, B, C + n_fires + A)
+  const int* acts;         // (K, B, A); wf_steps only
+  const float* rnd;        // (K, B, 1 + C); wf_steps only
+  const float* rnd_reset;  // (K, B, C + n_fires + A); wf_steps only
 };
 
 struct MsOutputs {
@@ -620,22 +676,105 @@ struct MsOutputs {
 struct MsParams {
   int K, n_fires, max_steps;
   float tree_density;
+  // wf_steps_philox only: the key and the global step of the launch's
+  // first step (ops.philox's counter layout).
+  unsigned key0, key1, step0;
 };
 
-// Warps (envs) per block of the K-step kernel: as the step kernel's tile.
+// Warps (envs) per block of the K-step kernels: as the step kernel's tile.
 template <int NK>
 __host__ __device__ constexpr int ms_warps() {
   return tile_envs<NK>();
 }
 
-// Blocks of the K-step kernel an SM should hold at once, which caps its
+// Blocks of a K-step kernel an SM should hold at once, which caps its
 // registers.  Up to 256 cells, 4 blocks of 8 warps (64 registers a thread,
 // a few bytes spilled) run B = 8192 in two waves where the compiler's own
-// choice (107 registers, 2 blocks) takes four: measured faster by
-// scripts/torch_kernel_probe.py.  Larger boards keep the compiler's choice.
+// choice (107 registers, 2 blocks) takes four: measured faster for
+// wf_steps by scripts/torch_kernel_probe.py.  Larger boards keep the
+// compiler's choice.
 template <int NK>
 __host__ __device__ constexpr int ms_min_blocks() {
   return NK <= 8 ? 4 : 1;
+}
+
+// One env's state between steps, alike in every lane of its warp but for
+// the board: lane l holds cells l + 32 k in v.
+template <int NK>
+struct Env {
+  int v[NK];
+  int xs[kMaxAgents], ys[kMaxAgents];
+  int sc, ext, eps;
+  float run, rew_sum, ep_sum;
+};
+
+template <int NK>
+__device__ __forceinline__ void load_env(const MsInputs& in, const Params& p, int b, int lane,
+                                         Env<NK>& e) {
+  const int C = p.w * p.h, A = p.n_agents;
+#pragma unroll
+  for (int k = 0; k < NK; ++k) {
+    const int c = 32 * k + lane;
+    e.v[k] = c < C ? in.cells[(size_t)b * C + c] : kEmpty;
+  }
+#pragma unroll
+  for (int i = 0; i < kMaxAgents; ++i) {
+    e.xs[i] = i < A ? in.pos[(size_t)b * 2 * A + 2 * i] : 0;
+    e.ys[i] = i < A ? in.pos[(size_t)b * 2 * A + 2 * i + 1] : 0;
+  }
+  e.sc = in.sc[b];
+  e.ext = in.ext[b];
+  e.eps = 0;
+  e.run = in.run_ret[b];
+  e.rew_sum = e.ep_sum = 0.f;
+}
+
+// The step's sums, alike in every lane, in _ms_math's order; returns
+// whether the episode ended (the caller then puts a fresh board in).
+template <int NK>
+__device__ __forceinline__ bool account(const Params& p, int max_steps, const Burn& s,
+                                        Env<NK>& e) {
+  const float reward = team_reward(p, s);
+  const int sc2 = e.sc + 1;
+  const bool done = !s.any_fire || sc2 >= max_steps;
+  const float run2 = __fadd_rn(e.run, reward);
+  e.rew_sum = __fadd_rn(e.rew_sum, reward);
+  e.ep_sum = __fadd_rn(e.ep_sum, done ? run2 : 0.f);
+  e.eps += done;
+  e.run = done ? 0.f : run2;
+  e.sc = done ? 0 : sc2;
+  e.ext = done ? 0 : e.ext + s.n_ext;
+  return done;
+}
+
+template <int NK>
+__device__ __forceinline__ void store_env(const MsOutputs& out, const Params& p, int b, int lane,
+                                          const Env<NK>& e) {
+  const int C = p.w * p.h, A = p.n_agents;
+#pragma unroll
+  for (int k = 0; k < NK; ++k) {
+    const int c = 32 * k + lane;
+    if (c < C) out.cells[(size_t)b * C + c] = e.v[k];
+  }
+  if (lane < A) {
+    int x = 0, y = 0;
+#pragma unroll
+    for (int i = 0; i < kMaxAgents; ++i)
+      if (i == lane) {
+        x = e.xs[i];
+        y = e.ys[i];
+      }
+    out.pos[(size_t)b * 2 * A + 2 * lane] = x;
+    out.pos[(size_t)b * 2 * A + 2 * lane + 1] = y;
+  }
+  if (lane == 0) {
+    out.sc[b] = e.sc;
+    out.ext[b] = e.ext;
+    out.run_ret[b] = e.run;
+    out.rew_sum[b] = e.rew_sum;
+    out.ep_sum[b] = e.ep_sum;
+    out.eps[b] = e.eps;
+  }
 }
 
 // One warp per env runs all K steps with the board in its lanes'
@@ -675,21 +814,8 @@ steps_kernel(const MsInputs in, const MsOutputs out, const Params p, const MsPar
   __syncthreads();
   if (!live) return;  // a whole warp: no block barrier follows
 
-  int v[NK];
-#pragma unroll
-  for (int k = 0; k < NK; ++k) {
-    const int c = 32 * k + lane;
-    v[k] = c < C ? in.cells[(size_t)b * C + c] : kEmpty;
-  }
-  int xs[kMaxAgents], ys[kMaxAgents];
-#pragma unroll
-  for (int i = 0; i < kMaxAgents; ++i) {
-    xs[i] = i < A ? in.pos[(size_t)b * 2 * A + 2 * i] : 0;
-    ys[i] = i < A ? in.pos[(size_t)b * 2 * A + 2 * i + 1] : 0;
-  }
-  int sc = in.sc[b], ext = in.ext[b], eps = 0;
-  float run = in.run_ret[b], rew_sum = 0.f, ep_sum = 0.f;
-
+  Env<NK> e;
+  load_env<NK>(in, p, b, lane, e);
   for (int kk = 0; kk < q.K; ++kk) {
     copy_async::wait<kStages - 1>();
     __syncwarp();
@@ -708,49 +834,100 @@ steps_kernel(const MsInputs in, const MsOutputs out, const Params p, const MsPar
     __syncwarp();
     issue(kk + kStages);  // into the stage just read
 
-    move_all(p, s_orders, u0, act, xs, ys);
-    const Burn s = burn<NK>(p, lane, xs, ys, v, uc, edge);
-    // The sums, alike in every lane, in _ms_math's order.
-    const float reward = team_reward(p, s);
-    const int sc2 = sc + 1;
-    const bool done = !s.any_fire || sc2 >= q.max_steps;
-    const float run2 = __fadd_rn(run, reward);
-    rew_sum = __fadd_rn(rew_sum, reward);
-    ep_sum = __fadd_rn(ep_sum, done ? run2 : 0.f);
-    eps += done;
-    run = done ? 0.f : run2;
-    sc = done ? 0 : sc2;
-    ext = done ? 0 : ext + s.n_ext;
-    if (done) {
+    move_all(p, s_orders, u0, act, e.xs, e.ys);
+    const Burn s = burn<NK>(p, lane, e.xs, e.ys, e.v, uc, edge);
+    if (account<NK>(p, q.max_steps, s, e)) {
       const float* u = in.rnd_reset + ((size_t)kk * B + b) * (C + q.n_fires + A);
-      fresh_board<NK>(p, q.tree_density, q.n_fires, lane, u, v, xs, ys);
+      fresh_board<NK>(
+          p, q.tree_density, q.n_fires, lane, [&](int k) { return u[32 * k + lane]; },
+          [&](int j) { return u[C + j]; }, e.v, e.xs, e.ys);
     }
   }
+  store_env<NK>(out, p, b, lane, e);
+}
 
-#pragma unroll
-  for (int k = 0; k < NK; ++k) {
-    const int c = 32 * k + lane;
-    if (c < C) out.cells[(size_t)b * C + c] = v[k];
+// Uniforms of one stream laid out four to a counter (ops.philox): value j
+// is word j % 4 of the counter (index_of(j / 4), b, s, stream).  The last
+// counter's words are kept, so consecutive values of one counter cost one
+// call.
+struct LazyDraws {
+  unsigned b, s, stream, key0, key1;
+  int lane_base;  // index_of(g) = 32 g + lane_base for a cell stream, g for picks
+  int stride;     // 32 for a cell stream, 1 for picks
+  int group = -1;
+  philox::Words words{};
+
+  __device__ __forceinline__ float operator()(int j) {
+    if ((j >> 2) != group) {
+      group = j >> 2;
+      words = philox::philox(stride * group + lane_base, b, s, stream, key0, key1);
+    }
+    return philox::uniform(words.w[j & 3]);
   }
-  if (lane < A) {
-    int x = 0, y = 0;
+};
+
+// wf_steps with its draws made in the kernel from ops.philox's counters,
+// each only where it is read: the actions and the move order every step
+// (lane 0 and lane 1 each make one call, shared by shuffles); a group of
+// four cell uniforms (one call a lane: its cells l + 32 k, k = 4 g ..
+// 4 g + 3) only when a word of the group holds a fire or a tree with a
+// burning neighbour, the words with neither skipping the spread; a fresh
+// board's uniforms only on the step its episode ended.  No uniform crosses
+// HBM, and the board stays in the warp's registers for all K steps.
+template <int NK>
+__global__ void __launch_bounds__(ms_warps<NK>() * 32, ms_min_blocks<NK>())
+philox_steps_kernel(const MsInputs in, const MsOutputs out, const Params p, const MsParams q) {
+  constexpr int kWarps = ms_warps<NK>();
+  __shared__ unsigned s_orders[kNumOrders];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarps + warp;
+  const int A = p.n_agents;
+  for (int i = threadIdx.x; i < kNumOrders; i += blockDim.x) s_orders[i] = kMoveOrders[i];
+  const EdgeWords edge = edge_words<NK>(p, lane);
+  __syncthreads();
+  if (b >= p.B) return;  // a whole warp: no block barrier follows
+
+  Env<NK> e;
+  load_env<NK>(in, p, b, lane, e);
+  for (int kk = 0; kk < q.K; ++kk) {
+    const unsigned s = q.step0 + (unsigned)kk;
+    // Lane 0: the actions' call; lane 1: the move order's.
+    const philox::Words w = philox::philox(0u, b, s, lane == 1 ? philox::kOrder : philox::kActions,
+                                           q.key0, q.key1);
+    int act[kMaxAgents];
 #pragma unroll
-    for (int i = 0; i < kMaxAgents; ++i)
-      if (i == lane) {
-        x = xs[i];
-        y = ys[i];
+    for (int i = 0; i < kMaxAgents; ++i) {
+      const unsigned x = __shfl_sync(kFull, w.w[i], 0);
+      act[i] = i < A ? philox::action(x) : 0;
+    }
+    const float u0 = philox::uniform(__shfl_sync(kFull, w.w[0], 1));
+    move_all(p, s_orders, u0, act, e.xs, e.ys);
+
+    const Spread sp = extinguish<NK>(p, lane, e.xs, e.ys, e.v, edge);
+    int n_ig = 0;
+    bool burning = false;
+#pragma unroll
+    for (int g = 0; g < (NK + 3) / 4; ++g) {
+      if ((sp.todo >> (4 * g)) & 15u) {
+        const philox::Words c =
+            philox::philox(32u * g + lane, b, s, philox::kCells, q.key0, q.key1);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = 4 * g + j;
+          if (k < NK && ((sp.todo >> k) & 1u))
+            spread_cell<NK>(p, lane, k, sp, e.v[k < NK ? k : 0], philox::uniform(c.w[j]), n_ig,
+                            burning);
+        }
       }
-    out.pos[(size_t)b * 2 * A + 2 * lane] = x;
-    out.pos[(size_t)b * 2 * A + 2 * lane + 1] = y;
+    }
+    if (account<NK>(p, q.max_steps, burn_totals(sp, n_ig, burning), e)) {
+      fresh_board<NK>(p, q.tree_density, q.n_fires, lane,
+                      LazyDraws{(unsigned)b, s, philox::kTrees, q.key0, q.key1, lane, 32},
+                      LazyDraws{(unsigned)b, s, philox::kPicks, q.key0, q.key1, 0, 1}, e.v, e.xs,
+                      e.ys);
+    }
   }
-  if (lane == 0) {
-    out.sc[b] = sc;
-    out.ext[b] = ext;
-    out.run_ret[b] = run;
-    out.rew_sum[b] = rew_sum;
-    out.ep_sum[b] = ep_sum;
-    out.eps[b] = eps;
-  }
+  store_env<NK>(out, p, b, lane, e);
 }
 
 template <int NK>
@@ -767,6 +944,15 @@ cudaError_t launch_steps(const MsInputs& in, const MsOutputs& out, const Params&
   }
   const int blocks = (p.B + kWarps - 1) / kWarps;
   kernel<<<blocks, kWarps * 32, smem, stream>>>(in, out, p, q);
+  return cudaGetLastError();
+}
+
+template <int NK>
+cudaError_t launch_philox_steps(const MsInputs& in, const MsOutputs& out, const Params& p,
+                                const MsParams& q, cudaStream_t stream) {
+  constexpr int kWarps = ms_warps<NK>();
+  const int blocks = (p.B + kWarps - 1) / kWarps;
+  philox_steps_kernel<NK><<<blocks, kWarps * 32, 0, stream>>>(in, out, p, q);
   return cudaGetLastError();
 }
 
@@ -854,5 +1040,42 @@ extern "C" int wf_steps(const void* cells, const void* pos, const void* sc, cons
              : nk == 8  ? launch_steps<8>
              : nk == 16 ? launch_steps<16>
                         : launch_steps<32>;
+  return (int)run(in, out, p, q, (cudaStream_t)stream);
+}
+
+// wf_steps with the draws made in the kernel (ops.wildfire_slab.wf_philox_slab;
+// plain version ms_philox_spec): K steps with the auto-reset from step
+// step0 of the rollout keyed by (key0, key1), the uint32 words of ops.philox
+// passed as int.  State inputs and outputs as for wf_steps; no acts, rnd or
+// rnd_reset.  Launches on `stream` and returns the launch's cudaError_t.
+extern "C" int wf_steps_philox(const void* cells, const void* pos, const void* sc,
+                               const void* ext, const void* run_ret, void* cells_out,
+                               void* pos_out, void* sc_out, void* ext_out, void* run_out,
+                               void* rew_sum, void* ep_sum, void* eps, int B, int K, int width,
+                               int height, int n_agents, int n_fires, int max_steps, int key0,
+                               int key1, int step0, float p_ig1, float p_ig2, float p_ig3,
+                               float p_ig4, float p_burnout, float ext_reward,
+                               float burn_penalty, float step_penalty, float tree_density,
+                               void* stream) {
+  using namespace wildfire;
+  const int C = width * height;
+  if (B < 1 || K < 1 || n_agents < 1 || n_agents > kMaxAgents || width < 1 || height < 1 ||
+      C > kMaxCells || n_fires < 0)
+    return (int)cudaErrorInvalidValue;
+  const Params p{B, width, height, n_agents, p_ig1, p_ig2, p_ig3, p_ig4,
+                 p_burnout, ext_reward, burn_penalty, step_penalty};
+  const MsParams q{K, n_fires, max_steps, tree_density,
+                   (unsigned)key0, (unsigned)key1, (unsigned)step0};
+  const MsInputs in{(const int*)cells, (const int*)pos, (const int*)sc, (const int*)ext,
+                    (const float*)run_ret, nullptr, nullptr, nullptr};
+  const MsOutputs out{(int*)cells_out, (int*)pos_out, (int*)sc_out, (int*)ext_out,
+                      (float*)run_out, (float*)rew_sum, (float*)ep_sum, (int*)eps};
+  const int nk = words_for(C);
+  auto run = nk == 1    ? launch_philox_steps<1>
+             : nk == 2  ? launch_philox_steps<2>
+             : nk == 4  ? launch_philox_steps<4>
+             : nk == 8  ? launch_philox_steps<8>
+             : nk == 16 ? launch_philox_steps<16>
+                        : launch_philox_steps<32>;
   return (int)run(in, out, p, q, (cudaStream_t)stream);
 }

@@ -364,30 +364,36 @@ def make_collect(cfg: CollectConfig, device=None):
     counterpart of JAX's ``make_collect``.  A state of one env is a
     :class:`CollectState` whose fields have no batch axis.
 
-    - ``reset_fn(generator) -> state``
-    - ``step_fn(state, actions, generator=None, *, perm=None)
+    - ``reset_fn(generator=None, *, rnd=None) -> state``
+    - ``step_fn(state, actions, generator=None, *, rnd=None, perm=None)
       -> (state', obs, rewards (A,), terminated, truncated, info_counts)``
       with ``actions`` (A,) ids 0..3 (others are a no-op)
     - ``encode_fn(state) -> (W, H, 3) uint8``
 
-    Randomness comes from the ``generator`` argument; ``perm`` (A,) gives
-    the move order instead of drawing it.  The step is ``step_perm`` at
-    B = 1: a uniform move order of any number of agents.
-    Device as for ``make_collect_batch``: the current CUDA device by
-    default, ``device="cpu"`` on the CPU; the functions are plain PyTorch
-    on either."""
+    These are the batch functions of ``ops/collect_slab.py`` at B = 1, on
+    the slab's route (``kernel_route``): a config the kernels take launches
+    the step kernel, and the reset kernel on each reset, on a CUDA device
+    and runs their plain versions on the CPU; any other config is plain
+    PyTorch on either.  Randomness comes from ``generator``, or as ``rnd``:
+    ``reset_fn``'s (``reset_draws``,) and ``step_fn``'s (``step_draws``,)
+    uniforms of the slab.  ``perm`` (A,) gives the move order of an agent
+    count other than one or two instead of drawing it.  Device as for
+    ``make_collect_batch``: the current CUDA device by default,
+    ``device="cpu"`` on the CPU."""
     from gym_multigrid_tpu_torch.ops import _build, collect_slab
 
     device = _build.default_device(device, "make_collect")
-    slab = collect_slab.build_slab(cfg, device, kernel=False)
+    slab = collect_slab.make_collect_slab(cfg, device)
 
-    def reset_fn(generator):
-        return row(collect_slab.reset_batch(slab, 1, generator=generator))
+    def reset_fn(generator=None, *, rnd=None):
+        return row(collect_slab.reset_batch(slab, 1, generator=generator,
+                                            rnd=given(rnd, device)))
 
-    def step_fn(state, actions, generator=None, *, perm=None):
+    def step_fn(state, actions, generator=None, *, rnd=None, perm=None):
         actions = torch.as_tensor(actions, device=device).reshape(1, cfg.num_agents)
         return step_row(collect_slab.step_batch(
-            slab, batch(state), actions, generator=generator, perm=given(perm, device)
+            slab, batch(state), actions, generator=generator, rnd=given(rnd, device),
+            perm=given(perm, device),
         ))
 
     def encode_fn(state):

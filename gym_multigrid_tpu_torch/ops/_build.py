@@ -63,6 +63,7 @@ ENTRY_POINTS = {
     "wildfire_step.cu": {
         "wildfire_step": [_P] * 9 + [_I] * 5 + [_F] * 8 + [_P],
         "wf_steps": [_P] * 16 + [_I] * 7 + [_F] * 9 + [_P],
+        "wf_steps_philox": [_P] * 13 + [_I] * 10 + [_F] * 9 + [_P],
     },
 }
 

@@ -9,12 +9,16 @@ CUDA kernels in ``gym_multigrid_tpu_torch/csrc/``, and its plain bodies
 
 * :func:`collect_step_slab` / :func:`collect_reset_slab` take the plain
   version for tensors on the CPU and launch the kernel for CUDA tensors.
-  On the card the kernel is the only implementation: there is no fallback.
-* The kernels take one or two agents, as JAX's do.  Any other count takes
-  :func:`step_perm` (JAX's ``step_fn`` loop over a move-order tensor) and
-  :func:`reset_rows` in plain PyTorch on every device, as JAX runs
-  ``vmap(step_one)`` there: the agent count picks the route once, when
-  the slab is built (``CollectSlab.kernel``).
+  They are never a fallback: a slab whose config the kernels do not take
+  calls plain versions itself.
+* The kernels take one or two agents, as JAX's do, and off the CPU boards
+  of at most ``MAX_CELLS`` cells.  Any other config takes the plain route
+  on the slab's device, as JAX runs ``vmap(step_one)`` or plain XLA there:
+  :func:`reset_rows`, and for one or two agents the step kernel's own
+  plain version :func:`step_spec` (so a seed draws alike on either route),
+  for any other count :func:`step_perm` (JAX's ``step_fn`` loop over a
+  move-order tensor).  :func:`kernel_route` picks the route once, when
+  the slab is built (``CollectSlab.kernel``), for every path.
 * :func:`step_batch` / :func:`reset_batch` are the batch glue of
   ``make_collect_step_batch`` / ``make_collect_reset_batch``: reward-slot
   tables, info counters, terminated/truncated and the obs.  Their uniforms
@@ -300,18 +304,36 @@ def step_perm(t: _Tables, go, gc, gs, pos, acts, perm, rnd, rects):
     return go, gc, gs, torch.stack([xs, ys], dim=2).reshape(B, 2 * A), picked
 
 
-def _check_envelope(n_cells, n_agents):
-    """Raise unless the kernels take ``n_agents`` agents on ``n_cells``
-    cells; ``n_cells`` None checks the agents only."""
+def _envelope_fault(n_cells, n_agents) -> str | None:
+    """Why the kernels do not take ``n_agents`` agents on ``n_cells``
+    cells, or None where they do; ``n_cells`` None checks the agents
+    only."""
     if n_agents not in AGENT_COUNTS:
-        raise ValueError(
-            f"the Collect kernels take {AGENT_COUNTS} agents, got {n_agents}"
-        )
+        return f"the Collect kernels take {AGENT_COUNTS} agents, got {n_agents}"
     if n_cells is not None and n_cells > MAX_CELLS:
-        raise ValueError(
-            f"the Collect kernels take boards of at most {MAX_CELLS} cells, "
-            f"got {n_cells}"
-        )
+        return f"the Collect kernels take boards of at most {MAX_CELLS} cells, got {n_cells}"
+    return None
+
+
+def _check_envelope(n_cells, n_agents):
+    """Raise unless the kernels take this config (:func:`_envelope_fault`)."""
+    fault = _envelope_fault(n_cells, n_agents)
+    if fault:
+        raise ValueError(fault)
+
+
+def kernel_route(cfg: CollectConfig, device_type: str) -> bool:
+    """The route of a slab of ``cfg`` on a device of this type, decided
+    once when the slab is built: True for the kernel wrappers
+    (:func:`collect_step_slab`, :func:`collect_reset_slab`), which launch
+    the kernels on the card and run their plain versions on the CPU; False
+    for the plain route on the device's tensors.  One or two
+    agents take the kernels, on the CPU on any board (its "kernels" are the
+    plain versions) and off it within ``MAX_CELLS`` cells, as JAX's batch
+    runs the rest as plain XLA.  Not a fallback: nothing is tried and
+    caught."""
+    cells = None if device_type == "cpu" else cfg.num_cells
+    return _envelope_fault(cells, cfg.num_agents) is None
 
 
 def collect_step_slab(t: _Tables, go, gc, gs, pos, acts, rnd, rects):
@@ -524,10 +546,12 @@ class CollectSlab:
     slot_rewards: torch.Tensor  # (n_slots,) float32
     slot_info: torch.Tensor  # (n_slots,) int32
     info_ids: torch.Tensor  # (num_ball_types,) int32: 0, 1, ...
-    #: The route: the kernels (:func:`collect_step_slab`,
-    #: :func:`collect_reset_slab`, their plain versions on the CPU) for the
-    #: agent counts they take, else :func:`step_perm` and
-    #: :func:`reset_rows` in plain PyTorch on the slab's device.
+    #: The route (:func:`kernel_route`): the kernels
+    #: (:func:`collect_step_slab`, :func:`collect_reset_slab`, their plain
+    #: versions on the CPU) for the configs they take, else
+    #: :func:`reset_rows` and :func:`step_spec` (one or two agents) or
+    #: :func:`step_perm` (any other count) in plain PyTorch on the slab's
+    #: device.
     kernel: bool
 
     @property
@@ -537,31 +561,19 @@ class CollectSlab:
 
     @property
     def step_draws(self) -> int:
-        """Uniforms one env's step takes: the move order and two respawns
-        on the kernel route, a move-order key and a respawn per agent on
-        the other."""
-        return 3 if self.kernel else 2 * self.cfg.num_agents
+        """Uniforms one env's step takes: for one or two agents
+        :func:`step_spec`'s move order and two respawns, for any other
+        count a move-order key and a respawn per agent."""
+        return 3 if self.cfg.num_agents in AGENT_COUNTS else 2 * self.cfg.num_agents
 
 
 def make_collect_slab(cfg: CollectConfig, device) -> CollectSlab:
-    """The slab of ``cfg`` on ``device``.  The agent count alone picks the
-    route, as JAX's ``make_collect_step_batch`` does: one or two agents
-    take the kernels, which off the CPU must also fit the cell bound
-    (:func:`_check_envelope`); any other count takes the plain any-agent
-    step and reset on every device, where no kernel computes it, in
-    either package."""
-    device = torch.device(device)
-    kernel = cfg.num_agents in AGENT_COUNTS
-    if kernel and device.type != "cpu":
-        _check_envelope(cfg.num_cells, cfg.num_agents)
-    return build_slab(cfg, device, kernel)
-
-
-def build_slab(cfg: CollectConfig, device, kernel: bool) -> CollectSlab:
-    """The slab of ``cfg`` on ``device`` with its route given and no
-    envelope check: ``kernel=False`` runs :func:`step_perm` and
-    :func:`reset_rows` for any agent count and board (the per-env
-    functions of ``envs/collect.py`` take it)."""
+    """The slab of ``cfg`` on ``device``, its route picked by
+    :func:`kernel_route`: one or two agents take the kernels, as JAX's
+    ``make_collect_step_batch`` does, where they fit the card's cell bound;
+    any other config takes the plain step and reset on the slab's
+    device.  Every path builds its slab here: the batch env, the per-env
+    functions and the episode rollout."""
     device = torch.device(device)
     t = make_tables(cfg)
     rt, plan = make_reset_tables(cfg)
@@ -576,7 +588,7 @@ def build_slab(cfg: CollectConfig, device, kernel: bool) -> CollectSlab:
         slot_rewards=torch.as_tensor(slot_rewards, device=device),
         slot_info=torch.as_tensor(slot_info, device=device),
         info_ids=torch.arange(cfg.num_ball_types, dtype=torch.int32, device=device),
-        kernel=kernel,
+        kernel=kernel_route(cfg, device.type),
     )
 
 
@@ -594,14 +606,20 @@ def step_batch(
 
     Returns (states', obs, rewards (B, A) float32, terminated (B,),
     truncated (B,), info_counts).  ``rnd`` (B, ``slab.step_draws``) is
-    used as is when given, else drawn from ``generator``.  On the kernel
-    route it is :func:`step_spec`'s (B, 3); on the other route its first A
-    columns are the move-order keys (:func:`move_order`), unless ``perm``
-    (B, A) gives the order itself, and its last A the respawn uniforms.
-    ``encode_obs=False`` returns None for the obs, for callers that would
+    used as is when given, else drawn from ``generator``.  For one or two
+    agents it is :func:`step_spec`'s (B, 3) on either route; for any other
+    count its first A columns are the move-order keys (:func:`move_order`),
+    unless ``perm`` (B, A) gives the order itself, and its last A the
+    respawn uniforms.  ``perm`` is refused for one or two agents, whose
+    order is ``rnd[:, 0]``.  ``encode_obs=False`` returns None for the obs, for callers that would
     throw it away."""
     cfg = slab.cfg
     B, A = states.grid_obj.shape[0], cfg.num_agents
+    if perm is not None and A in AGENT_COUNTS:
+        raise ValueError(
+            f"perm is taken for agent counts other than {AGENT_COUNTS}; {A} agents "
+            "take their move order from rnd[:, 0]"
+        )
     if rnd is None:
         rnd = torch.rand((B, slab.step_draws), generator=generator, device=slab.device)
     args = (
@@ -613,6 +631,8 @@ def step_batch(
     )
     if slab.kernel:
         go, gc, gs, pos, picked = collect_step_slab(slab.t, *args, rnd, slab.respawn_rects)
+    elif A in AGENT_COUNTS:
+        go, gc, gs, pos, picked = step_spec(slab.t, *args, rnd, slab.respawn_rects)
     else:
         if perm is None:
             perm = move_order(rnd[:, :A])
@@ -709,8 +729,9 @@ def reset_batch(
 
 def ms_steps(slab: CollectSlab, go, gc, gs, pos, acts, rnd):
     """K = ``acts.shape[0]`` Collect steps through :func:`collect_step_slab`
-    (the kernel on CUDA tensors), with the rewards and the info counters
-    summed step by step as ``_collect_ms_math`` sums them.
+    (the kernel on CUDA tensors; on the plain route :func:`step_spec`),
+    with the rewards and the info counters summed step by step as
+    ``_collect_ms_math`` sums them.
 
     go/gc/gs (B, C) int32 planes; pos (B, 2A) int32; acts (K, B, A) int32;
     rnd (K, B, 3) float32.  Returns (go, gc, gs, pos, rew (B, A) float32,
@@ -720,9 +741,9 @@ def ms_steps(slab: CollectSlab, go, gc, gs, pos, acts, rnd):
     n_types = slab.info_ids.shape[0]
     rew = torch.zeros((B, A), dtype=torch.float32, device=go.device)
     cnt = torch.zeros((B, A, n_types), dtype=torch.int32, device=go.device)
+    step = collect_step_slab if slab.kernel else step_spec
     for k in range(acts.shape[0]):
-        go, gc, gs, pos, picked = collect_step_slab(
-            slab.t, go, gc, gs, pos, acts[k], rnd[k], slab.respawn_rects)
+        go, gc, gs, pos, picked = step(slab.t, go, gc, gs, pos, acts[k], rnd[k], slab.respawn_rects)
         got = picked >= 0
         ps = picked.clamp(0, slab.slot_rewards.shape[0] - 1)
         rew = rew + torch.where(got, slab.slot_rewards[ps], 0.0)
@@ -760,7 +781,8 @@ class CollectEpisodeRollout:
         them.  Nothing checks it, since that would wait for the device.
         Each episode runs ``ceil(max_steps / chunk)`` chunks of
         :func:`ms_steps`, each drawing its (K, B, A) actions and (K, B, 3)
-        uniforms in two calls, then one all-rows :func:`collect_reset_slab`.
+        uniforms in two calls, then one all-rows :func:`collect_reset_slab`
+        (on the plain route, :func:`reset_rows`).
         Every env finishes every episode, so ``episodes`` is B times their
         number, ``ep_return_sum`` is ``reward_sum``, ``run_return`` is 0,
         and the counters the reset zeroes are not summed."""
@@ -783,7 +805,8 @@ class CollectEpisodeRollout:
                 go, gc, gs, pos, rew, _ = ms_steps(self.slab, go, gc, gs, pos, acts, rnd)
                 reward_sum = reward_sum + rew.sum()
             rnd = torch.rand((B, self.slab.reset_draws), generator=self.generator, device=dev)
-            go, gc, gs, pos = collect_reset_slab(self.slab.rt, rnd, self.slab.reset_arrays)
+            reset = collect_reset_slab if self.slab.kernel else reset_rows
+            go, gc, gs, pos = reset(self.slab.rt, rnd, self.slab.reset_arrays)
 
         def zeros(*shape):
             return torch.zeros(shape, dtype=torch.int32, device=dev)

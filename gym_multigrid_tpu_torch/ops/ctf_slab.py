@@ -8,8 +8,10 @@ Counterpart of ``gym_multigrid_tpu/ops/pallas_ctf.py``: its Pallas kernel
 :func:`reset_spec`.
 
 * :func:`ctf_step_slab` takes the plain version for tensors on the CPU and
-  launches the kernel for CUDA tensors.  On the card the kernel is the
-  only implementation: there is no fallback.  It takes and returns the
+  launches the kernel for CUDA tensors.  It is never a fallback: a slab
+  whose config the kernels do not take calls the plain versions itself
+  (:func:`kernel_route`, decided when the slab is built).  It takes and
+  returns the
   batch state's own types (``terminated``/``collided`` and every flag as
   bool) and the board as one flag byte per cell (:func:`cell_flags`,
   built once per slab); :func:`step_spec` keeps the JAX step's int32
@@ -468,26 +470,41 @@ def step_spec_bool(t: CtfKTables, pos, dirs, term, coll, blue_actions, rnd, flag
             *(x.to(torch.bool) for x in rest))
 
 
-def check_envelope(t: CtfKTables, n_border: int = 0, n_pool: int = 0):
-    """Raise unless the step kernel takes this config: 2 to 8 agents,
-    known policy kinds, a board of at most ``MAX_CELLS`` cells, and patrol
-    lists that fit its shared memory."""
+def _envelope_fault(t: CtfKTables, n_border: int = 0, n_pool: int = 0) -> str | None:
+    """Why the step kernels do not take this config, or None where they do:
+    2 to 8 agents, known policy kinds, a board of at most ``MAX_CELLS``
+    cells, and patrol lists that fit their shared memory."""
     A = t.n_blue + t.n_red
     if not 2 <= A <= MAX_AGENTS:
-        raise ValueError(f"the CtF step kernel takes 2 to {MAX_AGENTS} agents, got {A}")
+        return f"the CtF step kernel takes 2 to {MAX_AGENTS} agents, got {A}"
     kinds = [k for k, _ in t.policies]
     if any(k not in POLICY_KINDS for k in kinds):
-        raise ValueError(f"the CtF step kernel takes policies {POLICY_KINDS}, got {kinds}")
+        return f"the CtF step kernel takes policies {POLICY_KINDS}, got {kinds}"
     if t.s0 * t.s1 > MAX_CELLS:
-        raise ValueError(
-            f"the CtF step kernel takes boards of at most {MAX_CELLS} cells, "
-            f"got {t.s0}x{t.s1}"
-        )
+        return f"the CtF step kernel takes boards of at most {MAX_CELLS} cells, got {t.s0}x{t.s1}"
     if n_border > MAX_CELLS or n_pool > 4 * MAX_CELLS:
-        raise ValueError(
-            f"the CtF step kernel takes at most {MAX_CELLS} border cells and "
-            f"{4 * MAX_CELLS} pool entries, got {n_border} and {n_pool}"
-        )
+        return (f"the CtF step kernel takes at most {MAX_CELLS} border cells and "
+                f"{4 * MAX_CELLS} pool entries, got {n_border} and {n_pool}")
+    return None
+
+
+def check_envelope(t: CtfKTables, n_border: int = 0, n_pool: int = 0):
+    """Raise unless the step kernels take this config (:func:`_envelope_fault`)."""
+    fault = _envelope_fault(t, n_border, n_pool)
+    if fault:
+        raise ValueError(fault)
+
+
+def kernel_route(t: CtfKTables, device_type: str, n_border: int = 0, n_pool: int = 0) -> bool:
+    """The route of a slab of ``t`` on a device of this type, decided once
+    when the slab is built: True for the kernel wrappers
+    (:func:`ctf_step_slab`, :func:`ctf_ms_slab`), which launch the kernels
+    on the card and run their plain versions on the CPU; False for the
+    plain versions called on the device's tensors directly.  The CPU takes
+    every config on the first route; off the CPU only a config inside the
+    kernels' envelope does (:func:`_envelope_fault`), as JAX's batch runs
+    the rest as plain XLA.  Not a fallback: nothing is tried and caught."""
+    return device_type == "cpu" or _envelope_fault(t, n_border, n_pool) is None
 
 
 @functools.cache
@@ -751,6 +768,9 @@ class CtfSlab:
     pool: torch.Tensor  # (2, np) int32
     bterr: torch.Tensor  # (2, n_bt) int32
     rterr: torch.Tensor  # (2, n_rt) int32
+    #: The route (:func:`kernel_route`): the kernel wrappers, or the plain
+    #: versions on the slab's device.
+    kernel: bool
 
     @property
     def step_draws(self) -> int:
@@ -763,11 +783,10 @@ class CtfSlab:
         return self.cfg.num_agents
 
 
-def make_ctf_slab(cfg: CtfConfig, device, kernel: bool = True) -> CtfSlab:
-    """The slab of ``cfg`` on ``device``.  A CUDA slab must fit the step
-    kernel's envelope (:func:`check_envelope`) unless ``kernel`` is False,
-    for callers that step only through :func:`step_actions_batch`, which no
-    kernel computes; the plain version on the CPU takes any config."""
+def make_ctf_slab(cfg: CtfConfig, device) -> CtfSlab:
+    """The slab of ``cfg`` on ``device``, its route picked by
+    :func:`kernel_route`: a CUDA slab of a config outside the kernels'
+    envelope runs the plain versions on the card."""
     device = torch.device(device)
     t = make_ctf_ktables(cfg)
     if any(k in ("patrol", "patrol_fight") for k, _ in t.policies) and not (
@@ -775,12 +794,11 @@ def make_ctf_slab(cfg: CtfConfig, device, kernel: bool = True) -> CtfSlab:
     ):
         raise ValueError("a patrol policy needs a red border, and this map has none")
     cells, border, pool = ctf_static_inputs(cfg)
-    if kernel and device.type == "cuda":
-        check_envelope(t, border.shape[1], pool.shape[1])
+    kernel = kernel_route(t, device.type, border.shape[1], pool.shape[1])
     bterr, rterr = ctf_reset_inputs(cfg, device)
     cells = cells.to(device)
     return CtfSlab(cfg, device, t, cells, cell_flags(cells), border.to(device),
-                   pool.to(device), bterr, rterr)
+                   pool.to(device), bterr, rterr, kernel)
 
 
 def step_batch(
@@ -804,7 +822,8 @@ def step_batch(
     B, A = states.pos.shape[0], slab.cfg.num_agents
     if rnd is None:
         rnd = torch.rand((B, slab.step_draws), generator=generator, device=slab.device)
-    out = ctf_step_slab(
+    step = ctf_step_slab if slab.kernel else step_spec_bool
+    out = step(
         t,
         states.pos.reshape(B, 2 * A),
         states.dir,
@@ -963,7 +982,8 @@ class CtfEpisodeRollout:
         auto-reset; returns (states, metrics) with ``BatchedEnv.rollout``'s
         metrics.  Each chunk of K steps draws its (K, B, n_blue) actions,
         step uniforms and spawn uniforms in three calls and runs as one
-        :func:`ctf_ms_slab`; a last chunk covers ``num_steps % chunk``.
+        :func:`ctf_ms_slab` (on the plain route, :func:`ms_spec`); a last
+        chunk covers ``num_steps % chunk``.
         Nothing in the loop waits for the device."""
         slab, B, dev, gen = self.slab, self.num_envs, self.slab.device, self.generator
         A, nb = self.cfg.num_agents, self.cfg.num_blue_agents
@@ -980,8 +1000,12 @@ class CtfEpisodeRollout:
                                  dtype=torch.int32)
             rnd_step = torch.rand((K, B, slab.step_draws), generator=gen, device=dev)
             rnd_reset = torch.rand((K, B, slab.reset_draws), generator=gen, device=dev)
-            *state, run_ret, rew, ep, eps = ctf_ms_slab(slab, *state, run_ret, acts, rnd_step,
-                                                        rnd_reset)
+            if slab.kernel:
+                out = ctf_ms_slab(slab, *state, run_ret, acts, rnd_step, rnd_reset)
+            else:
+                out = ms_spec(slab.t, K, *state, run_ret, acts, rnd_step, rnd_reset, slab.flags,
+                              slab.border, slab.pool, slab.bterr, slab.rterr)
+            *state, run_ret, rew, ep, eps = out
             reward_sum = reward_sum + rew.sum()
             ep_ret_sum = ep_ret_sum + ep.sum()
             episodes = episodes + eps.sum(dtype=torch.int32)

@@ -9,8 +9,11 @@ and of ``gym_multigrid_tpu/ops/pallas_maze.py``: the Pallas kernel
 :func:`reset_spec`.
 
 * :func:`maze_step_slab` takes the plain version for tensors on the CPU and
-  launches the kernel for CUDA tensors.  On the card the kernel is the only
-  implementation: there is no fallback.
+  launches the kernel for CUDA tensors; it takes every map.  The K-step
+  entry holds a table of the map in shared memory, and a slab whose table
+  does not fit takes the plain route on the episode path instead
+  (:func:`kernel_route`, decided when the slab is built): never a
+  fallback.
 * The reset has no kernel, here as in the JAX package: :func:`reset_spec`
   runs as PyTorch tensor ops on whatever device its inputs are on.  It
   reads the spawn cell with a gather; JAX's one-hot reduce over a packed
@@ -279,6 +282,25 @@ def ms_table(t: MazeTables, cells, bg):
     return torch.nn.functional.pad(table, (0, -table.numel() % 4))
 
 
+def ms_table_bytes(t: MazeTables, n_bg: int) -> int:
+    """The bytes of :func:`ms_table` for a map of ``t`` with ``n_bg``
+    background cells."""
+    n = 2 * NUM_ACTIONS * t.n_cells + n_bg
+    return 4 * (n + -n % 4)
+
+
+def kernel_route(t: MazeTables, n_bg: int, device_type: str) -> bool:
+    """The route of the episode path of a slab of ``t`` (``n_bg``
+    background cells) on a device of this type, decided once when the slab
+    is built: True for :func:`maze_ms_slab`, which launches the K-step
+    kernel on the card and runs :func:`ms_spec` on the CPU; False for
+    :func:`ms_spec` on the device's tensors directly.  The CPU takes every
+    map on the first route; off the CPU only a map whose table fits the
+    kernel's shared memory (``MS_MAX_TABLE_BYTES``) does.  The one-step
+    kernel takes every map, so the batch path always launches it."""
+    return device_type == "cpu" or ms_table_bytes(t, n_bg) <= MS_MAX_TABLE_BYTES
+
+
 def maze_ms_slab(slab: "MazeSlab", pos, dirs, sc, run_ret, acts, rnd):
     """K = ``acts.shape[0]`` steps of the batch with the auto-reset:
     :func:`ms_spec` for CPU tensors, the CUDA kernel entry ``maze_steps``
@@ -350,6 +372,9 @@ class MazeSlab:
     cells: torch.Tensor  # (3, N) int32
     bg: torch.Tensor  # (2, n_bg) int32
     ms_table: torch.Tensor  # the K-step kernel's table (:func:`ms_table`)
+    #: The episode path's route (:func:`kernel_route`): the K-step kernel
+    #: wrapper, or :func:`ms_spec` on the slab's device.
+    kernel: bool
 
     #: Uniforms one env's reset takes; the step takes none.
     reset_draws = 1
@@ -358,14 +383,16 @@ class MazeSlab:
 def make_maze_slab(cfg: MazeConfig, device) -> MazeSlab:
     """The slab of ``cfg`` on ``device``.  The one-step kernel takes any
     map: it reads the cell rows through the read-only cache.  The K-step
-    kernel holds :func:`ms_table` in shared memory, and
-    :func:`maze_ms_slab` refuses a map whose table does not fit."""
+    kernel holds :func:`ms_table` in shared memory, and the episode path of
+    a map whose table does not fit runs :func:`ms_spec` on the card
+    (:func:`kernel_route`)."""
     device = torch.device(device)
     cells, bg = maze_static_inputs(cfg, device)
     if bg.shape[1] == 0:
         raise ValueError("the map has no background cell to spawn on")
     t = maze_tables(cfg)
-    return MazeSlab(cfg, device, t, cells, bg, ms_table(t, cells, bg))
+    return MazeSlab(cfg, device, t, cells, bg, ms_table(t, cells, bg),
+                    kernel_route(t, bg.shape[1], device.type))
 
 
 def step_batch(
@@ -462,9 +489,9 @@ class MazeEpisodeRollout:
         """``num_steps`` steps with uniform random actions and the auto-reset;
         returns (states, metrics) with ``BatchedEnv.rollout``'s metrics.
         Each chunk of K steps draws its (K, B) actions and spawn uniforms
-        in two calls and runs as one :func:`maze_ms_slab`; a last chunk
-        covers ``num_steps % chunk``.  Nothing in the loop waits for the
-        device."""
+        in two calls and runs as one :func:`maze_ms_slab` (on the plain
+        route, :func:`ms_spec`); a last chunk covers ``num_steps % chunk``.
+        Nothing in the loop waits for the device."""
         B, dev = self.num_envs, self.slab.device
         run_ret = (torch.zeros((B,), dtype=torch.float32, device=dev)
                    if run_return is None else run_return)
@@ -477,8 +504,12 @@ class MazeEpisodeRollout:
             acts = torch.randint(0, NUM_ACTIONS, (K, B), generator=self.generator,
                                  device=dev, dtype=torch.int32)
             rnd = torch.rand((K, B), generator=self.generator, device=dev)
-            pos, dirs, sc, run_ret, rew, ep, eps = maze_ms_slab(
-                self.slab, pos, dirs, sc, run_ret, acts, rnd)
+            if self.slab.kernel:
+                out = maze_ms_slab(self.slab, pos, dirs, sc, run_ret, acts, rnd)
+            else:
+                out = ms_spec(self.slab.t, K, pos, dirs, sc, run_ret, acts, rnd,
+                              self.slab.cells, self.slab.bg)
+            pos, dirs, sc, run_ret, rew, ep, eps = out
             reward_sum = reward_sum + rew.sum()
             ep_ret_sum = ep_ret_sum + ep.sum()
             episodes = episodes + eps.sum(dtype=torch.int32)

@@ -9,8 +9,9 @@ and of ``gym_multigrid_tpu/ops/pallas_wildfire.py``: the Pallas kernel
 :func:`reset_spec`.
 
 * :func:`wildfire_step_slab` takes the plain version for tensors on the
-  CPU and launches the kernel for CUDA tensors.  On the card the kernel is
-  the only implementation: there is no fallback.  The kernel copies tiles
+  CPU and launches the kernel for CUDA tensors.  It is never a fallback:
+  a slab whose config the kernel does not take calls the plain version
+  itself (:func:`kernel_route`).  The kernel copies tiles
   of :func:`tile_envs` consecutive envs into shared memory in bulk
   (:func:`tile_spans`), so ``cells`` and ``rnd`` must be 16-byte aligned;
   the wrapper raises on a tensor that is not.
@@ -29,13 +30,20 @@ and of ``gym_multigrid_tpu/ops/pallas_wildfire.py``: the Pallas kernel
   per-env auto-reset and the return accounting.  :func:`wf_ms_slab` runs
   it, or for CUDA tensors the kernel entry ``wf_steps`` of
   ``csrc/wildfire_step.cu``, which runs all K steps and the fresh boards in
-  one launch with each board kept on chip; :func:`make_wildfire_episode_rollout`
-  drives it chunk by chunk, the counterpart of JAX's
-  ``make_wildfire_episode_rollout``.  JAX's default episode chunk,
-  ``wf_compact_ms``, compares uniforms quantized to 1/256 against u8
-  thresholds, because XLA on the TPU could not fuse its random draws into
-  the compares; the port keeps ``_ms_math``'s exact float32 thresholds and
-  does not carry that form (nor ``compact_supported``) over.
+  one launch with each board kept on chip.  :func:`ms_philox_spec` is
+  ``ms_spec`` on the draws of the counters of ``ops/philox.py``, and
+  :func:`wf_philox_slab` runs it, or the entry ``wf_steps_philox``, which
+  makes those draws in the kernel where they are read;
+  :func:`make_wildfire_episode_rollout` drives it chunk by chunk, the
+  counterpart of JAX's ``make_wildfire_episode_rollout``.  JAX's default
+  episode chunk, ``wf_compact_ms``, compares uniforms quantized to 1/256
+  against u8 thresholds, because XLA on the TPU could not fuse its random
+  draws into the compares; the port keeps ``_ms_math``'s exact float32
+  thresholds and does not carry that form (nor ``compact_supported``)
+  over.
+* :func:`kernel_route` picks a slab's route once, from its config and
+  device type: a config outside the kernels' envelope runs the plain
+  versions on the card.
 
 Every float constant of the step is a double rounded to float32 once,
 where the JAX package's weakly typed Python floats meet a float32 array;
@@ -66,7 +74,7 @@ from gym_multigrid_tpu_torch.envs.wildfire import (
     step_rnd_width,
     wf_tables,
 )
-from gym_multigrid_tpu_torch.ops import _build
+from gym_multigrid_tpu_torch.ops import _build, philox
 from gym_multigrid_tpu_torch.ops.sampling import PickState
 
 #: Largest board the step kernel takes: a lane of the env's warp holds 32
@@ -201,18 +209,35 @@ def tile_spans(n_cells: int, B: int):
     return spans, B - full * T
 
 
-def check_envelope(t: WfTables):
-    """Raise unless the step kernel takes this config: at most
-    ``MAX_AGENTS`` agents and ``MAX_CELLS`` cells."""
+def _envelope_fault(t: WfTables) -> str | None:
+    """Why the kernels do not take this config, or None where they do: at
+    most ``MAX_AGENTS`` agents and ``MAX_CELLS`` cells."""
     if t.n_agents > MAX_AGENTS:
-        raise ValueError(
-            f"the Wildfire step kernel takes at most {MAX_AGENTS} agents, got {t.n_agents}"
-        )
+        return f"the Wildfire step kernel takes at most {MAX_AGENTS} agents, got {t.n_agents}"
     if t.n_cells > MAX_CELLS:
-        raise ValueError(
-            f"the Wildfire step kernel takes boards of at most {MAX_CELLS} cells, "
-            f"got {t.width}x{t.height}"
-        )
+        return (f"the Wildfire step kernel takes boards of at most {MAX_CELLS} cells, "
+                f"got {t.width}x{t.height}")
+    return None
+
+
+def check_envelope(t: WfTables):
+    """Raise unless the kernels take this config (:func:`_envelope_fault`)."""
+    fault = _envelope_fault(t)
+    if fault:
+        raise ValueError(fault)
+
+
+def kernel_route(t: WfTables, device_type: str) -> bool:
+    """The route of a slab of ``t`` on a device of this type, decided once
+    when the slab is built: True for the kernel wrappers
+    (:func:`wildfire_step_slab`, :func:`wf_philox_slab`), which launch the
+    kernels on the card and run their plain versions on the CPU; False for
+    the plain versions called on the device's tensors directly.  The CPU
+    takes every config on the first route, since its "kernels" are the
+    plain versions; off the CPU only a config inside the kernels' envelope
+    does (:func:`_envelope_fault`), as JAX's batch runs the rest as plain
+    XLA.  Not a fallback: nothing is tried and caught."""
+    return device_type == "cpu" or _envelope_fault(t) is None
 
 
 def wildfire_step_slab(t: WfTables, cells, pos, acts, rnd):
@@ -400,6 +425,75 @@ def wf_ms_slab(slab: "WildfireSlab", cells, pos, sc, ext, run_ret, acts, rnd_ste
 wf_ms_slab.launches = 0
 
 
+def ms_philox_spec(t: WfTables, K: int, cells, pos, sc, ext, run_ret, key, step0: int):
+    """K Wildfire steps with the auto-reset on the draws of the counters of
+    ``ops/philox.py``: the global steps ``step0 .. step0 + K - 1`` of the
+    rollout keyed by ``key``.  Forms the actions, the step's uniforms and
+    the fresh boards' uniforms from the counters and runs :func:`ms_spec`
+    on them, so it is held to JAX's ``_ms_math`` as ``ms_spec`` is.  Same
+    state arguments and results as :func:`ms_spec`."""
+    B, dev = cells.shape[0], cells.device
+    steps = torch.arange(step0, step0 + K, dtype=torch.int64, device=dev)
+    draws = philox.episode_draws(key, steps, B, t.n_agents, t.n_cells, fresh_picks(t), dev)
+    return ms_spec(t, K, cells, pos, sc, ext, run_ret, *draws)
+
+
+def fresh_picks(t: WfTables) -> int:
+    """The pick uniforms of a fresh board: one a fire, then one an agent."""
+    return t.n_fires + t.n_agents
+
+
+def wf_philox_slab(slab: "WildfireSlab", cells, pos, sc, ext, run_ret, key, step0: int, K: int):
+    """K steps of the batch with the auto-reset on ``ops/philox.py``'s
+    draws: :func:`ms_philox_spec` for CPU tensors, the CUDA kernel entry
+    ``wf_steps_philox`` of ``csrc/wildfire_step.cu`` for CUDA tensors, one
+    launch for all K steps that makes each draw where it is read and reads
+    no uniform from memory (new output tensors; the inputs are not
+    changed).  Same results as :func:`ms_spec`."""
+    t = slab.t
+    if cells.device.type == "cpu":
+        return ms_philox_spec(t, K, cells, pos, sc, ext, run_ret, key, step0)
+    if cells.device.type != "cuda":
+        raise ValueError(f"no Wildfire steps for tensors on {cells.device}")
+    check_envelope(t)
+    B, C, A = cells.shape[0], t.n_cells, t.n_agents
+    if B < 1 or K < 1:
+        raise ValueError(f"nothing to step: {B} envs, {K} steps")
+    dev = cells.device
+    for name, x, dtype, shape in (
+        ("cells", cells, torch.int32, (B, C)),
+        ("pos", pos, torch.int32, (B, 2 * A)),
+        ("sc", sc, torch.int32, (B,)),
+        ("ext", ext, torch.int32, (B,)),
+        ("run_ret", run_ret, torch.float32, (B,)),
+    ):
+        _build.check_arg(name, x, dtype, shape, dev)
+    outs = (
+        torch.empty_like(cells), torch.empty_like(pos), torch.empty_like(sc),
+        torch.empty_like(ext), torch.empty_like(run_ret), torch.empty_like(run_ret),
+        torch.empty_like(run_ret), torch.empty_like(sc),
+    )
+    kernels = _build.load()
+    with torch.cuda.device(dev):
+        err = kernels.wf_steps_philox(
+            cells.data_ptr(), pos.data_ptr(), sc.data_ptr(), ext.data_ptr(),
+            run_ret.data_ptr(), *(o.data_ptr() for o in outs),
+            B, K, t.width, t.height, A, t.n_fires, t.max_steps,
+            *(philox.signed(w) for w in (*key, step0)),
+            *ignite_thresholds(t)[1:], t.p_burnout,
+            t.ext_reward, t.burn_penalty, t.step_penalty, t.tree_density,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"wf_steps_philox kernel launch failed: CUDA error {err}")
+    wf_philox_slab.launches += 1
+    return outs
+
+
+#: Launches of the in-kernel-draws K-step kernel since the count was last set to 0.
+wf_philox_slab.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # Batch glue
 # ---------------------------------------------------------------------------
@@ -412,6 +506,9 @@ class WildfireSlab:
     cfg: WildfireConfig
     device: torch.device
     t: WfTables
+    #: The route (:func:`kernel_route`): the kernel wrappers, or the plain
+    #: versions on the slab's device.
+    kernel: bool
 
     @property
     def step_draws(self) -> int:
@@ -425,14 +522,12 @@ class WildfireSlab:
 
 
 def make_wildfire_slab(cfg: WildfireConfig, device) -> WildfireSlab:
-    """The slab of ``cfg`` on ``device``.  A CUDA slab must fit the step
-    kernel's envelope (:func:`check_envelope`); the plain version on the
-    CPU takes any board."""
+    """The slab of ``cfg`` on ``device``, its route picked by
+    :func:`kernel_route`: a CUDA slab of a config outside the kernels'
+    envelope runs the plain versions on the card."""
     device = torch.device(device)
     t = wf_tables(cfg)
-    if device.type == "cuda":
-        check_envelope(t)
-    return WildfireSlab(cfg, device, t)
+    return WildfireSlab(cfg, device, t, kernel_route(t, device.type))
 
 
 def step_batch(
@@ -456,7 +551,8 @@ def step_batch(
     B, C, A = states.cells.shape[0], t.n_cells, t.n_agents
     if rnd is None:
         rnd = torch.rand((B, slab.step_draws), generator=generator, device=slab.device)
-    cells, pos, reward, n_ext, term = wildfire_step_slab(
+    step = wildfire_step_slab if slab.kernel else step_spec
+    cells, pos, reward, n_ext, term = step(
         t,
         states.cells.reshape(B, C),
         states.agent_pos.reshape(B, 2 * A),
@@ -524,35 +620,43 @@ def reset_batch(
 # ---------------------------------------------------------------------------
 
 
-@dataclass(frozen=True, eq=False)
+@dataclass(eq=False)
 class WildfireEpisodeRollout:
     """``rollout(states, num_steps)`` of a batch of Wildfire envs, ``chunk``
-    steps a kernel launch (:func:`make_wildfire_episode_rollout`)."""
+    steps a kernel launch (:func:`make_wildfire_episode_rollout`).  Its
+    draws come from the counters of ``ops/philox.py``: ``key``, set by
+    :meth:`reset`, and ``step``, the running count of the steps taken since
+    then, kept on the host."""
 
     slab: WildfireSlab
     num_envs: int
-    generator: torch.Generator
     chunk: int
+    key: tuple[int, int] = (0, 0)
+    step: int = 0
 
     @property
     def cfg(self) -> WildfireConfig:
         return self.slab.cfg
 
     def reset(self, seed: int):
-        """Seed the generator and reset every env: (states, obs)."""
-        self.generator.manual_seed(seed)
-        states = reset_batch(self.slab, self.num_envs, generator=self.generator)
+        """Key the draws by ``seed``, set the step count to 0 and reset
+        every env from the first reset's counters: (states, obs)."""
+        t, dev = self.slab.t, self.slab.device
+        self.key, self.step = philox.key_of(seed), 0
+        rnd = philox.first_reset_draws(self.key, self.num_envs, t.n_cells, fresh_picks(t), dev)
+        states = reset_batch(self.slab, self.num_envs, rnd=rnd)
         return states, encode(self.cfg, states)
 
     def __call__(self, states: WildfireState, num_steps: int, run_return=None):
         """``num_steps`` steps with uniform random actions and the
         auto-reset; returns (states, metrics) with ``BatchedEnv.rollout``'s
         metrics, the team reward summed once per env and step, as JAX's
-        episode rollout sums it.  Each chunk of K steps draws its (K, B, A)
-        actions, step uniforms and fresh-board uniforms in three calls and
-        runs as one :func:`wf_ms_slab`; a last chunk covers
-        ``num_steps % chunk``.  Nothing in the loop waits for the device."""
-        slab, B, dev, gen = self.slab, self.num_envs, self.slab.device, self.generator
+        episode rollout sums it.  Each chunk of K steps is one
+        :func:`wf_philox_slab` (on the plain route, :func:`ms_philox_spec`)
+        at the running step count, which then grows by K; a last chunk
+        covers ``num_steps % chunk``.  How the steps are cut into chunks
+        changes nothing, and nothing in the loop waits for the device."""
+        slab, B, dev = self.slab, self.num_envs, self.slab.device
         cfg, t = self.cfg, slab.t
         run_ret = (torch.zeros((B,), dtype=torch.float32, device=dev)
                    if run_return is None else run_return)
@@ -563,12 +667,12 @@ class WildfireEpisodeRollout:
                  states.step_count, states.extinguished)
         for start in range(0, num_steps, self.chunk):
             K = min(self.chunk, num_steps - start)
-            acts = torch.randint(0, NUM_ACTIONS, (K, B, t.n_agents), generator=gen, device=dev,
-                                 dtype=torch.int32)
-            rnd_step = torch.rand((K, B, slab.step_draws), generator=gen, device=dev)
-            rnd_reset = torch.rand((K, B, slab.reset_draws), generator=gen, device=dev)
-            *state, run_ret, rew, ep, eps = wf_ms_slab(slab, *state, run_ret, acts, rnd_step,
-                                                       rnd_reset)
+            if slab.kernel:
+                out = wf_philox_slab(slab, *state, run_ret, self.key, self.step, K)
+            else:
+                out = ms_philox_spec(t, K, *state, run_ret, self.key, self.step)
+            *state, run_ret, rew, ep, eps = out
+            self.step += K
             reward_sum = reward_sum + rew.sum()
             ep_ret_sum = ep_ret_sum + ep.sum()
             episodes = episodes + eps.sum(dtype=torch.int32)
@@ -587,9 +691,10 @@ def make_wildfire_episode_rollout(
 ) -> WildfireEpisodeRollout:
     """The Wildfire episode rollout: the counterpart of JAX's
     ``make_wildfire_episode_rollout`` (``ops/pallas_wildfire.py``) on its
-    pre-drawn ``_ms_math`` form, one kernel launch a chunk of steps instead
-    of ``BatchedEnv``'s step launch and plain masked fresh-board draw a
-    step.
+    ``_ms_math`` form, one kernel launch a chunk of steps, which draws its
+    own numbers, instead of ``BatchedEnv``'s step launch and plain masked
+    fresh-board draw a step.  The draws are counter-based (``ops/philox.py``),
+    so a seed gives the same trajectory on the CPU and on the card.
 
     ``reset(seed)`` gives fresh states; ``rollout(states, num_steps)`` (the
     object is callable) steps them.  The default device is the current
@@ -598,6 +703,4 @@ def make_wildfire_episode_rollout(
     device = _build.default_device(device, "make_wildfire_episode_rollout")
     if chunk < 1:
         raise ValueError(f"chunk must be at least 1, got {chunk}")
-    return WildfireEpisodeRollout(
-        make_wildfire_slab(cfg, device), num_envs, torch.Generator(device=device), chunk
-    )
+    return WildfireEpisodeRollout(make_wildfire_slab(cfg, device), num_envs, chunk)

@@ -200,7 +200,7 @@ def make_ctf_match_evaluator(cfg, num_envs: int, blue_net, red_net, num_steps: i
     scores every pairing.  Outcomes are blue-centric, as in
     :func:`evaluate_ctf`."""
     device = _build.default_device(device, "make_ctf_match_evaluator")
-    slab = ctf_slab.make_ctf_slab(cfg, device, kernel=False)
+    slab = ctf_slab.make_ctf_slab(cfg, device)
     blue_net.to(device)
     red_net.to(device)
 

@@ -53,7 +53,7 @@ def make_ctf_selfplay_batch(cfg, num_envs: int, auto_reset: bool = True,
     ``make_ctf_batch``."""
     device = _build.default_device(device, "make_ctf_selfplay_batch")
     return BatchedEnv(
-        slab=ctf_slab.make_ctf_slab(cfg, device, kernel=False),
+        slab=ctf_slab.make_ctf_slab(cfg, device),
         num_envs=num_envs,
         generator=torch.Generator(device=device),
         step_batch=lambda slab, states, actions, **kw: ctf_slab.step_actions_batch(

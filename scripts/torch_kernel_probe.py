@@ -34,6 +34,9 @@ From the root of a checkout, with a CUDA device and ``nvcc``.  It
    ``wildfire_step``; at B = 8192 and the full chunk the checkout's build
    and each variant are timed in turns (checkout, variants, variants
    reversed, checkout, twice).  A variant has the checkout's C interface.
+   The Wildfire section does the same for ``wf_steps_philox`` (its draws
+   made in the kernel) against ``ms_philox_spec``, the checkout's and each
+   variant's that has that entry.
 
 ``--only`` runs the named sections (default: all but ``isolated``).
 ``--only isolated`` times the host-bound paths of ``chip_smoke.py`` alone
@@ -47,7 +50,9 @@ reads ``chip_smoke.py`` and the package of the checkout it sits in, so a
 copy of this file put in another checkout's ``scripts/`` times that one
 (an older checkout without those checks takes no ``--after-checks``).
 ``--only rollouts`` times the four ``BatchedEnv`` rollouts, the Collect
-episode path and the vector envs the same way (a copy of the probe in
+episode path, the Wildfire episode path beside its pre-drawn form
+(``chip_smoke.predrawn_wildfire_call``, where the checkout has it) and the
+vector envs the same way (a copy of the probe in
 another checkout's ``scripts/`` times that one: same-call parent/change
 pairs).  ``--only render`` times each family's batch render at B = 8192,
 T = 32 (``chip_smoke.RENDER_CASES``) beside the gathers it was chosen
@@ -82,6 +87,7 @@ from gym_multigrid_tpu_torch.ops import (  # noqa: E402
     collect_slab,
     ctf_slab,
     maze_slab,
+    philox,
     wildfire_slab,
 )
 
@@ -219,6 +225,27 @@ def wf_runner(fn, slab):
     return run
 
 
+def wf_philox_runner(fn, slab):
+    """``wf_steps_philox`` through ``fn`` with ``wf_philox_slab``'s
+    arguments."""
+    t = slab.t
+
+    def run(cells, pos, sc, ext, run_ret, key, step0, K):
+        n = cells.shape[0]
+        outs = (torch.empty_like(cells), torch.empty_like(pos), torch.empty_like(sc),
+                torch.empty_like(ext), torch.empty_like(run_ret), torch.empty_like(run_ret),
+                torch.empty_like(run_ret), torch.empty_like(sc))
+        err = fn(*(x.data_ptr() for x in (cells, pos, sc, ext, run_ret)),
+                 *(o.data_ptr() for o in outs), n, K, t.width, t.height, t.n_agents, t.n_fires,
+                 t.max_steps, *(philox.signed(w) for w in (*key, step0)),
+                 *ignite_thresholds(t)[1:], t.p_burnout, t.ext_reward,
+                 t.burn_penalty, t.step_penalty, t.tree_density,
+                 torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"wf_steps_philox: CUDA error {err}"
+        return outs
+    return run
+
+
 def probe_steps(family, runners, make_args, spec, one_step, chunk, smi):
     """The K-step section of one family: every build bit-equal to ``spec``
     at K in (1, chunk) and B in (64, 8192), the checkout's build timed
@@ -335,6 +362,23 @@ def main():
         record.update(probe_steps(
             "wildfire", runners, wf_args, lambda K, a: wildfire_slab.ms_spec(wslab.t, K, *a),
             wf_one, 24, smi))
+        runners = [("checkout", wf_philox_runner(kernels.wf_steps_philox, wslab))]
+        for i, path in enumerate(args.wf_variant):
+            if "wf_steps_philox" in path.read_text():
+                lib = ctypes.CDLL(str(probe_dir / f"wf_{i}.so"))
+                runners.append((path.stem, wf_philox_runner(entry(lib, path, "wf_steps_philox"),
+                                                            wslab)))
+
+        def philox_args(n, K):
+            key = philox.key_of(n + K)
+            st = wildfire_slab.reset_batch(wslab, n, rnd=philox.first_reset_draws(
+                key, n, wslab.t.n_cells, wildfire_slab.fresh_picks(wslab.t), DEV))
+            return (st.cells.reshape(n, -1), st.agent_pos.reshape(n, -1), st.step_count,
+                    st.extinguished, torch.zeros(n, device=DEV), key, 100, K)
+
+        record.update(probe_steps(
+            "wildfire philox", runners, philox_args,
+            lambda K, a: wildfire_slab.ms_philox_spec(wslab.t, K, *a[:7]), wf_one, 24, smi))
     log(json.dumps(record))
 
 
@@ -387,6 +431,13 @@ def probe_rollouts():
     roll, states, _, _ = cs.collect_episode_path()
     cs.time_rollout(roll, "Collect episode", states, cs.STEPS_PER_CALL, MAIN.num_agents,
                     cs.COLLECT_WARMUP_MAX)
+    roll, first, _, states, _ = cs.wildfire_episode_path()
+    cs.time_rollout(roll, "Wildfire episode", states, cs.WF_STEPS_PER_CALL, WF_MAIN.num_agents,
+                    cs.WF_WARMUP_MAX)
+    if hasattr(cs, "predrawn_wildfire_call"):
+        call = cs.predrawn_wildfire_call(roll.slab, torch.Generator(device=DEV).manual_seed(0))
+        cs.time_rollout(call, "Wildfire episode, pre-drawn (torch.rand and wf_steps)", first,
+                        cs.WF_STEPS_PER_CALL, WF_MAIN.num_agents, cs.WF_WARMUP_MAX)
     cs.run_vector_envs()
 
 

@@ -4,6 +4,7 @@ or two agents, held to JAX's ``make_collect`` bit for bit given its own
 move order, to ``step_spec`` bit for bit at one and two agents, and in
 distribution where the two packages draw their own randomness."""
 
+import dataclasses
 import itertools
 
 import jax
@@ -97,15 +98,18 @@ def test_step_fn_equals_jax_given_its_permutation(n_agents):
     ids=["two_agents_respawn", "one_agent_respawn"],
 )
 def test_any_agent_route_equals_the_kernel_route(kw):
-    """With one or two agents, the any-agent route of the batch glue
-    (``step_perm`` and ``reset_rows``) given the order ``step_spec`` takes
-    from ``rnd[:, 0] < 0.5`` (agent 1 first) and its respawn uniforms
-    ``rnd[:, 1:]`` equals the kernel route (``step_spec`` on the CPU) over
-    chained steps with masked resets: states, obs, rewards, flags and
-    counters bit for bit, respawns included."""
+    """With one or two agents, the plain route of the batch glue
+    (``step_spec`` and ``reset_rows``, no kernel wrapper) equals the kernel
+    route (the wrappers, ``step_spec`` on the CPU) on the same uniforms,
+    and the any-agent ``step_perm`` given the order ``step_spec`` takes from
+    ``rnd[:, 0] < 0.5`` (agent 1 first) and its respawn uniforms
+    ``rnd[:, 1:]`` equals both, over chained steps with masked resets:
+    states, obs, rewards, flags and counters bit for bit, respawns
+    included.  A move order ``perm`` is refused for these agent counts."""
     cfg = tcollect.CollectConfig(**kw)
-    kernel, plain = tslab.make_collect_slab(cfg, "cpu"), tslab.build_slab(cfg, "cpu", kernel=False)
-    assert kernel.kernel and not plain.kernel
+    kernel = tslab.make_collect_slab(cfg, "cpu")
+    plain = dataclasses.replace(kernel, kernel=False)
+    assert kernel.kernel and kernel.step_draws == plain.step_draws == 3
     A, B = cfg.num_agents, 64
     g = torch.Generator().manual_seed(A)
     rnd = torch.rand((B, kernel.reset_draws), generator=g)
@@ -117,12 +121,17 @@ def test_any_agent_route_equals_the_kernel_route(kw):
         perm = torch.arange(A).expand(B, A)
         if A == 2:
             perm = torch.where(rnd[:, :1] < 0.5, perm.flip(1), perm)
-        plain_rnd = torch.cat([torch.zeros((B, A)), rnd[:, 1:1 + A]], dim=1)
         want = tslab.step_batch(kernel, s, acts, rnd=rnd)
-        got = tslab.step_batch(plain, p, acts, rnd=plain_rnd, perm=perm)
+        got = tslab.step_batch(plain, p, acts, rnd=rnd)
         for f in FIELDS:
             _eq(getattr(got[0], f), getattr(want[0], f))
         for x, y in zip(got[1:], want[1:]):
+            _eq(x, y)
+        planes = (p.grid_obj, p.grid_color, p.grid_slot, p.agent_pos.reshape(B, -1))
+        by_perm = tslab.step_perm(kernel.t, *planes, acts, perm, rnd[:, 1:1 + A],
+                                  kernel.respawn_rects)
+        for x, y in zip(by_perm, (want[0].grid_obj, want[0].grid_color, want[0].grid_slot,
+                                  want[0].agent_pos.reshape(B, -1))):
             _eq(x, y)
         done = want[3] | want[4]
         rnd = torch.rand((B, kernel.reset_draws), generator=g)
@@ -132,6 +141,8 @@ def test_any_agent_route_equals_the_kernel_route(kw):
     assert respawned > 0
     for f in FIELDS:
         _eq(getattr(p, f), getattr(s, f))
+    with pytest.raises(ValueError, match="perm is taken for agent counts other than"):
+        tslab.step_batch(plain, p, acts, rnd=rnd[:, :3], perm=perm)
 
 
 def test_move_order_is_a_fair_permutation_like_jax():

@@ -273,14 +273,15 @@ def test_wrappers_refuse_other_devices():
 )
 def test_configs_outside_the_kernel_envelope_are_refused(kw, device):
     """The board bound holds off the CPU, where the kernels run (the plain
-    versions on the CPU take any board): the slab refuses it there.  Three
-    agents are refused by the kernel wrapper on the CPU too, since its
-    plain version moves one or two; the slab sends them to the any-agent
-    plain step instead."""
+    versions on the CPU take any board): the kernels refuse it there, and
+    the slab takes the plain route instead.  Three agents are refused by
+    the kernel wrapper on the CPU too, since its plain version moves one or
+    two; the slab sends them to the any-agent plain step instead."""
     _, tcfg = _cfgs(**kw)
     if tcfg.num_agents in tslab.AGENT_COUNTS:
         with pytest.raises(ValueError, match="the Collect kernels take"):
-            tslab.make_collect_slab(tcfg, device)
+            tslab._check_envelope(tcfg.num_cells, tcfg.num_agents)
+        assert not tslab.make_collect_slab(tcfg, device).kernel
         return
     slab = tslab.make_collect_slab(tcfg, device)
     assert not slab.kernel

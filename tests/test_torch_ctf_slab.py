@@ -340,11 +340,20 @@ OUTSIDE_THE_ENVELOPE = dict(
     ids=[*OUTSIDE_THE_ENVELOPE, "patrol_without_a_red_border"],
 )
 def test_configs_outside_the_kernel_envelope_are_refused(kw):
-    """A CUDA slab is refused before anything reaches the card, so this
-    runs without one."""
+    """The step kernels refuse these configs, so a CUDA slab of them takes
+    the plain route (decided without a card); a patrol policy with no red
+    border is refused before anything reaches the card, so this runs
+    without one."""
     _, tcfg = cfg_pair("b_patrol", **kw)
-    with pytest.raises(ValueError, match="CtF step kernel takes|patrol policy needs"):
-        tslab.make_ctf_slab(tcfg, "cuda")
+    if kw.get("policies") == ("patrol",):
+        with pytest.raises(ValueError, match="patrol policy needs"):
+            tslab.make_ctf_slab(tcfg, "cuda")
+        return
+    t = tslab.make_ctf_ktables(tcfg)
+    _, border, pool = tslab.ctf_static_inputs(tcfg)
+    with pytest.raises(ValueError, match="CtF step kernel takes"):
+        tslab.check_envelope(t, border.shape[1], pool.shape[1])
+    assert not tslab.kernel_route(t, "cuda", border.shape[1], pool.shape[1])
 
 
 def test_patrol_without_a_red_border_is_refused_on_the_cpu_too():

@@ -295,12 +295,13 @@ def test_wrapper_refuses_other_devices():
 
 
 def test_a_board_above_1024_cells_is_refused_on_cuda_only():
-    """A CUDA slab is refused before anything reaches the card, so this runs
-    without one; on the CPU the plain version takes the board and equals
-    ``wf_step_math``."""
+    """The kernels refuse the board (checked without a card), so a CUDA
+    slab of it takes the plain route; on the CPU the plain version takes the
+    board and equals ``wf_step_math``."""
     jcfg, tcfg = jwf.WildfireConfig(size=33), twf.WildfireConfig(size=33)
     with pytest.raises(ValueError, match="at most 1024 cells"):
-        tslab.make_wildfire_slab(tcfg, "cuda")
+        tslab.check_envelope(twf.wf_tables(tcfg))
+    assert not tslab.kernel_route(twf.wf_tables(tcfg), "cuda")
     slab = tslab.make_wildfire_slab(tcfg, "cpu")
     jt = jwf.wf_tables(jcfg)
     rng = np.random.default_rng(11)

@@ -3,7 +3,8 @@ the auto-reset) against the eager JAX episode math (``_ms_math`` in its
 pre-drawn tuple form, adj = tril = None) bit for bit, K steps at once
 against K one-step chunks, the kernel's fresh board walked as the kernel
 walks it, ``wf_ms_slab``'s CPU rule, and ``make_wildfire_episode_rollout``'s
-draws, invariants and statistics against the JAX episode rollout."""
+counter-based draws, invariants and statistics against the JAX episode
+rollout."""
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +15,7 @@ import torch
 from gym_multigrid_tpu.envs import wildfire as jwf
 from gym_multigrid_tpu.ops import pallas_wildfire as jpw
 from gym_multigrid_tpu_torch.envs import wildfire as twf
+from gym_multigrid_tpu_torch.ops import philox
 from gym_multigrid_tpu_torch.ops import wildfire_slab as tslab
 
 torch.set_num_threads(1)
@@ -187,27 +189,30 @@ def _rollout(n, kw=MAIN, chunk=8, **over):
 
 
 def test_episode_rollout_draws_one_chunk_at_a_time_from_the_generator():
-    """The rollout equals ``ms_spec`` on the generator's draws, in the
-    rollout's order: actions, step uniforms, fresh-board uniforms, chunk by
-    chunk, with a partial last chunk."""
+    """The rollout equals ``ms_spec`` on the draws of its counter-based
+    generator (``ops/philox.py``) in the rollout's order: the first reset
+    from its own counters, then chunk by chunk at the running step count,
+    with a partial last chunk."""
     n, steps, chunk = 6, 11, 4
     roll = _rollout(n, chunk=chunk, max_steps=5)
     start, _ = roll.reset(seed=5)
     states, m = roll(start, steps)
-    slab, gen, t = roll.slab, roll.generator, roll.slab.t
-    gen.manual_seed(5)
-    tslab.reset_batch(slab, n, generator=gen)
+    slab, t = roll.slab, roll.slab.t
+    key, picks = philox.key_of(5), t.n_fires + t.n_agents
+    first = tslab.reset_batch(slab, n, rnd=philox.first_reset_draws(key, n, t.n_cells, picks,
+                                                                      "cpu"))
+    assert torch.equal(first.cells, start.cells) and torch.equal(first.agent_pos, start.agent_pos)
     state = (start.cells.reshape(n, -1), start.agent_pos.reshape(n, -1), start.step_count,
              start.extinguished, torch.zeros(n))
     rew, ep, eps = torch.zeros(()), torch.zeros(()), torch.zeros((), dtype=torch.int32)
     for k0 in range(0, steps, chunk):
         K = min(chunk, steps - k0)
-        draws = (torch.randint(0, 5, (K, n, t.n_agents), generator=gen, dtype=torch.int32),
-                 torch.rand((K, n, slab.step_draws), generator=gen),
-                 torch.rand((K, n, slab.reset_draws), generator=gen))
+        draws = philox.episode_draws(key, torch.arange(k0, k0 + K), n, t.n_agents, t.n_cells,
+                                     picks, "cpu")
         out = tslab.ms_spec(t, K, *state, *draws)
         state = out[:5]
         rew, ep, eps = rew + out[5].sum(), ep + out[6].sum(), eps + out[7].sum(dtype=torch.int32)
+    assert roll.step == steps
     assert torch.equal(states.cells.reshape(n, -1), state[0])
     assert torch.equal(states.extinguished, state[3])
     for got, want in ((m["run_return"], state[4]), (m["reward_sum"], rew),
