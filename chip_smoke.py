@@ -26,16 +26,20 @@ without them.  Phases, each of which fails the run on any fault:
    the Collect reset on them too.  The Maze K-step entry ``maze_steps`` is
    held to ``ms_spec`` over 100 steps with the auto-reset, as four chunks
    of 25 and as one of 100, on both Maze configs at B = 8192 and on the
-   ragged batches.  The CtF K-step entry ``ctf_steps`` is held to its
+   ragged batches.  The Collect K-step entry ``collect_steps`` is held to
+   ``ms_spec`` over 50 steps from the batch reset as launches of 1, 25 and
+   50 steps (planes, positions, reward sums and info counters) on the main
+   config, the one-agent config, a fixed-horizon config, a 16x16 board and
+   a config of 17 ball types (counters past a warp's 32 lanes), at
+   B = 8192, 8189 and 5.  The CtF K-step entry ``ctf_steps`` is held to its
    ``ms_spec`` over 100 steps as chunks of 25 and of 50 on the four CtF
-   configs, and the Wildfire K-step entry ``wf_steps`` to its ``ms_spec``
-   as chunks of 24 and of 8 on the three Wildfire configs, each at a
-   ``max_steps`` of 30 so that every env resets at least twice, at
-   B = 8192, 8189 and 5.  The Wildfire K-step entry that makes its draws
-   in the kernel, ``wf_steps_philox``, is held to ``ms_philox_spec`` (the
-   same steps on the draws of ``ops/philox.py``'s counters) on the same
-   three configs, chunks of 24 and of 8 starting at their running step, at
-   ``max_steps`` 30 and B = 8192, 8189 and 5; the Wildfire episode rollout
+   configs, at a ``max_steps`` of 30 so that every env resets at least
+   twice, at B = 8192, 8189 and 5.  The Wildfire K-step entry, which makes
+   its draws in the kernel, ``wf_steps_philox``, is held to
+   ``ms_philox_spec`` (``ms_spec`` on the draws of ``ops/philox.py``'s
+   counters) on the three Wildfire configs, chunks of 24 and of 8 starting
+   at their running step, at ``max_steps`` 30 and B = 8192, 8189 and 5;
+   the Wildfire episode rollout
    at B = 64 on the card equals the same seed's rollout on the CPU bit for
    bit.  Configs outside a kernel's envelope take the plain route on the
    card and launch no kernel, bit-equal to the CPU on the same draws:
@@ -82,18 +86,16 @@ without them.  Phases, each of which fails the run on any fault:
    ``rollout`` of 1000 steps) and Wildfire
    (``make_wildfire_batch(WF_MAIN, 8192)``, ``rollout`` of 400 steps), each
    of which launches its own step kernel once a step and no other kernel of
-   the port; then the two episode paths, the Collect one
+   the port; then the episode paths, the Collect one
    (``make_collect_episode_rollout`` of the same config, ``reset(seed=0)``
-   and 500 steps: one step launch a step and one all-rows reset an
-   episode) and the Maze one (``make_maze_episode_rollout(MAZE_MAIN, 8192,
+   and 500 steps: twenty 25-step ``collect_steps`` launches, one all-rows
+   reset an episode and no ``collect_step``) and the Maze one (``make_maze_episode_rollout(MAZE_MAIN, 8192,
    chunk=100)``, ``reset(seed=0)`` and 1000 steps: ten ``maze_steps``
    launches), the CtF one (``make_ctf_episode_rollout(CTF_MAIN, 8192,
    chunk=50)``, ``reset(seed=0)`` and 400 steps: eight ``ctf_steps``
    launches) and the Wildfire one (``make_wildfire_episode_rollout(WF_MAIN,
    8192, chunk=24)``, ``reset(seed=0)`` and 400 steps: seventeen
-   ``wf_steps_philox`` launches, no draw), and beside it the same call as
-   it ran before its draws moved into the kernel (``torch.rand`` draws and
-   seventeen ``wf_steps`` launches).  Check each rollout's invariants;
+   ``wf_steps_philox`` launches, no draw).  Check each rollout's invariants;
    then, after untimed calls until the time per call settles, time it,
    each kernel and its plain version (the bound of ``wf_steps_philox``
    counts the Philox calls and words that its inputs need, replayed with
@@ -140,9 +142,9 @@ without them.  Phases, each of which fails the run on any fault:
    at B = 1 for 50 steps with an untrained full-width net, counted: one
    step-kernel launch a frame after the first reset, uint8 frames.
 4. Profile 50 steps of each ``BatchedEnv`` rollout, 100 of each episode
-   path (and of the pre-drawn Wildfire one), one iteration of each training path, one self-play iteration and
+   path, one iteration of each training path, one self-play iteration and
    one Collect evaluation call and one Collect vector-env step: device time
-   by kernel and idle share.
+   by kernel, device time a step and idle share.
 
 Prints the timing lines, one JSON line of the render phase's readings,
 one JSON line of kernel records (with each kernel's launches in one
@@ -205,6 +207,7 @@ from gym_multigrid_tpu_torch.envs.wildfire import (  # noqa: E402
 )
 from gym_multigrid_tpu_torch.ops import (  # noqa: E402
     _build,
+    collect_slab,
     ctf_slab,
     maze_slab,
     philox,
@@ -212,6 +215,7 @@ from gym_multigrid_tpu_torch.ops import (  # noqa: E402
 )
 from gym_multigrid_tpu_torch.ops.collect_slab import (  # noqa: E402
     AGENT_COUNTS,
+    collect_ms_slab,
     collect_reset_slab,
     collect_step_slab,
     make_collect_episode_rollout,
@@ -235,7 +239,6 @@ from gym_multigrid_tpu_torch.ops.maze_slab import (  # noqa: E402
 from gym_multigrid_tpu_torch.ops.wildfire_slab import (  # noqa: E402
     make_wildfire_episode_rollout,
     ms_philox_spec,
-    wf_ms_slab,
     wf_philox_slab,
     wildfire_step_slab,
 )
@@ -285,6 +288,18 @@ SINGLE = CollectConfig(agents_index=(3,), layout="even", respawn=False)
 THREE = CollectConfig(agents_index=(3, 5, 1), layout="quadrants_respawn", respawn=True,
                       max_steps=50)
 QUADRANTS15 = CollectConfig(size=15, num_balls=30, layout="quadrants")
+# The Collect K-step entry's checks beside MAIN and SINGLE: a fixed-horizon
+# board, a 16x16 board (8 words of cells a lane) and 17 ball types (two
+# agents' 34 info counters, past a warp's 32 lanes); its episode chunk
+# (make_collect_episode_rollout's default) and the chunkings it is checked
+# in.
+FIXED = CollectConfig(layout="even", fixed_horizon=True, max_steps=50)
+BOARD16 = CollectConfig(size=16, num_balls=45, layout="quadrants_respawn", respawn=True,
+                        max_steps=50)
+TYPES17 = CollectConfig(balls_index=tuple(range(17)), balls_reward=(1.0,) * 17, num_balls=17,
+                        layout="even", respawn=True, max_steps=50)
+COLLECT_CHUNK = 25
+COLLECT_MS_CHUNKS = (1, COLLECT_CHUNK, 2 * COLLECT_CHUNK)
 
 # CtF: the config the repo's family bench drives (bench_all.py), 2v2 on
 # the 10x10 board, 400 steps per rollout call.
@@ -365,6 +380,10 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 PICK_OPS_PER_WORD = 3
 PICK_OPS = 8
 MOVE_OPS = 16
+# A Collect pickup on the K-step entry: the slot's clamp, its reward's and
+# info slot's reads, the reward's add, the counter's range test and
+# increment.
+PICKUP_OPS = 6
 # The CtF step, per env, counting each 32-bit integer or float operation
 # it needs: a squared distance is 6 (two subtracts, two converts, two
 # multiplies and the add folded into the compare: 7 with it), a red
@@ -501,12 +520,12 @@ def max_abs_err(got, want):
     return err
 
 
-def actions(gen, n_agents):
+def actions(gen, n_agents, n=B):
     """Moves 0..3 with the invalid ids -1, 4 and 7 mixed in (a fifth)."""
-    acts = torch.randint(0, 4, (B, n_agents), generator=gen, device=DEV, dtype=torch.int32)
-    bad = torch.rand((B, n_agents), generator=gen, device=DEV) < 0.2
+    acts = torch.randint(0, 4, (n, n_agents), generator=gen, device=DEV, dtype=torch.int32)
+    bad = torch.rand((n, n_agents), generator=gen, device=DEV) < 0.2
     ids = torch.tensor([-1, 4, 7], dtype=torch.int32, device=DEV)
-    pick = torch.randint(0, 3, (B, n_agents), generator=gen, device=DEV)
+    pick = torch.randint(0, 3, (n, n_agents), generator=gen, device=DEV)
     return torch.where(bad, ids[pick], acts)
 
 
@@ -549,6 +568,39 @@ def check_reset_kernel(cfg, seed, n=B):
     err = max(err, max_abs_err(out, [torch.where(done[:, None], w, o) for w, o in zip(want, old)]))
     log(f"reset kernel == reset_spec: size {cfg.size} layout {cfg.layout} at B={n} "
         f"(unmasked and {int(done.sum())}/{n} rows masked), max_abs_err {err}")
+    return err
+
+
+def check_collect_steps_kernel(cfg, name, seed, n=B, steps=2 * COLLECT_CHUNK):
+    """``collect_ms_slab`` (the kernel entry ``collect_steps``) against
+    ``ms_spec`` over ``steps`` steps from the batch reset, as launches of
+    each chunk size in ``COLLECT_MS_CHUNKS``, every launch compared: planes,
+    positions, reward sums and info counters bit for bit.  Action ids 0..3
+    with -1, 4 and 7 mixed in.  At B = 8192 fails unless balls were picked
+    up, and, where two agents' counters outrun a warp's 32 lanes, unless a
+    counter past the 32nd was counted."""
+    slab = make_collect_slab(cfg, DEV)
+    check(slab.kernel, f"{name}: not on the kernel route")
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    s = reset_batch(slab, n, generator=gen)
+    acts = torch.stack([actions(gen, cfg.num_agents, n) for _ in range(steps)])
+    rnd = torch.rand((steps, n, 3), generator=gen, device=DEV)
+    start = (s.grid_obj, s.grid_color, s.grid_slot, s.agent_pos.reshape(n, -1))
+    err, cnt = 0.0, None
+    for chunk in COLLECT_MS_CHUNKS:
+        cur, cnt = start, 0
+        for k0 in range(0, steps, chunk):
+            part = (acts[k0:k0 + chunk], rnd[k0:k0 + chunk])
+            got = collect_ms_slab(slab, *cur, *part)
+            err = max(err, max_abs_err(got, collect_slab.ms_spec(slab, *cur, *part)))
+            cur, cnt = got[:4], cnt + got[5]
+    picks, past_lanes = int(cnt.sum()), int(cnt[:, 32:].sum())
+    if n == B:
+        check(picks > 0, f"{name}: no pickups")
+        check(cnt.shape[1] <= 32 or past_lanes > 0, f"{name}: no counter past the 32nd")
+    log(f"collect_steps kernel == ms_spec: {name}, {steps} steps at B={n} as launches of "
+        f"{', '.join(map(str, COLLECT_MS_CHUNKS))}: {picks} pickups ({past_lanes} counted past "
+        f"the 32nd counter), max_abs_err {err}")
     return err
 
 
@@ -1100,33 +1152,6 @@ def check_ctf_steps_kernel(cfg, name, seed, n=B, steps=100, chunks=(25, CTF_CHUN
     return err
 
 
-def check_wf_steps_kernel(cfg, name, seed, n=B, steps=100, chunks=(WF_CHUNK, 8)):
-    """``wf_ms_slab`` (the kernel entry ``wf_steps``) against ``ms_spec``
-    over ``steps`` steps with the auto-reset from the batch reset, random
-    step counts, extinguished counts and running returns.  Action ids
-    -2..7 (the invalid ones clip).  Fails unless every env finished at
-    least two episodes."""
-    slab = wildfire_slab.make_wildfire_slab(cfg, DEV)
-    gen = torch.Generator(device=DEV).manual_seed(seed)
-    start = wildfire_slab.reset_batch(slab, n, generator=gen)
-    sc0 = torch.randint(0, cfg.max_steps, (n,), generator=gen, device=DEV, dtype=torch.int32)
-    ext0 = torch.randint(0, 5, (n,), generator=gen, device=DEV, dtype=torch.int32)
-    run0 = torch.rand((n,), generator=gen, device=DEV) - 0.5
-    draws = (
-        torch.randint(-2, 8, (steps, n, slab.t.n_agents), generator=gen, device=DEV,
-                      dtype=torch.int32),
-        torch.rand((steps, n, slab.step_draws), generator=gen, device=DEV),
-        torch.rand((steps, n, slab.reset_draws), generator=gen, device=DEV),
-    )
-    err, eps = check_steps_kernel(
-        lambda *a: wf_ms_slab(slab, *a),
-        lambda K, *a: wildfire_slab.ms_spec(slab.t, K, *a),
-        (start.cells.reshape(n, -1), start.agent_pos.reshape(n, -1), sc0, ext0, run0),
-        draws, chunks, f"wf_steps kernel == ms_spec: {name}")
-    check(bool((eps >= 2).all()), f"{name}: an env finished fewer than two episodes")
-    return err
-
-
 def check_wf_philox_kernel(cfg, name, seed, n=B, steps=100, chunks=(WF_CHUNK, 8)):
     """``wf_philox_slab`` (the kernel entry ``wf_steps_philox``, its draws
     made in the kernel) against ``ms_philox_spec`` over ``steps`` steps
@@ -1418,39 +1443,6 @@ def philox_draws_needed(t, state, key, step0, K):
     return calls, words
 
 
-def predrawn_wildfire_call(slab, gen, chunk=WF_CHUNK):
-    """The Wildfire episode call as it ran before its draws moved into the
-    kernel: each chunk draws its (K, B, A) actions, its step uniforms and
-    its fresh-board uniforms with ``torch.randint``/``torch.rand`` from
-    ``gen`` and runs one ``wf_steps`` launch (``wf_ms_slab``).
-    ``call(states, num_steps, run_return=None)`` returns what the episode
-    rollout returns, so the two are timed alike in one run."""
-    t = slab.t
-
-    def call(states, num_steps, run_return=None):
-        n = states.cells.shape[0]
-        run_ret = torch.zeros((n,), device=DEV) if run_return is None else run_return
-        sums = torch.zeros((2,), device=DEV)
-        episodes = torch.zeros((), dtype=torch.int32, device=DEV)
-        state = (states.cells.reshape(n, -1), states.agent_pos.reshape(n, -1),
-                 states.step_count, states.extinguished)
-        for start in range(0, num_steps, chunk):
-            K = min(chunk, num_steps - start)
-            draws = (torch.randint(0, 5, (K, n, t.n_agents), generator=gen, device=DEV,
-                                   dtype=torch.int32),
-                     torch.rand((K, n, slab.step_draws), generator=gen, device=DEV),
-                     torch.rand((K, n, slab.reset_draws), generator=gen, device=DEV))
-            *state, run_ret, rew, ep, eps = wf_ms_slab(slab, *state, run_ret, *draws)
-            sums = sums + torch.stack([rew.sum(), ep.sum()])
-            episodes = episodes + eps.sum(dtype=torch.int32)
-        cells, pos, sc, ext = state
-        return WildfireState(cells.view_as(states.cells), pos.view_as(states.agent_pos), sc, ext), {
-            "reward_sum": sums[0], "episodes": episodes, "ep_return_sum": sums[1],
-            "run_return": run_ret}
-
-    return call
-
-
 def time_ms(fn, iters, windows=5):
     """ms per call over ``windows`` windows of ``iters`` calls: CUDA events
     around each window, queued behind a device sleep so that host launch
@@ -1503,7 +1495,7 @@ def bound(nbytes, ops):
 WRAPPERS = {"collect_step": collect_step_slab, "collect_reset": collect_reset_slab,
             "ctf_step": ctf_step_slab, "ctf_steps": ctf_ms_slab, "maze_step": maze_step_slab,
             "maze_steps": maze_ms_slab, "wildfire_step": wildfire_step_slab,
-            "wf_steps": wf_ms_slab, "wf_steps_philox": wf_philox_slab}
+            "wf_steps_philox": wf_philox_slab, "collect_steps": collect_ms_slab}
 
 
 def run_counted(drive):
@@ -2289,29 +2281,35 @@ def profile_rollout(rollout, states, name, steps=50):
     profile_call(lambda: rollout(states, steps), f"{steps} {name} rollout steps", steps, "step")
 
 
-def profile_call(call, what, per, unit):
+def profile_call(call, what, per, unit, tries=2):
     """Device time by kernel and the idle share of one ``call()`` under
     ``torch.profiler``: the twelve longest kernels, and the port's own
-    kernels wherever they rank; launches counted per ``per`` ``unit``s."""
-    torch.cuda.synchronize()
+    kernels wherever they rank; launches counted per ``per`` ``unit``s.  A
+    short window right after a long one has come back with no device
+    record at all: the call is then profiled again, up to ``tries`` times."""
     kinds = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=kinds) as prof:
-        t0 = time.perf_counter()
-        call()
+    for attempt in range(tries):
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # A user annotation on the device (the optimizer's step range) spans
-    # kernels already counted: kernels only.
-    rows = sorted(
-        ((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)),
-        key=lambda r: -r[1],
-    )
-    busy_us = sum(r[1] for r in rows)
+        with torch.profiler.profile(activities=kinds) as prof:
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # A user annotation on the device (the optimizer's step range) spans
+        # kernels already counted: kernels only.
+        rows = sorted(
+            ((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)),
+            key=lambda r: -r[1],
+        )
+        busy_us = sum(r[1] for r in rows)
+        if busy_us > 0:
+            break
+        log(f"profile of {what}, try {attempt + 1}: no device time recorded")
     if busy_us > 0:
         log(f"profile of {what} (wall clock under the profiler): "
-            f"wall {wall_us:.0f} us, device kernels {busy_us:.0f} us "
-            f"({sum(r[2] for r in rows) / per:.1f} launches per {unit}), idle share "
+            f"wall {wall_us:.0f} us, device kernels {busy_us:.0f} us ({busy_us / per:.2f} us "
+            f"and {sum(r[2] for r in rows) / per:.2f} launches per {unit}), idle share "
             f"{1 - busy_us / wall_us:.3f}")
         for rank, (key, dev_us, count) in enumerate(rows):
             # A template kernel's name starts with its return type.
@@ -2419,24 +2417,9 @@ def main():
             (CTF_1V1, "1v1, ragged", RAGGED[1]),
         ))
     )
-    wf_ms_err = max(
-        check_wf_steps_kernel(dataclasses.replace(cfg, max_steps=MS_CHECK_MAX_STEPS), name,
-                              seed=80 + i, n=n)
-        for i, (cfg, name, n) in enumerate((
-            (WF_MAIN, "WF_MAIN", B),
-            (WF_FOUR, "10x10, 4 agents, step penalty", B),
-            (WF_SPREAD, "32x32, p_spread 1, p_burnout 0", B),
-            # Ragged batches: no multiple of a block's envs (8, or 4 at
-            # 32x32).
-            (WF_MAIN, "WF_MAIN, ragged", RAGGED[0]),
-            (WF_SPREAD, "32x32 spread, ragged", RAGGED[0]),
-            (WF_FOUR, "10x10, 4 agents, ragged", RAGGED[1]),
-            (WF_SPREAD, "32x32 spread, ragged", RAGGED[1]),
-        ))
-    )
-    # The same entry with its draws made in the kernel, against
+    # The Wildfire K-step entry, its draws made in the kernel, against
     # ms_philox_spec on the counters' draws: the three configs at B = 8192,
-    # 8189 and 5.
+    # 8189 and 5 (no multiple of a block's envs: 8, or 4 at 32x32).
     wf_px_err = max(
         check_wf_philox_kernel(dataclasses.replace(cfg, max_steps=MS_CHECK_MAX_STEPS), name,
                                seed=110 + 3 * i + j, n=n)
@@ -2447,6 +2430,15 @@ def main():
     )
     wf_px_err = max(wf_px_err, check_wildfire_rollout_card_equals_cpu(seed=120))
     out_err = check_out_of_envelope(seed=130)
+    # The Collect K-step entry: five configs at B = 8192 and the ragged
+    # batches (no multiple of a block's 8 envs).
+    collect_ms_err = max(
+        check_collect_steps_kernel(cfg, name, seed=140 + 3 * i + j, n=n)
+        for i, (cfg, name) in enumerate((
+            (MAIN, "main"), (SINGLE, "one agent"), (FIXED, "fixed_horizon"),
+            (BOARD16, "16x16"), (TYPES17, "17 ball types")))
+        for j, n in enumerate((B, *RAGGED))
+    )
 
     # Phase 3: each path, with the launch counts of its own run.
     launches, (env, *result) = run_counted(collect_main_path)
@@ -2587,14 +2579,40 @@ def main():
         f"the rollout's masked reset_batch (plain PyTorch, no kernel: "
         f"{wslab.reset_draws} uniforms an env) {wf_reset_ms * 1e3:.1f} us {us(wf_reset_all)}")
 
-    # The Collect episode path: one all-rows reset an episode.
+    # The Collect episode path: one collect_steps launch a chunk, one
+    # all-rows reset an episode, no collect_step.
     ce_launches, (ce_roll, *ce_result) = run_counted(collect_episode_path)
-    check_launches(ce_launches, {"collect_step": STEPS_PER_CALL,
-                                 "collect_reset": STEPS_PER_CALL // MAIN.max_steps + 1},
-                   "Collect episode")
+    n_eps = STEPS_PER_CALL // MAIN.max_steps
+    check_launches(ce_launches, {"collect_steps": n_eps * -(-MAIN.max_steps // COLLECT_CHUNK),
+                                 "collect_reset": n_eps + 1}, "Collect episode")
     ce_states = check_collect_episode_path(ce_roll, *ce_result)
     ce_states = time_rollout(ce_roll, "Collect episode", ce_states, STEPS_PER_CALL,
                              MAIN.num_agents, COLLECT_WARMUP_MAX)
+    # collect_steps a COLLECT_CHUNK-step launch on the episode path's states.
+    A = MAIN.num_agents
+    cst_args = (ce_states.grid_obj, ce_states.grid_color, ce_states.grid_slot,
+                ce_states.agent_pos.reshape(B, -1),
+                torch.randint(0, 4, (COLLECT_CHUNK, B, A), generator=gen, device=DEV,
+                              dtype=torch.int32),
+                torch.rand((COLLECT_CHUNK, B, 3), generator=gen, device=DEV))
+    cslab_e = ce_roll.slab
+    cst_ms, cst_all = time_ms(lambda: collect_ms_slab(cslab_e, *cst_args), 200)
+    cst_plain_ms, cst_plain_all = time_ms(
+        lambda: collect_slab.ms_spec(cslab_e, *cst_args), 1, windows=3)
+    cst_out = collect_ms_slab(cslab_e, *cst_args)
+    cst_picks = int(cst_out[5].sum())
+    cst_bytes = sum(x.numel() * x.element_size() for x in (
+        *cst_args, cslab_e.respawn_rects, cslab_e.slot_rewards, cslab_e.slot_info, *cst_out))
+    # Every pickup is a respawn pick on a respawn config.
+    cst_ops = (COLLECT_CHUNK * B * A * MOVE_OPS + cst_picks * PICKUP_OPS
+               + (pick_ops(cst_picks, MAIN.num_cells) if MAIN.respawn else 0))
+    cst_bound, cst_by, *cst_parts = bound(cst_bytes, cst_ops)
+    log(f"collect_steps: {cst_ms * 1e3:.2f} us/launch of {COLLECT_CHUNK} steps (median of "
+        f"windows {us(cst_all)}), {cst_ms * 1e3 / COLLECT_CHUNK:.4f} us a step against "
+        f"collect_step's {step_ms * 1e3:.2f}; bound {cst_bound * 1e3:.2f} us ({cst_by}; "
+        f"{cst_bytes} bytes take {cst_parts[0] * 1e3:.2f} us, {cst_ops} operations "
+        f"({cst_picks} pickups) {cst_parts[1] * 1e3:.2f} us), ms_spec "
+        f"{cst_plain_ms * 1e3:.1f} us {us(cst_plain_all)}")
 
     # The Maze episode path: MAZE_CHUNK steps a launch.
     me_launches, (me_roll, *me_result) = run_counted(maze_episode_path)
@@ -2664,51 +2682,15 @@ def main():
     wf_chunks = -(-WF_STEPS_PER_CALL // WF_CHUNK)
     check_launches(wfe_launches, {"wf_steps_philox": wf_chunks}, "Wildfire episode")
     check_wildfire_path(wfe_roll, *wfe_result)
-    # The same call with its draws made by torch.rand and read by wf_steps
-    # (how the path ran before), from the same first states.
-    pre_call = predrawn_wildfire_call(wfe_roll.slab, torch.Generator(device=DEV).manual_seed(0))
-    pre_launches, (pre_states, pre_metrics) = run_counted(
-        lambda: pre_call(wfe_result[0], WF_STEPS_PER_CALL))
-    check_launches(pre_launches, {"wf_steps": wf_chunks}, "pre-drawn Wildfire episode")
-    check_episode_metrics(pre_metrics, WF_STEPS_PER_CALL, "wildfire, pre-drawn")
     wfe_states = time_rollout(wfe_roll, "Wildfire episode", wfe_result[2], WF_STEPS_PER_CALL,
                               WF_MAIN.num_agents, WF_WARMUP_MAX)
-    pre_states = time_rollout(pre_call, "Wildfire episode, pre-drawn (torch.rand and wf_steps)",
-                              pre_states, WF_STEPS_PER_CALL, WF_MAIN.num_agents, WF_WARMUP_MAX)
     A, C = wt.n_agents, wt.n_cells
-    wfe_args = (wfe_states.cells.reshape(B, -1), wfe_states.agent_pos.reshape(B, -1),
-                wfe_states.step_count, wfe_states.extinguished, torch.zeros((B,), device=DEV),
-                torch.randint(0, 5, (WF_CHUNK, B, A), generator=gen, device=DEV,
-                              dtype=torch.int32),
-                torch.rand((WF_CHUNK, B, wslab.step_draws), generator=gen, device=DEV),
-                torch.rand((WF_CHUNK, B, wslab.reset_draws), generator=gen, device=DEV))
-    wms_ms, wms_all = time_ms(lambda: wf_ms_slab(wslab, *wfe_args), 200)
-    wms_plain_ms, wms_plain_all = time_ms(
-        lambda: wildfire_slab.ms_spec(wt, WF_CHUNK, *wfe_args), 1, windows=3)
-    wms_out = wf_ms_slab(wslab, *wfe_args)
-    wms_done = int(wms_out[7].sum())
-    wms_bytes = sum(x.numel() * x.element_size() for x in wfe_args[:7]) + (
-        wms_done * wslab.reset_draws * 4) + sum(x.numel() * x.element_size() for x in wms_out)
-    wms_ops = WF_CHUNK * (wf_ops + B * MS_STEP_OPS) + wms_done * (
-        C * WF_FRESH_CELL_OPS + wt.n_fires * WF_FRESH_FIRE_OPS
-        + A * (CTF_SPAWN_OPS + 2 + CTF_SPAWN_PAIR_OPS * (A - 1)))
-    wms_bound, wms_by, *wms_parts = bound(wms_bytes, wms_ops)
-    wms_draw_bytes = 4 * B * WF_CHUNK * (A + wslab.step_draws + wslab.reset_draws)
-    wms_draw_ms, wms_draw_all = time_ms(lambda: (
-        torch.randint(0, 5, (WF_CHUNK, B, A), generator=gen, device=DEV, dtype=torch.int32),
-        torch.rand((WF_CHUNK, B, wslab.step_draws), generator=gen, device=DEV),
-        torch.rand((WF_CHUNK, B, wslab.reset_draws), generator=gen, device=DEV)), 20)
-    log(f"wf_steps: {wms_ms * 1e3:.2f} us/launch of {WF_CHUNK} steps (median of windows "
-        f"{us(wms_all)}), {wms_ms * 1e3 / WF_CHUNK:.4f} us a step against wildfire_step's "
-        f"{wf_ms * 1e3:.2f}; bound {wms_bound * 1e3:.2f} us ({wms_by}; {wms_bytes} bytes take "
-        f"{wms_parts[0] * 1e3:.2f} us, {wms_ops} operations ({wms_done} fresh boards) "
-        f"{wms_parts[1] * 1e3:.2f} us), ms_spec {wms_plain_ms * 1e3:.1f} us "
-        f"{us(wms_plain_all)}; the chunk's three draws ({wms_draw_bytes} bytes written) "
-        f"{wms_draw_ms * 1e3:.2f} us {us(wms_draw_all)}")
     # The entry with its draws in the kernel, on the same states, at the
     # rollout's next step: it reads only the state and draws only what the
     # data needs (counted by replaying the chunk with the plain version).
-    wpx_args, wpx_key, wpx_step = wfe_args[:5], wfe_roll.key, wfe_roll.step
+    wpx_args = (wfe_states.cells.reshape(B, -1), wfe_states.agent_pos.reshape(B, -1),
+                wfe_states.step_count, wfe_states.extinguished, torch.zeros((B,), device=DEV))
+    wpx_key, wpx_step = wfe_roll.key, wfe_roll.step
     wpx_ms, wpx_all = time_ms(
         lambda: wf_philox_slab(wslab, *wpx_args, wpx_key, wpx_step, WF_CHUNK), 200)
     wpx_plain_ms, wpx_plain_all = time_ms(
@@ -2723,13 +2705,14 @@ def main():
         wpx_calls * PHILOX_CALL_OPS + wpx_words * PHILOX_WORD_OPS)
     wpx_bound, wpx_by, *wpx_parts = bound(wpx_bytes, wpx_ops)
     log(f"wf_steps_philox: {wpx_ms * 1e3:.2f} us/launch of {WF_CHUNK} steps (median of windows "
-        f"{us(wpx_all)}) against wf_steps' {wms_ms * 1e3:.2f} plus its draws' "
-        f"{wms_draw_ms * 1e3:.2f}; bound {wpx_bound * 1e3:.2f} us ({wpx_by}; {wpx_bytes} bytes take "
+        f"{us(wpx_all)}), {wpx_ms * 1e3 / WF_CHUNK:.4f} us a step against wildfire_step's "
+        f"{wf_ms * 1e3:.2f}; bound {wpx_bound * 1e3:.2f} us ({wpx_by}; {wpx_bytes} bytes take "
         f"{wpx_parts[0] * 1e3:.2f} us, {wpx_ops} operations ({wpx_done} fresh boards, "
         f"{wpx_calls} Philox calls, {wpx_words} words read; "
-        f"{wpx_words / (B * WF_CHUNK):.1f} words an env-step against the pre-drawn "
-        f"{A + wslab.step_draws + wslab.reset_draws}) {wpx_parts[1] * 1e3:.2f} us), "
-        f"ms_philox_spec {wpx_plain_ms * 1e3:.1f} us {us(wpx_plain_all)}")
+        f"{wpx_words / (B * WF_CHUNK):.1f} words an env-step of the "
+        f"{A + wslab.step_draws + wslab.reset_draws} ms_philox_spec forms) "
+        f"{wpx_parts[1] * 1e3:.2f} us), ms_philox_spec {wpx_plain_ms * 1e3:.1f} us "
+        f"{us(wpx_plain_all)}")
     # The launch floor: an empty kernel's device time a launch, queued back
     # to back (torch.cuda._sleep(0): a spin of 0 cycles), beside the bound
     # of maze_step, the kernel furthest below it.
@@ -2768,8 +2751,6 @@ def main():
     profile_rollout(me_roll, me_states, "Maze episode", steps=MAZE_CHUNK)
     profile_rollout(cte_roll, cte_states, "CtF episode", steps=2 * CTF_CHUNK)
     profile_rollout(wfe_roll, wfe_states, "Wildfire episode", steps=4 * WF_CHUNK + 4)
-    profile_rollout(pre_call, pre_states, "Wildfire episode, pre-drawn",
-                    steps=4 * WF_CHUNK + 4)
     profile_call(lambda: tc_step(tc_carry, tc_gen), "one Collect training iteration",
                  per_iter, "rollout step")
     profile_call(lambda: tf_step(tf_carry, tf_gen), "one CtF training iteration",
@@ -2833,22 +2814,24 @@ def main():
          "launches": cte_launches["ctf_steps"], "max_abs_err": ctf_ms_err,
          "ms": cms_ms, "plain_ms": cms_plain_ms, "bound_ms": cms_bound,
          "bound_by": cms_by, "library_ms": None},
-        # wf_steps' launches are those of the pre-drawn Wildfire episode
-        # call, which the episode path ran before wf_steps_philox.
-        {"name": "wf_steps", "route": "cuda",
-         "source": "gym_multigrid_tpu_torch/csrc/wildfire_step.cu",
-         "replaces": "gym_multigrid_tpu/ops/pallas_wildfire.py:50",
-         "launches": pre_launches["wf_steps"], "max_abs_err": wf_ms_err,
-         "ms": wms_ms, "plain_ms": wms_plain_ms, "bound_ms": wms_bound,
-         "bound_by": wms_by, "library_ms": None},
-        # The same K steps with the draws made in the kernel (ops/philox.py's
-        # counters), 24 steps a launch on the Wildfire episode path.
+        # The Wildfire K steps with the draws made in the kernel
+        # (ops/philox.py's counters), 24 steps a launch on the Wildfire
+        # episode path.
         {"name": "wf_steps_philox", "route": "cuda",
          "source": "gym_multigrid_tpu_torch/csrc/wildfire_step.cu",
          "replaces": "gym_multigrid_tpu/ops/pallas_wildfire.py:50",
          "launches": wfe_launches["wf_steps_philox"], "max_abs_err": wf_px_err,
          "ms": wpx_ms, "plain_ms": wpx_plain_ms, "bound_ms": wpx_bound,
          "bound_by": wpx_by, "library_ms": None},
+        # The Collect K-step entry: collect_step_slab's transition with
+        # _collect_ms_math's sums (pallas_collect.py:696), 25 steps a launch
+        # on the Collect episode path.
+        {"name": "collect_steps", "route": "cuda",
+         "source": "gym_multigrid_tpu_torch/csrc/collect_step.cu",
+         "replaces": "gym_multigrid_tpu/ops/pallas_collect.py:290",
+         "launches": ce_launches["collect_steps"], "max_abs_err": collect_ms_err,
+         "ms": cst_ms, "plain_ms": cst_plain_ms, "bound_ms": cst_bound,
+         "bound_by": cst_by, "library_ms": None},
     ]}
     # Launches of one evaluation call: evaluate() of the Collect family
     # batch, evaluate_ctf() of CTF_MAIN (self-play and the match evaluator

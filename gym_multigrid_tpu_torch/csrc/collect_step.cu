@@ -1,7 +1,8 @@
-// One Collect transition for a batch of envs, written by hand for Hopper
-// (sm_90a).
+// Collect transitions for a batch of envs, written by hand for Hopper
+// (sm_90a): one step (collect_step), and K steps with the rewards and info
+// counters summed (collect_steps).
 //
-// Replaces the TPU kernel collect_step_slab of
+// collect_step replaces the TPU kernel collect_step_slab of
 // gym_multigrid_tpu/ops/pallas_collect.py (body _step_math).  Its plain
 // PyTorch version is step_spec in gym_multigrid_tpu_torch/ops/collect_slab.py
 // and the two agree bit for bit.
@@ -12,54 +13,84 @@
 // The design reads and writes each plane once, coalesced, and keeps every
 // intermediate in registers:
 // - one warp per env, lane l owning cells l, l + 32, ... (collect_warp.cuh);
-// - the cell a mover enters is read with one __shfl_sync from its lane;
+// - the three planes packed into one register word per cell (see Packed
+//   below), so a cell is read with one __shfl_sync from its lane and
+//   written with one select;
 // - the respawn pick is one __ballot_sync per 32-cell word plus __popc;
 // - both agents' sub-steps run on the registers between the load and the
 //   store, the second seeing the board the first one left.
 // The TPU kernel's tril matmul, one-hot lane reductions and 128-lane
 // shapes were workarounds for the TPU and are not carried over.
+//
+// collect_steps is the counterpart of the K-step Collect kernel that the
+// JAX package pruned on the TPU (pallas_collect.py, make_collect_episode_
+// rollout; its body _collect_ms_math, :696); its plain version is ms_spec in
+// ops/collect_slab.py, K step_spec steps with each agent's reward and info
+// counters summed step by step, and the two agree bit for bit.  Both entries
+// run the same __device__ transition.  Per launch at C = 100, A = 2, K = 25
+// and B = 8192 the work is the board (three int32 planes read and written
+// once, 19.7 MB), the draws (4.1 MB) and the positions, sums and counters
+// (0.5 MB): about 7 us of memory at 3.35 TB/s.  The K transitions, which
+// the one-step entry runs between two round trips of the board through
+// memory, are what is left, so the design keeps everything but the draws
+// on chip for all K steps:
+// - the board stays packed in the warp's registers from the first step to
+//   the last (NK words a lane: 4 at C <= 128, 8 up to 256 cells); planes,
+//   positions, reward sums and counters are written once at the end;
+// - the draws of 32 steps (A action ids and 3 uniforms a step) are loaded
+//   at once, lane l holding step k0 + l's, and the next 32 steps' are
+//   loaded while these run; a step reads its draws with five __shfl_sync,
+//   so no step waits on a global load but the first of each window, whose
+//   loads are in flight together (a chunk's draws were just written by
+//   torch.rand and lie in L2);
+// - a pickup adds the slot's reward to its agent's sum with __fadd_rn, in
+//   step order.  ms_spec adds +0.0 at every step without one: that changes
+//   no partial sum, since the sum starts at +0 and round-to-nearest never
+//   makes a sum -0, and x + (+0) == x for every other x;
+// - the info counters, A * n_types of them, are held one a lane (counter j
+//   in lane j); counters past the 32nd, for configs with more than 16 ball
+//   types, are counted in place in the output by lane 0, which zeroes them
+//   first.
+// Packed: a cell is obj | color << 8 | slot << 16, obj and color in
+// 0..255 and slot a signed 16-bit value, which holds every cell an env
+// makes (object ids 0..3, color ids, reward slots below n_balls + n_colors
+// <= 256 + colors on this envelope); JAX's episode math packs the planes
+// the same way (pack_planes, pallas_collect.py:630).
 
 #include "collect_warp.cuh"
 
 namespace collect {
 namespace {
 
-template <int NK>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-step_kernel(const int* __restrict__ go_in, const int* __restrict__ gc_in,
-            const int* __restrict__ gs_in, const int* __restrict__ pos_in,
-            const int* __restrict__ acts, const float* __restrict__ rnd,
-            const unsigned char* __restrict__ rects,
-            int* __restrict__ go_out, int* __restrict__ gc_out,
-            int* __restrict__ gs_out, int* __restrict__ pos_out,
-            int* __restrict__ picked_out, int B, int W, int H, int A,
-            int respawn, int n_colors, int slot_base, int color0,
-            int color1) {
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (b >= B) return;  // the same for every lane of the warp
-  const int C = W * H;
-  const size_t row = (size_t)b * C;
+constexpr int kObjBits = 0xff;          // a packed cell's object byte
+constexpr int kColorShift = 8, kSlotShift = 16;
+constexpr int kSlotBits = ~0xffff;      // a packed cell's reward slot
+constexpr int kMaxLaneCounters = 32;    // counters held in lanes
 
-  int go[NK], gc[NK], gs[NK];
+__device__ __forceinline__ int pack(int obj, int color, int slot) {
+  return obj | color << kColorShift | slot << kSlotShift;
+}
+
+// What a transition reads besides the board and the draws.
+struct Board {
+  const unsigned char* rects;  // (n_colors, C) respawn rect of each color
+  int W, H, respawn, n_colors, slot_base, color0, color1;
+};
+
+// One Collect transition of the env whose packed board the warp holds in
+// p, for A agents (1 or 2): they move in the fair-coin order, agent 1 first
+// when u0 < 0.5; u1 and u2 are the first and second mover's respawn
+// uniforms.  Updates p and the positions, and sets picked0/picked1 to the
+// reward slot of the ball each agent picked up, or -1.  Every value but
+// p's is alike in every lane.
+template <int NK, int A>
+__device__ __forceinline__ void transition(int (&p)[NK], const Board& bd, int lane, int a0,
+                                           int a1, float u0, float u1, float u2, int& x0,
+                                           int& y0, int& x1, int& y1, int& picked0,
+                                           int& picked1) {
+  const int W = bd.W, H = bd.H, C = W * H;
+  const int first = (A == 2 && u0 < 0.5f) ? 1 : 0;
 #pragma unroll
-  for (int k = 0; k < NK; ++k) {
-    const int c = k * 32 + lane;
-    go[k] = c < C ? go_in[row + c] : kOffBoard;
-    gc[k] = c < C ? gc_in[row + c] : 0;
-    gs[k] = c < C ? gs_in[row + c] : 0;
-  }
-
-  const int* p = pos_in + (size_t)b * 2 * A;
-  int x0 = p[0], y0 = p[1];
-  int x1 = A == 2 ? p[2] : 0, y1 = A == 2 ? p[3] : 0;
-  const int a0 = acts[(size_t)b * A], a1 = A == 2 ? acts[(size_t)b * A + 1] : 0;
-  int picked0 = -1, picked1 = -1;
-  const float* u = rnd + (size_t)b * 3;
-  // Move order: a fair coin for two agents; agent 1 moves first when
-  // u[0] < 0.5.
-  const int first = (A == 2 && u[0] < 0.5f) ? 1 : 0;
-
   for (int s = 0; s < A; ++s) {
     const int i = s == 0 ? first : 1 - first;
     const int act = i ? a1 : a0;
@@ -70,58 +101,46 @@ step_kernel(const int* __restrict__ go_in, const int* __restrict__ gc_in,
     const int nx = min(max(x + dx, 0), W - 1), ny = min(max(y + dy, 0), H - 1);
     const int nidx = ny * W + nx, oidx = y * W + x;
 
-    const int cell = warp_gather(go, nidx);
-    const int ball_color = warp_gather(gc, nidx);
-    const int ball_slot = warp_gather(gs, nidx);
-    const bool is_ball = cell == kBall;
-    const bool do_move = is_ball || cell == kEmpty;
+    const int cell = warp_gather(p, nidx);
+    const int obj = cell & kObjBits;
+    const int ball_color = (cell >> kColorShift) & kObjBits;
+    const int ball_slot = cell >> kSlotShift;
+    const bool is_ball = obj == kBall;
+    const bool do_move = is_ball || obj == kEmpty;
 
     if (is_ball) {  // the same on every lane
       // Pickup: clear the ball cell.
 #pragma unroll
       for (int k = 0; k < NK; ++k)
-        if (k * 32 + lane == nidx) {
-          go[k] = kEmpty;
-          gc[k] = 0;
-          gs[k] = 0;
-        }
-      if (respawn) {
+        if (k * 32 + lane == nidx) p[k] = pack(kEmpty, 0, 0);
+      if (bd.respawn) {
         // Respawn before the mover enters: uniform over the empty cells of
         // the ball color's rect, the vacated ball cell included.
-        const int bc = min(max(ball_color, 0), n_colors - 1);
-        const unsigned char* rect = rects + (size_t)bc * C;
+        const int bc = min(max(ball_color, 0), bd.n_colors - 1);
+        const unsigned char* rect = bd.rects + (size_t)bc * C;
         bool m[NK];
 #pragma unroll
         for (int k = 0; k < NK; ++k) {
           const int c = k * 32 + lane;
-          m[k] = c < C && rect[c] && go[k] == kEmpty;
+          m[k] = c < C && rect[c] && (p[k] & kObjBits) == kEmpty;
         }
-        const unsigned hits = warp_pick(m, u[1 + s], lane);
+        const unsigned hits = warp_pick(m, s == 0 ? u1 : u2, lane);
+        const int ball = pack(kBall, ball_color, bd.slot_base + ball_color);
 #pragma unroll
         for (int k = 0; k < NK; ++k)
-          if ((hits >> k) & 1u) {
-            go[k] = kBall;
-            gc[k] = ball_color;
-            gs[k] = slot_base + ball_color;
-          }
+          if ((hits >> k) & 1u) p[k] = ball;
       }
     }
 
     if (do_move) {
       // The mover enters (overwriting a respawn on the vacated cell: the
-      // reference's stomp) and leaves its old cell.
+      // reference's stomp) and leaves its old cell, whose slot stays.
+      const int agent = pack(kAgent, i ? bd.color1 : bd.color0, 0);
 #pragma unroll
       for (int k = 0; k < NK; ++k) {
         const int c = k * 32 + lane;
-        if (c == nidx) {
-          go[k] = kAgent;
-          gc[k] = i ? color1 : color0;
-          gs[k] = 0;
-        }
-        if (c == oidx) {
-          go[k] = kEmpty;
-          gc[k] = 0;
-        }
+        if (c == nidx) p[k] = agent;
+        if (c == oidx) p[k] &= kSlotBits;
       }
       if (i) {
         x1 = nx;
@@ -134,45 +153,173 @@ step_kernel(const int* __restrict__ go_in, const int* __restrict__ gc_in,
     const int got = is_ball ? ball_slot : -1;
     if (i) picked1 = got; else picked0 = got;
   }
+}
 
+// The env's three planes, packed into the warp's registers.
+template <int NK>
+__device__ __forceinline__ void load_board(int (&p)[NK], const int* go, const int* gc,
+                                           const int* gs, size_t row, int C, int lane) {
+#pragma unroll
+  for (int k = 0; k < NK; ++k) {
+    const int c = k * 32 + lane;
+    p[k] = c < C ? pack(go[row + c], gc[row + c], gs[row + c]) : kOffBoard;
+  }
+}
+
+template <int NK>
+__device__ __forceinline__ void store_board(const int (&p)[NK], int* go, int* gc, int* gs,
+                                            size_t row, int C, int lane) {
 #pragma unroll
   for (int k = 0; k < NK; ++k) {
     const int c = k * 32 + lane;
     if (c < C) {
-      go_out[row + c] = go[k];
-      gc_out[row + c] = gc[k];
-      gs_out[row + c] = gs[k];
+      go[row + c] = p[k] & kObjBits;
+      gc[row + c] = (p[k] >> kColorShift) & kObjBits;
+      gs[row + c] = p[k] >> kSlotShift;
     }
   }
+}
+
+template <int NK, int A>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+step_kernel(const int* __restrict__ go_in, const int* __restrict__ gc_in,
+            const int* __restrict__ gs_in, const int* __restrict__ pos_in,
+            const int* __restrict__ acts, const float* __restrict__ rnd,
+            int* __restrict__ go_out, int* __restrict__ gc_out,
+            int* __restrict__ gs_out, int* __restrict__ pos_out,
+            int* __restrict__ picked_out, const Board bd, int B) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (b >= B) return;  // the same for every lane of the warp
+  const int C = bd.W * bd.H;
+  const size_t row = (size_t)b * C;
+
+  int p[NK];
+  load_board<NK>(p, go_in, gc_in, gs_in, row, C, lane);
+  const int* q = pos_in + (size_t)b * 2 * A;
+  int x0 = q[0], y0 = q[1];
+  int x1 = A == 2 ? q[2] : 0, y1 = A == 2 ? q[3] : 0;
+  const int a0 = acts[(size_t)b * A], a1 = A == 2 ? acts[(size_t)b * A + 1] : 0;
+  const float* u = rnd + (size_t)b * 3;
+  int picked0 = -1, picked1 = -1;
+  transition<NK, A>(p, bd, lane, a0, a1, u[0], u[1], u[2], x0, y0, x1, y1, picked0, picked1);
+
+  store_board<NK>(p, go_out, gc_out, gs_out, row, C, lane);
   if (lane == 0) {
-    int* q = pos_out + (size_t)b * 2 * A;
-    q[0] = x0;
-    q[1] = y0;
+    int* o = pos_out + (size_t)b * 2 * A;
+    o[0] = x0;
+    o[1] = y0;
     picked_out[(size_t)b * A] = picked0;
     if (A == 2) {
-      q[2] = x1;
-      q[3] = y1;
+      o[2] = x1;
+      o[3] = y1;
       picked_out[(size_t)b * A + 1] = picked1;
     }
   }
 }
 
-template <int NK>
-cudaError_t launch(const void* go, const void* gc, const void* gs,
-                   const void* pos, const void* acts, const void* rnd,
-                   const void* rects, void* go_out, void* gc_out,
-                   void* gs_out, void* pos_out, void* picked_out, int B,
-                   int W, int H, int A, int respawn, int n_colors,
-                   int slot_base, int color0, int color1,
-                   cudaStream_t stream) {
-  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  step_kernel<NK><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-      (const int*)go, (const int*)gc, (const int*)gs, (const int*)pos,
-      (const int*)acts, (const float*)rnd, (const unsigned char*)rects,
-      (int*)go_out, (int*)gc_out, (int*)gs_out, (int*)pos_out,
-      (int*)picked_out, B, W, H, A, respawn, n_colors, slot_base, color0,
-      color1);
-  return cudaGetLastError();
+// A step's draws, lane l holding those of step k0 + l of its window.
+struct Draws {
+  int a0, a1;
+  float u0, u1, u2;
+};
+
+__device__ __forceinline__ Draws load_draws(const int* acts, const float* rnd, int k, int K,
+                                            int B, int b, int A) {
+  Draws d{0, 0, 0.f, 0.f, 0.f};
+  if (k < K) {
+    const size_t r = (size_t)k * B + b;
+    d.a0 = acts[r * A];
+    if (A == 2) d.a1 = acts[r * A + 1];
+    d.u0 = rnd[r * 3];
+    d.u1 = rnd[r * 3 + 1];
+    d.u2 = rnd[r * 3 + 2];
+  }
+  return d;
+}
+
+template <int NK, int A>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+steps_kernel(const int* __restrict__ go_in, const int* __restrict__ gc_in,
+             const int* __restrict__ gs_in, const int* __restrict__ pos_in,
+             const int* __restrict__ acts, const float* __restrict__ rnd,
+             const float* __restrict__ slot_rewards, const int* __restrict__ slot_info,
+             int* __restrict__ go_out, int* __restrict__ gc_out, int* __restrict__ gs_out,
+             int* __restrict__ pos_out, float* __restrict__ rew_out, int* __restrict__ cnt_out,
+             const Board bd, int B, int K, int n_slots, int n_types) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (b >= B) return;  // the same for every lane of the warp
+  const int C = bd.W * bd.H, n_cnt = A * n_types;
+  const size_t row = (size_t)b * C;
+  int* cnt_row = cnt_out + (size_t)b * n_cnt;
+
+  // The first window's draws go out before the board's loads.
+  Draws cur = load_draws(acts, rnd, lane, K, B, b, A);
+  int p[NK];
+  load_board<NK>(p, go_in, gc_in, gs_in, row, C, lane);
+  const int* q = pos_in + (size_t)b * 2 * A;
+  int x0 = q[0], y0 = q[1];
+  int x1 = A == 2 ? q[2] : 0, y1 = A == 2 ? q[3] : 0;
+  float rew0 = 0.f, rew1 = 0.f;
+  int cnt = 0;  // counter `lane`: agent lane / n_types, info slot lane % n_types
+  if (lane == 0)
+    for (int j = kMaxLaneCounters; j < n_cnt; ++j) cnt_row[j] = 0;
+
+  // A pickup of slot `picked` by agent i: its reward and info counter.
+  auto account = [&](int picked, int i) {
+    if (picked < 0) return;  // the same on every lane
+    const int ps = min(picked, n_slots - 1);
+    const float r = slot_rewards[ps];
+    if (i) rew1 = __fadd_rn(rew1, r); else rew0 = __fadd_rn(rew0, r);
+    const int type = slot_info[ps];
+    if (type < 0 || type >= n_types) return;
+    const int j = i * n_types + type;
+    if (j < kMaxLaneCounters) cnt += lane == j;
+    else if (lane == 0) cnt_row[j] += 1;
+  };
+
+  for (int k0 = 0; k0 < K; k0 += 32) {
+    const Draws next = load_draws(acts, rnd, k0 + 32 + lane, K, B, b, A);
+    const int n = min(32, K - k0);
+    for (int j = 0; j < n; ++j) {
+      const int a0 = __shfl_sync(kFull, cur.a0, j), a1 = __shfl_sync(kFull, cur.a1, j);
+      const float u0 = __shfl_sync(kFull, cur.u0, j), u1 = __shfl_sync(kFull, cur.u1, j),
+                  u2 = __shfl_sync(kFull, cur.u2, j);
+      int picked0 = -1, picked1 = -1;
+      transition<NK, A>(p, bd, lane, a0, a1, u0, u1, u2, x0, y0, x1, y1, picked0, picked1);
+      account(picked0, 0);
+      if (A == 2) account(picked1, 1);
+    }
+    cur = next;
+  }
+
+  store_board<NK>(p, go_out, gc_out, gs_out, row, C, lane);
+  if (lane < n_cnt && lane < kMaxLaneCounters) cnt_row[lane] = cnt;
+  if (lane == 0) {
+    int* o = pos_out + (size_t)b * 2 * A;
+    o[0] = x0;
+    o[1] = y0;
+    rew_out[(size_t)b * A] = rew0;
+    if (A == 2) {
+      o[2] = x1;
+      o[3] = y1;
+      rew_out[(size_t)b * A + 1] = rew1;
+    }
+  }
+}
+
+int blocks_for(int B) { return (B + kWarpsPerBlock - 1) / kWarpsPerBlock; }
+
+// The instance of a kernel template for a board of C cells and A agents.
+template <typename Fn>
+Fn pick(int C, int A, Fn nk4a1, Fn nk4a2, Fn nk8a1, Fn nk8a2) {
+  return C <= 128 ? (A == 1 ? nk4a1 : nk4a2) : (A == 1 ? nk8a1 : nk8a2);
+}
+
+bool board_ok(int B, int W, int H, int A, int n_colors) {
+  const int C = W * H;
+  return B >= 1 && A >= 1 && A <= 2 && W >= 1 && H >= 1 && C <= kMaxCells && n_colors >= 1;
 }
 
 }  // namespace
@@ -190,11 +337,42 @@ extern "C" int collect_step(const void* go, const void* gc, const void* gs,
                             int respawn, int n_colors, int slot_base,
                             int color0, int color1, void* stream) {
   using namespace collect;
-  const int C = W * H;
-  if (B < 1 || A < 1 || A > 2 || C < 1 || C > kMaxCells || n_colors < 1)
+  if (!board_ok(B, W, H, A, n_colors)) return (int)cudaErrorInvalidValue;
+  const Board bd{(const unsigned char*)rects, W, H, respawn, n_colors, slot_base, color0, color1};
+  auto kernel = pick(W * H, A, step_kernel<4, 1>, step_kernel<4, 2>, step_kernel<8, 1>,
+                     step_kernel<8, 2>);
+  kernel<<<blocks_for(B), kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
+      (const int*)go, (const int*)gc, (const int*)gs, (const int*)pos, (const int*)acts,
+      (const float*)rnd, (int*)go_out, (int*)gc_out, (int*)gs_out, (int*)pos_out,
+      (int*)picked_out, bd, B);
+  return (int)cudaGetLastError();
+}
+
+// K steps of collect_step with the rewards and info counters summed (plain
+// version ms_spec).  Planes, pos and rects as for collect_step; acts (K, B,
+// A) int32, rnd (K, B, 3) float32; slot_rewards (n_slots,) float32 and
+// slot_info (n_slots,) int32, the reward and info counter of each reward
+// slot.  Outputs: the planes and pos after the K steps, rew (B, A) float32
+// (each agent's summed reward) and cnt (B, A * n_types) int32 (its pickups
+// by info slot).  Launches on `stream` and returns the launch's cudaError_t.
+extern "C" int collect_steps(const void* go, const void* gc, const void* gs,
+                             const void* pos, const void* acts, const void* rnd,
+                             const void* rects, const void* slot_rewards,
+                             const void* slot_info, void* go_out, void* gc_out,
+                             void* gs_out, void* pos_out, void* rew_out, void* cnt_out,
+                             int B, int K, int W, int H, int A, int respawn, int n_colors,
+                             int slot_base, int color0, int color1, int n_slots,
+                             int n_types, void* stream) {
+  using namespace collect;
+  if (!board_ok(B, W, H, A, n_colors) || K < 1 || n_slots < 1 || n_types < 1)
     return (int)cudaErrorInvalidValue;
-  auto run = C <= 128 ? launch<4> : launch<8>;
-  return (int)run(go, gc, gs, pos, acts, rnd, rects, go_out, gc_out, gs_out,
-                  pos_out, picked_out, B, W, H, A, respawn, n_colors,
-                  slot_base, color0, color1, (cudaStream_t)stream);
+  const Board bd{(const unsigned char*)rects, W, H, respawn, n_colors, slot_base, color0, color1};
+  auto kernel = pick(W * H, A, steps_kernel<4, 1>, steps_kernel<4, 2>, steps_kernel<8, 1>,
+                     steps_kernel<8, 2>);
+  kernel<<<blocks_for(B), kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
+      (const int*)go, (const int*)gc, (const int*)gs, (const int*)pos, (const int*)acts,
+      (const float*)rnd, (const float*)slot_rewards, (const int*)slot_info, (int*)go_out,
+      (int*)gc_out, (int*)gs_out, (int*)pos_out, (float*)rew_out, (int*)cnt_out, bd, B, K,
+      n_slots, n_types);
+  return (int)cudaGetLastError();
 }

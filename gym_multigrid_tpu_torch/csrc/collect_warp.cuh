@@ -20,17 +20,29 @@ constexpr int kMaxCells = 256;  // NK = 8 words per lane; ops.collect_slab.MAX_C
 // tables.
 constexpr int kEmpty = 0, kWall = 1, kBall = 2, kAgent = 3, kWallColor = 7;
 constexpr int kNorth = 0, kEast = 1, kSouth = 2, kWest = 3;
-// A lane's slots past the last cell hold this object id: never empty, never
-// a ball, so no mask selects them.
+// A lane's slots past the last cell hold this value (as a packed cell of
+// collect_step.cu, object byte 255): never empty, never a ball, so no mask
+// selects them.
 constexpr int kOffBoard = -1;
+
+// a == b ? x : y, as one compare and one select.  Written in PTX so that
+// the compiler cannot fold a chain of them over a register array into a
+// dynamic index of the array, which it lowers into a branch per word.
+__device__ __forceinline__ int select_eq(int a, int b, int x, int y) {
+  int r;
+  asm("{\n\t.reg .pred p;\n\tsetp.eq.s32 p, %1, %2;\n\tselp.b32 %0, %3, %4, p;\n\t}"
+      : "=r"(r)
+      : "r"(a), "r"(b), "r"(x), "r"(y));
+  return r;
+}
 
 // Value of cell idx (0 <= idx < C) of a plane held across the warp.
 template <int NK>
 __device__ __forceinline__ int warp_gather(const int (&v)[NK], int idx) {
-  int mine = 0;
+  const int w = idx >> 5;
+  int mine = v[0];
 #pragma unroll
-  for (int k = 0; k < NK; ++k)
-    if (k == (idx >> 5)) mine = v[k];
+  for (int k = 1; k < NK; ++k) mine = select_eq(w, k, v[k], mine);
   return __shfl_sync(kFull, mine, idx & 31);
 }
 

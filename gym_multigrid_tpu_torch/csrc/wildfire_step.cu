@@ -55,47 +55,35 @@
 //   contracted into an FMA; floor(u * A!) is __fmul_rn then __float2int_rz.
 // Envelope: at most 4 agents (the move-order table's) and 1024 cells.
 //
-// The K-step entry wf_steps runs K transitions with the per-env auto-reset
-// of _ms_math (pallas_wildfire.py, the pre-drawn form), the plain version
-// ms_spec in ops/wildfire_slab.py, in one launch: the counterpart of
-// wildfire_step_slab's body on the JAX episode path, whose own K-step
-// Pallas kernel was pruned on the TPU.  Both entries run the same moves and
-// cell step (move_all, burn).  One warp per env keeps the board in its
-// lanes' registers for all K steps, so a launch reads and writes each
-// board once; each step's uniforms and actions reach a ring of kStages
-// steps in shared memory by 4-byte cp.async copies, kStages steps ahead
-// (a row of 1 + C uniforms is 4-byte aligned only, and so are the
-// steps of a ragged batch: no tensor needs more).  A finished env gets a
-// fresh board in the kernel (fresh_board): its trees by one compare a
-// cell, the fires picked among the trees by a popcount prefix over the
-// lanes' ballot words, the agents by picks::pick_untaken; its spawn
-// uniforms are read only on that step, and the plain version draws them
-// every step and throws them away elsewhere, so skipping them changes
-// nothing.  The sums are __fadd_rn adds in _ms_math's order, a +0 added
-// where no episode ended.  What bounds it at 16x16, B = 8192: the SMs'
-// instruction issue, not one warp's chain (scripts/torch_kernel_probe.py:
-// a lone warp's step takes about a quarter of a full batch's), against a
-// stream of 8.5 MB of uniforms and about 57 M integer operations a step;
-// the uniforms of the fresh boards (260 an env a step) are drawn for the
-// plain version's contract but read only where an episode ended.
-//
-// The entry wf_steps_philox is wf_steps with its draws made in the kernel
-// by Philox4x32-10 (csrc/philox.cuh) from the counters of ops/philox.py:
-// its plain version ms_philox_spec forms acts, rnd and rnd_reset from the
-// same counters and runs ms_spec on them.  It takes the key and the global
-// step of its first step in place of the three draw tensors, so no uniform
-// crosses HBM, and it makes a uniform only where one is read: the actions
-// and the move order every step, a lane's four cell uniforms (one call)
-// only when a word of its group holds a fire or a tree with a burning
-// neighbour, the fresh board's only on the step its episode ended.  Both
-// K-step entries, and wildfire_step, skip the spread of a word with no such
-// cell (the `todo` words of extinguish), whose cells no uniform can change.
+// The K-step entry wf_steps_philox runs K transitions with the per-env
+// auto-reset of _ms_math (pallas_wildfire.py) in one launch: the
+// counterpart of wildfire_step_slab's body on the JAX episode path, whose
+// own K-step Pallas kernel was pruned on the TPU.  Its plain version
+// ms_philox_spec in ops/wildfire_slab.py forms acts, rnd and rnd_reset
+// from the counters of ops/philox.py and runs ms_spec (_ms_math's
+// pre-drawn form) on them; the kernel makes the same draws by Philox4x32-10
+// (csrc/philox.cuh), each only where it is read: the actions and the move
+// order every step, a lane's four cell uniforms (one call) only when a
+// word of its group holds a fire or a tree with a burning neighbour, the
+// fresh board's only on the step its episode ended.  It takes the key and
+// the global step of its first step, so no uniform crosses HBM.  Both
+// entries run the same moves and cell step (move_all, extinguish,
+// spread_cell), and skip the spread of a word with no fire and no
+// ignitable tree (the `todo` words of extinguish), whose cells no uniform
+// can change.  One warp per env keeps the board in its lanes' registers
+// for all K steps, so a launch reads and writes each board once.  A
+// finished env gets a fresh board in the kernel (fresh_board): its trees
+// by one compare a cell, the fires picked among the trees by a popcount
+// prefix over the lanes' ballot words, the agents by picks::pick_untaken.
+// The sums are __fadd_rn adds in _ms_math's order, a +0 added where no
+// episode ended.  What bounds it at 16x16, B = 8192: the SMs' instruction
+// issue, not one warp's chain (scripts/torch_kernel_probe.py: a lone
+// warp's step takes about a quarter of a full batch's).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "copy_async.cuh"
 #include "move_order.cuh"
 #include "philox.cuh"
 #include "picks.cuh"
@@ -648,18 +636,12 @@ cudaError_t launch(const void* const* in, int* cells_out, const Outputs& out, co
 
 // ---- the K-step kernels ----
 
-// Steps of uniforms a warp keeps in flight ahead of the one it runs.
-constexpr int kStages = 4;
-
 struct MsInputs {
   const int* cells;
   const int* pos;
   const int* sc;
   const int* ext;
   const float* run_ret;
-  const int* acts;         // (K, B, A); wf_steps only
-  const float* rnd;        // (K, B, 1 + C); wf_steps only
-  const float* rnd_reset;  // (K, B, C + n_fires + A); wf_steps only
 };
 
 struct MsOutputs {
@@ -690,8 +672,8 @@ __host__ __device__ constexpr int ms_warps() {
 // Blocks of a K-step kernel an SM should hold at once, which caps its
 // registers.  Up to 256 cells, 4 blocks of 8 warps (64 registers a thread,
 // a few bytes spilled) run B = 8192 in two waves where the compiler's own
-// choice (107 registers, 2 blocks) takes four: measured faster for
-// wf_steps by scripts/torch_kernel_probe.py.  Larger boards keep the
+// choice (107 registers, 2 blocks) takes four: measured faster for the
+// K-step entry by scripts/torch_kernel_probe.py.  Larger boards keep the
 // compiler's choice.
 template <int NK>
 __host__ __device__ constexpr int ms_min_blocks() {
@@ -777,75 +759,6 @@ __device__ __forceinline__ void store_env(const MsOutputs& out, const Params& p,
   }
 }
 
-// One warp per env runs all K steps with the board in its lanes'
-// registers.  Each step's record, the move-order and cell uniforms then
-// the A action ids (1 + C + A words), reaches the warp's own ring of
-// kStages records in shared memory by 4-byte cp.async copies, lane l
-// copying words l, l + 32, ..., kStages steps ahead of the step that reads
-// it.  A finished env gets a fresh board from its spawn uniforms, read
-// only on that step.
-template <int NK>
-__global__ void __launch_bounds__(ms_warps<NK>() * 32, ms_min_blocks<NK>())
-steps_kernel(const MsInputs in, const MsOutputs out, const Params p, const MsParams q) {
-  constexpr int kWarps = ms_warps<NK>();
-  extern __shared__ __align__(16) float ms_ring[];
-  __shared__ unsigned s_orders[kNumOrders];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + warp;
-  const bool live = b < p.B;
-  const int C = p.w * p.h, A = p.n_agents, B = p.B, W = 1 + C + A;
-  float* ring = ms_ring + warp * kStages * W;
-
-  auto issue = [&](int kk) {
-    if (live && kk < q.K) {
-      float* dst = ring + (kk % kStages) * W;
-      const size_t row = (size_t)kk * B + b;
-      const float* u = in.rnd + row * (C + 1);
-      for (int w = lane; w < C + 1; w += 32) copy_async::copy4(dst + w, u + w);
-      if (lane < A) copy_async::copy4(dst + C + 1 + lane, in.acts + row * A + lane);
-    }
-    copy_async::commit();
-  };
-#pragma unroll
-  for (int kk = 0; kk < kStages; ++kk) issue(kk);
-
-  for (int i = threadIdx.x; i < kNumOrders; i += blockDim.x) s_orders[i] = kMoveOrders[i];
-  const EdgeWords edge = edge_words<NK>(p, lane);
-  __syncthreads();
-  if (!live) return;  // a whole warp: no block barrier follows
-
-  Env<NK> e;
-  load_env<NK>(in, p, b, lane, e);
-  for (int kk = 0; kk < q.K; ++kk) {
-    copy_async::wait<kStages - 1>();
-    __syncwarp();
-    const float* rec = ring + (kk % kStages) * W;
-    const float u0 = rec[0];
-    int act[kMaxAgents];
-#pragma unroll
-    for (int i = 0; i < kMaxAgents; ++i)
-      act[i] = i < A ? min(max(__float_as_int(rec[C + 1 + i]), 0), kNumActions - 1) : 0;
-    float uc[NK];
-#pragma unroll
-    for (int k = 0; k < NK; ++k) {
-      const int c = 32 * k + lane;
-      uc[k] = c < C ? rec[1 + c] : 1.f;
-    }
-    __syncwarp();
-    issue(kk + kStages);  // into the stage just read
-
-    move_all(p, s_orders, u0, act, e.xs, e.ys);
-    const Burn s = burn<NK>(p, lane, e.xs, e.ys, e.v, uc, edge);
-    if (account<NK>(p, q.max_steps, s, e)) {
-      const float* u = in.rnd_reset + ((size_t)kk * B + b) * (C + q.n_fires + A);
-      fresh_board<NK>(
-          p, q.tree_density, q.n_fires, lane, [&](int k) { return u[32 * k + lane]; },
-          [&](int j) { return u[C + j]; }, e.v, e.xs, e.ys);
-    }
-  }
-  store_env<NK>(out, p, b, lane, e);
-}
-
 // Uniforms of one stream laid out four to a counter (ops.philox): value j
 // is word j % 4 of the counter (index_of(j / 4), b, s, stream).  The last
 // counter's words are kept, so consecutive values of one counter cost one
@@ -866,8 +779,8 @@ struct LazyDraws {
   }
 };
 
-// wf_steps with its draws made in the kernel from ops.philox's counters,
-// each only where it is read: the actions and the move order every step
+// K steps with the auto-reset, the draws made in the kernel from
+// ops.philox's counters, each only where it is read: the actions and the move order every step
 // (lane 0 and lane 1 each make one call, shared by shuffles); a group of
 // four cell uniforms (one call a lane: its cells l + 32 k, k = 4 g ..
 // 4 g + 3) only when a word of the group holds a fire or a tree with a
@@ -931,23 +844,6 @@ philox_steps_kernel(const MsInputs in, const MsOutputs out, const Params p, cons
 }
 
 template <int NK>
-cudaError_t launch_steps(const MsInputs& in, const MsOutputs& out, const Params& p,
-                         const MsParams& q, cudaStream_t stream) {
-  constexpr int kWarps = ms_warps<NK>();
-  auto kernel = steps_kernel<NK>;
-  const int C = p.w * p.h;
-  const size_t smem = sizeof(float) * kWarps * kStages * (size_t)(1 + C + p.n_agents);
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const int blocks = (p.B + kWarps - 1) / kWarps;
-  kernel<<<blocks, kWarps * 32, smem, stream>>>(in, out, p, q);
-  return cudaGetLastError();
-}
-
-template <int NK>
 cudaError_t launch_philox_steps(const MsInputs& in, const MsOutputs& out, const Params& p,
                                 const MsParams& q, cudaStream_t stream) {
   constexpr int kWarps = ms_warps<NK>();
@@ -1005,49 +901,14 @@ extern "C" int wildfire_step(const void* cells, const void* pos, const void* act
   return (int)run(in, (int*)cells_out, out, p, (cudaStream_t)stream);
 }
 
-// K steps with the auto-reset.  cells (B, width * height), pos (B, 2A), sc
-// and ext (B,) int32, run_ret (B,) float32; acts (K, B, A) int32, rnd
-// (K, B, 1 + width * height) and rnd_reset (K, B, width * height + n_fires
-// + A) float32, any 4-byte aligned address.  Outputs: cells, pos, sc, ext
-// and run_ret of the same shapes, rew_sum and ep_sum (B,) float32, eps (B,)
+// K steps with the auto-reset and the draws made in the kernel
+// (ops.wildfire_slab.wf_philox_slab; plain version ms_philox_spec), from
+// step step0 of the rollout keyed by (key0, key1), the uint32 words of
+// ops.philox passed as int.  cells (B, width * height), pos (B, 2A), sc and
+// ext (B,) int32, run_ret (B,) float32.  Outputs: cells, pos, sc, ext and
+// run_ret of the same shapes, rew_sum and ep_sum (B,) float32, eps (B,)
 // int32.  p_ig1..4 as for wildfire_step; tree_density the fresh board's
 // threshold.  Launches on `stream` and returns the launch's cudaError_t.
-extern "C" int wf_steps(const void* cells, const void* pos, const void* sc, const void* ext,
-                        const void* run_ret, const void* acts, const void* rnd,
-                        const void* rnd_reset, void* cells_out, void* pos_out, void* sc_out,
-                        void* ext_out, void* run_out, void* rew_sum, void* ep_sum, void* eps,
-                        int B, int K, int width, int height, int n_agents, int n_fires,
-                        int max_steps, float p_ig1, float p_ig2, float p_ig3, float p_ig4,
-                        float p_burnout, float ext_reward, float burn_penalty,
-                        float step_penalty, float tree_density, void* stream) {
-  using namespace wildfire;
-  const int C = width * height;
-  if (B < 1 || K < 1 || n_agents < 1 || n_agents > kMaxAgents || width < 1 || height < 1 ||
-      C > kMaxCells || n_fires < 0)
-    return (int)cudaErrorInvalidValue;
-  const Params p{B, width, height, n_agents, p_ig1, p_ig2, p_ig3, p_ig4,
-                 p_burnout, ext_reward, burn_penalty, step_penalty};
-  const MsParams q{K, n_fires, max_steps, tree_density};
-  const MsInputs in{(const int*)cells, (const int*)pos, (const int*)sc, (const int*)ext,
-                    (const float*)run_ret, (const int*)acts, (const float*)rnd,
-                    (const float*)rnd_reset};
-  const MsOutputs out{(int*)cells_out, (int*)pos_out, (int*)sc_out, (int*)ext_out,
-                      (float*)run_out, (float*)rew_sum, (float*)ep_sum, (int*)eps};
-  const int nk = words_for(C);
-  auto run = nk == 1    ? launch_steps<1>
-             : nk == 2  ? launch_steps<2>
-             : nk == 4  ? launch_steps<4>
-             : nk == 8  ? launch_steps<8>
-             : nk == 16 ? launch_steps<16>
-                        : launch_steps<32>;
-  return (int)run(in, out, p, q, (cudaStream_t)stream);
-}
-
-// wf_steps with the draws made in the kernel (ops.wildfire_slab.wf_philox_slab;
-// plain version ms_philox_spec): K steps with the auto-reset from step
-// step0 of the rollout keyed by (key0, key1), the uint32 words of ops.philox
-// passed as int.  State inputs and outputs as for wf_steps; no acts, rnd or
-// rnd_reset.  Launches on `stream` and returns the launch's cudaError_t.
 extern "C" int wf_steps_philox(const void* cells, const void* pos, const void* sc,
                                const void* ext, const void* run_ret, void* cells_out,
                                void* pos_out, void* sc_out, void* ext_out, void* run_out,
@@ -1067,7 +928,7 @@ extern "C" int wf_steps_philox(const void* cells, const void* pos, const void* s
   const MsParams q{K, n_fires, max_steps, tree_density,
                    (unsigned)key0, (unsigned)key1, (unsigned)step0};
   const MsInputs in{(const int*)cells, (const int*)pos, (const int*)sc, (const int*)ext,
-                    (const float*)run_ret, nullptr, nullptr, nullptr};
+                    (const float*)run_ret};
   const MsOutputs out{(int*)cells_out, (int*)pos_out, (int*)sc_out, (int*)ext_out,
                       (float*)run_out, (float*)rew_sum, (float*)ep_sum, (int*)eps};
   const int nk = words_for(C);

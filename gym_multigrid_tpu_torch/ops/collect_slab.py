@@ -28,11 +28,13 @@ CUDA kernels in ``gym_multigrid_tpu_torch/csrc/``, and its plain bodies
 The reset also takes a ``done`` mask, so the batch env resets finished
 rows in place without asking the host whether any row finished.
 
-* :func:`ms_steps` is ``_collect_ms_math``: K steps with the rewards and
-  info counters summed.  :func:`make_collect_episode_rollout` runs whole
-  lockstep episodes of truncation-only configs with it and one all-rows
-  reset per episode, the counterpart of JAX's
-  ``make_collect_episode_rollout``.
+* :func:`ms_spec` is ``_collect_ms_math``: K steps with the rewards and
+  info counters summed.  :func:`collect_ms_slab` runs it, or for CUDA
+  tensors the kernel entry ``collect_steps`` (the counterpart of the K-step
+  Collect kernel that JAX pruned on the TPU), one launch for all K steps.
+  :func:`make_collect_episode_rollout` runs whole lockstep episodes of
+  truncation-only configs with it and one all-rows reset per episode, the
+  counterpart of JAX's ``make_collect_episode_rollout``.
 """
 
 from __future__ import annotations
@@ -325,7 +327,8 @@ def _check_envelope(n_cells, n_agents):
 def kernel_route(cfg: CollectConfig, device_type: str) -> bool:
     """The route of a slab of ``cfg`` on a device of this type, decided
     once when the slab is built: True for the kernel wrappers
-    (:func:`collect_step_slab`, :func:`collect_reset_slab`), which launch
+    (:func:`collect_step_slab`, :func:`collect_reset_slab`,
+    :func:`collect_ms_slab`), which launch
     the kernels on the card and run their plain versions on the CPU; False
     for the plain route on the device's tensors.  One or two
     agents take the kernels, on the CPU on any board (its "kernels" are the
@@ -341,7 +344,8 @@ def collect_step_slab(t: _Tables, go, gc, gs, pos, acts, rnd, rects):
     CUDA kernel ``csrc/collect_step.cu`` for CUDA tensors (new output
     tensors; the inputs are not changed).  Same arguments and results as
     :func:`step_spec`, which moves one or two agents: more raise on every
-    device (:func:`step_perm` moves any number)."""
+    device (:func:`step_perm` moves any number).  The kernel takes the cell
+    values an env makes, as :func:`collect_ms_slab` does."""
     if go.device.type == "cpu":
         _check_envelope(None, acts.shape[-1])
         return step_spec(t, go, gc, gs, pos, acts, rnd, rects)
@@ -547,11 +551,11 @@ class CollectSlab:
     slot_info: torch.Tensor  # (n_slots,) int32
     info_ids: torch.Tensor  # (num_ball_types,) int32: 0, 1, ...
     #: The route (:func:`kernel_route`): the kernels
-    #: (:func:`collect_step_slab`, :func:`collect_reset_slab`, their plain
-    #: versions on the CPU) for the configs they take, else
-    #: :func:`reset_rows` and :func:`step_spec` (one or two agents) or
-    #: :func:`step_perm` (any other count) in plain PyTorch on the slab's
-    #: device.
+    #: (:func:`collect_step_slab`, :func:`collect_reset_slab`,
+    #: :func:`collect_ms_slab`, their plain versions on the CPU) for the
+    #: configs they take, else :func:`reset_rows` and :func:`step_spec` /
+    #: :func:`ms_spec` (one or two agents) or :func:`step_perm` (any other
+    #: count) in plain PyTorch on the slab's device.
     kernel: bool
 
     @property
@@ -727,11 +731,11 @@ def reset_batch(
 # ---------------------------------------------------------------------------
 
 
-def ms_steps(slab: CollectSlab, go, gc, gs, pos, acts, rnd):
-    """K = ``acts.shape[0]`` Collect steps through :func:`collect_step_slab`
-    (the kernel on CUDA tensors; on the plain route :func:`step_spec`),
-    with the rewards and the info counters summed step by step as
-    ``_collect_ms_math`` sums them.
+def ms_spec(slab: CollectSlab, go, gc, gs, pos, acts, rnd):
+    """K = ``acts.shape[0]`` Collect steps of :func:`step_spec` in plain
+    PyTorch, with the rewards and the info counters summed step by step as
+    ``_collect_ms_math`` sums them: the plain version of
+    :func:`collect_ms_slab`.
 
     go/gc/gs (B, C) int32 planes; pos (B, 2A) int32; acts (K, B, A) int32;
     rnd (K, B, 3) float32.  Returns (go, gc, gs, pos, rew (B, A) float32,
@@ -741,14 +745,76 @@ def ms_steps(slab: CollectSlab, go, gc, gs, pos, acts, rnd):
     n_types = slab.info_ids.shape[0]
     rew = torch.zeros((B, A), dtype=torch.float32, device=go.device)
     cnt = torch.zeros((B, A, n_types), dtype=torch.int32, device=go.device)
-    step = collect_step_slab if slab.kernel else step_spec
     for k in range(acts.shape[0]):
-        go, gc, gs, pos, picked = step(slab.t, go, gc, gs, pos, acts[k], rnd[k], slab.respawn_rects)
+        go, gc, gs, pos, picked = step_spec(slab.t, go, gc, gs, pos, acts[k], rnd[k], slab.respawn_rects)
         got = picked >= 0
         ps = picked.clamp(0, slab.slot_rewards.shape[0] - 1)
         rew = rew + torch.where(got, slab.slot_rewards[ps], 0.0)
         cnt = cnt + ((slab.slot_info[ps][..., None] == slab.info_ids) & got[..., None]).to(torch.int32)
     return go, gc, gs, pos, rew, cnt.reshape(B, A * n_types)
+
+
+def collect_ms_slab(slab: CollectSlab, go, gc, gs, pos, acts, rnd):
+    """K = ``acts.shape[0]`` steps with the rewards and info counters
+    summed: :func:`ms_spec` for CPU tensors, the CUDA kernel entry
+    ``collect_steps`` of ``csrc/collect_step.cu`` for CUDA tensors, one
+    launch for all K steps with the board kept on chip (new output
+    tensors; the inputs are not changed).  Same arguments and results as
+    :func:`ms_spec`.  The kernel packs a cell's three values into one word,
+    so it takes the values an env makes: object ids and colors in 0..255,
+    reward slots in -32768..32767.  Configs outside the kernel's envelope
+    take :func:`ms_spec` on their device by the slab's route
+    (:func:`kernel_route`); this wrapper refuses them."""
+    if go.device.type == "cpu":
+        return ms_spec(slab, go, gc, gs, pos, acts, rnd)
+    if go.device.type != "cuda":
+        raise ValueError(f"no Collect steps for tensors on {go.device}")
+    t = slab.t
+    B, C = go.shape
+    K, A = acts.shape[0], acts.shape[-1]
+    _check_envelope(C, A)
+    if C != t.n_cells or B < 1 or K < 1:
+        raise ValueError(f"nothing to step: planes of shape {(B, C)} for a {t.n_cells}-cell "
+                         f"board, {K} steps")
+    n_types = slab.info_ids.shape[0]
+    dev = go.device
+    for name, x, dtype, shape in (
+        ("go", go, torch.int32, (B, C)),
+        ("gc", gc, torch.int32, (B, C)),
+        ("gs", gs, torch.int32, (B, C)),
+        ("pos", pos, torch.int32, (B, 2 * A)),
+        ("acts", acts, torch.int32, (K, B, A)),
+        ("rnd", rnd, torch.float32, (K, B, 3)),
+        ("rects", slab.respawn_rects, torch.bool, (len(t.respawn_rects), C)),
+        ("slot_rewards", slab.slot_rewards, torch.float32, slab.slot_rewards.shape),
+        ("slot_info", slab.slot_info, torch.int32, slab.slot_rewards.shape),
+    ):
+        _build.check_arg(name, x, dtype, shape, dev)
+    kernels = _build.load()
+    go_o, gc_o, gs_o = (torch.empty_like(go) for _ in range(3))
+    pos_o = torch.empty_like(pos)
+    rew = torch.empty((B, A), dtype=torch.float32, device=dev)
+    cnt = torch.empty((B, A * n_types), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = kernels.collect_steps(
+            go.data_ptr(), gc.data_ptr(), gs.data_ptr(), pos.data_ptr(),
+            acts.data_ptr(), rnd.data_ptr(), slab.respawn_rects.data_ptr(),
+            slab.slot_rewards.data_ptr(), slab.slot_info.data_ptr(),
+            go_o.data_ptr(), gc_o.data_ptr(), gs_o.data_ptr(), pos_o.data_ptr(),
+            rew.data_ptr(), cnt.data_ptr(),
+            B, K, t.width, t.height, A, int(t.respawn), slab.respawn_rects.shape[0],
+            t.respawn_slot_base, t.agent_colors[0], t.agent_colors[1 % len(t.agent_colors)],
+            slab.slot_rewards.shape[0], n_types,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"collect_steps kernel launch failed: CUDA error {err}")
+    collect_ms_slab.launches += 1
+    return go_o, gc_o, gs_o, pos_o, rew, cnt
+
+
+#: Launches of the K-step kernel since the count was last set to 0.
+collect_ms_slab.launches = 0
 
 
 @dataclass(frozen=True, eq=False)
@@ -780,9 +846,10 @@ class CollectEpisodeRollout:
         every env at step 0 of an episode, as lockstep truncation leaves
         them.  Nothing checks it, since that would wait for the device.
         Each episode runs ``ceil(max_steps / chunk)`` chunks of
-        :func:`ms_steps`, each drawing its (K, B, A) actions and (K, B, 3)
-        uniforms in two calls, then one all-rows :func:`collect_reset_slab`
-        (on the plain route, :func:`reset_rows`).
+        :func:`collect_ms_slab` (one ``collect_steps`` launch on the card;
+        on the plain route :func:`ms_spec`), each drawing its (K, B, A)
+        actions and (K, B, 3) uniforms in two calls, then one all-rows
+        :func:`collect_reset_slab` (on the plain route, :func:`reset_rows`).
         Every env finishes every episode, so ``episodes`` is B times their
         number, ``ep_return_sum`` is ``reward_sum``, ``run_return`` is 0,
         and the counters the reset zeroes are not summed."""
@@ -796,16 +863,17 @@ class CollectEpisodeRollout:
         pos = states.agent_pos.reshape(B, 2 * A)
         reward_sum = torch.zeros((), dtype=torch.float32, device=dev)
         n_eps = num_steps // cfg.max_steps
+        steps = collect_ms_slab if self.slab.kernel else ms_spec
+        reset = collect_reset_slab if self.slab.kernel else reset_rows
         for _ in range(n_eps):
             for start in range(0, cfg.max_steps, self.chunk):
                 K = min(self.chunk, cfg.max_steps - start)
                 acts = torch.randint(0, len(COLLECT_ACTION_TO_VEC), (K, B, A),
                                      generator=self.generator, device=dev, dtype=torch.int32)
                 rnd = torch.rand((K, B, 3), generator=self.generator, device=dev)
-                go, gc, gs, pos, rew, _ = ms_steps(self.slab, go, gc, gs, pos, acts, rnd)
+                go, gc, gs, pos, rew, _ = steps(self.slab, go, gc, gs, pos, acts, rnd)
                 reward_sum = reward_sum + rew.sum()
             rnd = torch.rand((B, self.slab.reset_draws), generator=self.generator, device=dev)
-            reset = collect_reset_slab if self.slab.kernel else reset_rows
             go, gc, gs, pos = reset(self.slab.rt, rnd, self.slab.reset_arrays)
 
         def zeros(*shape):

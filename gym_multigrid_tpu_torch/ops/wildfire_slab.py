@@ -27,13 +27,13 @@ and of ``gym_multigrid_tpu/ops/pallas_wildfire.py``: the Pallas kernel
   Their uniforms come from a ``torch.Generator``, or from an ``rnd`` tensor
   used as is (which is how the tests hold them to JAX bit for bit).
 * :func:`ms_spec` is ``_ms_math`` in its pre-drawn form: K steps with the
-  per-env auto-reset and the return accounting.  :func:`wf_ms_slab` runs
-  it, or for CUDA tensors the kernel entry ``wf_steps`` of
+  per-env auto-reset and the return accounting, the form JAX is held
+  against.  :func:`ms_philox_spec` is ``ms_spec`` on the draws of the
+  counters of ``ops/philox.py``, and :func:`wf_philox_slab` runs it, or for
+  CUDA tensors the kernel entry ``wf_steps_philox`` of
   ``csrc/wildfire_step.cu``, which runs all K steps and the fresh boards in
-  one launch with each board kept on chip.  :func:`ms_philox_spec` is
-  ``ms_spec`` on the draws of the counters of ``ops/philox.py``, and
-  :func:`wf_philox_slab` runs it, or the entry ``wf_steps_philox``, which
-  makes those draws in the kernel where they are read;
+  one launch with each board kept on chip and makes those draws in the
+  kernel where they are read;
   :func:`make_wildfire_episode_rollout` drives it chunk by chunk, the
   counterpart of JAX's ``make_wildfire_episode_rollout``.  JAX's default
   episode chunk, ``wf_compact_ms``, compares uniforms quantized to 1/256
@@ -365,64 +365,6 @@ def ms_spec(t: WfTables, K: int, cells, pos, sc, ext, run_ret, acts, rnd_step, r
         sc = torch.where(done, 0, sc2)
         ext = torch.where(done, 0, ext + n_ext[:, 0])
     return cells, pos, sc, ext, run_ret, rew_sum, ep_sum, eps
-
-
-def wf_ms_slab(slab: "WildfireSlab", cells, pos, sc, ext, run_ret, acts, rnd_step, rnd_reset):
-    """K = ``acts.shape[0]`` steps of the batch with the auto-reset:
-    :func:`ms_spec` for CPU tensors, the CUDA kernel entry ``wf_steps`` of
-    ``csrc/wildfire_step.cu`` for CUDA tensors, one launch for all K steps
-    (new output tensors; the inputs are not changed).  Same arguments and
-    results as :func:`ms_spec`.  The kernel streams the uniforms with
-    4-byte asynchronous copies, so no tensor needs more than its dtype's
-    alignment."""
-    t = slab.t
-    K = acts.shape[0]
-    if cells.device.type == "cpu":
-        return ms_spec(t, K, cells, pos, sc, ext, run_ret, acts, rnd_step, rnd_reset)
-    if cells.device.type != "cuda":
-        raise ValueError(f"no Wildfire steps for tensors on {cells.device}")
-    check_envelope(t)
-    B, C, A = cells.shape[0], t.n_cells, t.n_agents
-    if B < 1 or K < 1:
-        raise ValueError(f"nothing to step: {B} envs, {K} steps")
-    dev = cells.device
-    for name, x, dtype, shape in (
-        ("cells", cells, torch.int32, (B, C)),
-        ("pos", pos, torch.int32, (B, 2 * A)),
-        ("sc", sc, torch.int32, (B,)),
-        ("ext", ext, torch.int32, (B,)),
-        ("run_ret", run_ret, torch.float32, (B,)),
-        ("acts", acts, torch.int32, (K, B, A)),
-        ("rnd_step", rnd_step, torch.float32, (K, B, step_rnd_width(t))),
-        ("rnd_reset", rnd_reset, torch.float32, (K, B, reset_rnd_width(t))),
-    ):
-        _build.check_arg(name, x, dtype, shape, dev)
-    outs = (
-        torch.empty_like(cells), torch.empty_like(pos), torch.empty_like(sc),
-        torch.empty_like(ext), torch.empty_like(run_ret), torch.empty_like(run_ret),
-        torch.empty_like(run_ret), torch.empty_like(sc),
-    )
-    # Float constants as for wildfire_step_slab, and the tree density
-    # rounded to float32 once, as _f32 rounds it.
-    kernels = _build.load()
-    with torch.cuda.device(dev):
-        err = kernels.wf_steps(
-            cells.data_ptr(), pos.data_ptr(), sc.data_ptr(), ext.data_ptr(),
-            run_ret.data_ptr(), acts.data_ptr(), rnd_step.data_ptr(), rnd_reset.data_ptr(),
-            *(o.data_ptr() for o in outs),
-            B, K, t.width, t.height, A, t.n_fires, t.max_steps,
-            *ignite_thresholds(t)[1:], t.p_burnout,
-            t.ext_reward, t.burn_penalty, t.step_penalty, t.tree_density,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"wf_steps kernel launch failed: CUDA error {err}")
-    wf_ms_slab.launches += 1
-    return outs
-
-
-#: Launches of the K-step kernel since the count was last set to 0.
-wf_ms_slab.launches = 0
 
 
 def ms_philox_spec(t: WfTables, K: int, cells, pos, sc, ext, run_ret, key, step0: int):

@@ -1,12 +1,14 @@
 """Probe the port's Collect reset and K-step kernels on one NVIDIA GPU.
 
     python3 scripts/torch_kernel_probe.py [--reset-variant FILE.cu ...]
+                                          [--collect-variant FILE.cu ...]
                                           [--maze-variant FILE.cu ...]
                                           [--ctf-variant FILE.cu ...]
                                           [--wf-variant FILE.cu ...]
-                                          [--only reset|maze|ctf|wildfire ...]
+                                          [--only reset|collect|maze|ctf|wildfire ...]
     python3 scripts/torch_kernel_probe.py --only isolated [--after-checks]
     python3 scripts/torch_kernel_probe.py --only rollouts
+    python3 scripts/torch_kernel_probe.py --only collect_episode
     python3 scripts/torch_kernel_probe.py --only render
 
 From the root of a checkout, with a CUDA device and ``nvcc``.  It
@@ -28,15 +30,15 @@ From the root of a checkout, with a CUDA device and ``nvcc``.  It
    interface) at K in (1, 25, 100) and B in (64, 8192), and the one-step
    ``maze_step``, so the launch floor and the per-step latency of one
    env's chain can be read apart;
-6. does the same for ``ctf_steps`` at ``CTF_MAIN`` (K in (1, 50)) and
-   ``wf_steps`` at ``WF_MAIN`` (K in (1, 24)), each build checked
-   bit-equal to its ``ms_spec``, beside the one-step ``ctf_step`` and
-   ``wildfire_step``; at B = 8192 and the full chunk the checkout's build
-   and each variant are timed in turns (checkout, variants, variants
-   reversed, checkout, twice).  A variant has the checkout's C interface.
-   The Wildfire section does the same for ``wf_steps_philox`` (its draws
-   made in the kernel) against ``ms_philox_spec``, the checkout's and each
-   variant's that has that entry.
+6. does the same for ``collect_steps`` at the Collect main config (K in
+   (1, 25, 50)), ``ctf_steps`` at ``CTF_MAIN`` (K in (1, 50)) and
+   ``wf_steps_philox`` at ``WF_MAIN`` (K in (1, 24)), each build checked
+   bit-equal to its plain version (``ms_spec``; ``ms_philox_spec``, the
+   same steps on ``ops/philox.py``'s draws), beside the one-step
+   ``collect_step``, ``ctf_step`` and ``wildfire_step``; at B = 8192 and
+   the full chunk the checkout's build and each variant are timed in turns
+   (checkout, variants, variants reversed, checkout, twice).  A variant
+   has the checkout's C interface.
 
 ``--only`` runs the named sections (default: all but ``isolated``).
 ``--only isolated`` times the host-bound paths of ``chip_smoke.py`` alone
@@ -50,11 +52,10 @@ reads ``chip_smoke.py`` and the package of the checkout it sits in, so a
 copy of this file put in another checkout's ``scripts/`` times that one
 (an older checkout without those checks takes no ``--after-checks``).
 ``--only rollouts`` times the four ``BatchedEnv`` rollouts, the Collect
-episode path, the Wildfire episode path beside its pre-drawn form
-(``chip_smoke.predrawn_wildfire_call``, where the checkout has it) and the
-vector envs the same way (a copy of the probe in
-another checkout's ``scripts/`` times that one: same-call parent/change
-pairs).  ``--only render`` times each family's batch render at B = 8192,
+and Wildfire episode paths and the vector envs the same way (a copy of the
+probe in another checkout's ``scripts/`` times that one: same-call
+parent/change pairs).  ``--only collect_episode`` times the Collect episode
+path alone, at chunks of 25 and of 50 in turns (25, 50, 50, 25).  ``--only render`` times each family's batch render at B = 8192,
 T = 32 (``chip_smoke.RENDER_CASES``) beside the gathers it was chosen
 over, each checked equal to it: a gather indexed by a materialised
 (B, H, T, W) row tensor (bytes, and 8-byte words), and a two-pass gather
@@ -205,22 +206,24 @@ def ctf_runner(fn, slab):
     return run
 
 
-def wf_runner(fn, slab):
-    """``wf_steps`` through ``fn`` with ``wf_ms_slab``'s arguments."""
+def collect_runner(fn, slab):
+    """``collect_steps`` through ``fn`` with ``collect_ms_slab``'s
+    arguments."""
     t = slab.t
 
-    def run(cells, pos, sc, ext, run_ret, acts, rnd_step, rnd_reset):
-        n, K = cells.shape[0], acts.shape[0]
-        outs = (torch.empty_like(cells), torch.empty_like(pos), torch.empty_like(sc),
-                torch.empty_like(ext), torch.empty_like(run_ret), torch.empty_like(run_ret),
-                torch.empty_like(run_ret), torch.empty_like(sc))
-        err = fn(*(x.data_ptr() for x in (cells, pos, sc, ext, run_ret, acts, rnd_step,
-                                           rnd_reset)),
-                 *(o.data_ptr() for o in outs), n, K, t.width, t.height, t.n_agents, t.n_fires,
-                 t.max_steps, *ignite_thresholds(t)[1:], t.p_burnout, t.ext_reward,
-                 t.burn_penalty, t.step_penalty, t.tree_density,
+    def run(go, gc, gs, pos, acts, rnd):
+        n, K, A = go.shape[0], acts.shape[0], acts.shape[2]
+        n_types = slab.info_ids.shape[0]
+        outs = (torch.empty_like(go), torch.empty_like(gc), torch.empty_like(gs),
+                torch.empty_like(pos), torch.empty((n, A), device=DEV),
+                torch.empty((n, A * n_types), dtype=torch.int32, device=DEV))
+        err = fn(*(x.data_ptr() for x in (go, gc, gs, pos, acts, rnd, slab.respawn_rects,
+                                           slab.slot_rewards, slab.slot_info)),
+                 *(o.data_ptr() for o in outs), n, K, t.width, t.height, A, int(t.respawn),
+                 slab.respawn_rects.shape[0], t.respawn_slot_base, t.agent_colors[0],
+                 t.agent_colors[1 % A], slab.slot_rewards.shape[0], n_types,
                  torch.cuda.current_stream().cuda_stream)
-        assert err == 0, f"wf_steps: CUDA error {err}"
+        assert err == 0, f"collect_steps: CUDA error {err}"
         return outs
     return run
 
@@ -246,22 +249,24 @@ def wf_philox_runner(fn, slab):
     return run
 
 
-def probe_steps(family, runners, make_args, spec, one_step, chunk, smi):
+def probe_steps(family, runners, make_args, spec, one_step, ks, smi):
     """The K-step section of one family: every build bit-equal to ``spec``
-    at K in (1, chunk) and B in (64, 8192), the checkout's build timed
+    at each K in ``ks`` and B in (64, 8192), the checkout's build timed
     there beside ``one_step(n)``, then every build timed in turns at the
-    full chunk and B = 8192.  Returns {key: us}."""
+    largest K and B = 8192.  Returns {key: us}."""
     out = {}
+    chunk = max(ks)
     for n in (64, B):
         out[f"{family} one step B={n}"] = time_ms(one_step(n), 200)[0] * 1e3
-        for K in (1, chunk):
+        for K in ks:
             args = make_args(n, K)
             want = spec(K, args)
             for name, run in runners:
                 assert all(torch.equal(g, w) for g, w in zip(run(*args), want)), name
             out[f"{family} K-step checkout K={K} B={n}"] = (
                 time_ms(lambda: runners[0][1](*args), 100)[0] * 1e3)
-    log(f"every {family} K-step build == ms_spec at K in (1, {chunk}), B in (64, {B}): bit-equal")
+    log(f"every {family} K-step build == its plain version at K in {ks}, B in (64, {B}): "
+        "bit-equal")
     args = make_args(B, chunk)
     turns = {name: [] for name, _ in runners}
     for order in (runners, runners[::-1]) * 2:
@@ -279,15 +284,16 @@ def probe_steps(family, runners, make_args, spec, one_step, chunk, smi):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--reset-variant", type=Path, action="append", default=[])
+    parser.add_argument("--collect-variant", type=Path, action="append", default=[])
     parser.add_argument("--maze-variant", type=Path, action="append", default=[])
     parser.add_argument("--ctf-variant", type=Path, action="append", default=[])
     parser.add_argument("--wf-variant", type=Path, action="append", default=[])
     parser.add_argument("--only", action="append", default=[],
-                        choices=("reset", "maze", "ctf", "wildfire", "isolated", "rollouts",
-                                 "render"))
+                        choices=("reset", "collect", "maze", "ctf", "wildfire", "isolated",
+                                 "rollouts", "collect_episode", "render"))
     parser.add_argument("--after-checks", action="store_true")
     args = parser.parse_args()
-    sections = set(args.only or ("reset", "maze", "ctf", "wildfire"))
+    sections = set(args.only or ("reset", "collect", "maze", "ctf", "wildfire"))
     if args.after_checks and "isolated" not in sections:
         parser.error("--after-checks goes with --only isolated")
     if not torch.cuda.is_available():
@@ -308,10 +314,33 @@ def main():
         probe_isolated(args.after_checks)
     if "rollouts" in sections:
         probe_rollouts()
+    if "collect_episode" in sections:
+        probe_collect_episode(smi)
     if "render" in sections:
         record.update(probe_render(smi))
     if "reset" in sections:
         record.update(probe_resets(args.reset_variant, probe_dir, gen, smi))
+    if "collect" in sections:
+        slab = collect_slab.make_collect_slab(MAIN, DEV)
+        runners = [("checkout", collect_runner(kernels.collect_steps, slab))]
+        for i, path in enumerate(args.collect_variant):
+            lib = nvcc_build(path, probe_dir / f"collect_{i}.so")
+            runners.append((path.stem, collect_runner(entry(lib, path, "collect_steps"), slab)))
+
+        def collect_args(n, K):
+            st = collect_slab.reset_batch(slab, n, generator=gen)
+            return (st.grid_obj, st.grid_color, st.grid_slot, st.agent_pos.reshape(n, -1),
+                    torch.randint(0, 4, (K, n, 2), generator=gen, device=DEV, dtype=torch.int32),
+                    torch.rand((K, n, 3), generator=gen, device=DEV))
+
+        def collect_one(n):
+            a = collect_args(n, 1)
+            one = (slab.t, *a[:4], a[4][0], a[5][0], slab.respawn_rects)
+            return lambda: collect_slab.collect_step_slab(*one)
+
+        record.update(probe_steps(
+            "collect", runners, collect_args, lambda K, a: collect_slab.ms_spec(slab, *a),
+            collect_one, (1, 25, 50), smi))
     if "maze" in sections:
         record.update(probe_maze(args.maze_variant, kernels, probe_dir, gen, smi))
     if "ctf" in sections:
@@ -339,35 +368,21 @@ def main():
             "ctf", runners, ctf_args,
             lambda K, a: ctf_slab.ms_spec(cslab.t, K, *a, cslab.flags, cslab.border, cslab.pool,
                                           cslab.bterr, cslab.rterr),
-            ctf_one, 50, smi))
+            ctf_one, (1, 50), smi))
     if "wildfire" in sections:
         wslab = wildfire_slab.make_wildfire_slab(WF_MAIN, DEV)
-        runners = [("checkout", wf_runner(kernels.wf_steps, wslab))]
-        for i, path in enumerate(args.wf_variant):
-            lib = nvcc_build(path, probe_dir / f"wf_{i}.so")
-            runners.append((path.stem, wf_runner(entry(lib, path, "wf_steps"), wslab)))
-
-        def wf_args(n, K):
-            st = wildfire_slab.reset_batch(wslab, n, generator=gen)
-            return (st.cells.reshape(n, -1), st.agent_pos.reshape(n, -1), st.step_count,
-                    st.extinguished, torch.zeros(n, device=DEV),
-                    torch.randint(0, 5, (K, n, 2), generator=gen, device=DEV, dtype=torch.int32),
-                    torch.rand((K, n, wslab.step_draws), generator=gen, device=DEV),
-                    torch.rand((K, n, wslab.reset_draws), generator=gen, device=DEV))
-
-        def wf_one(n):
-            a = wf_args(n, 1)
-            return lambda: wildfire_slab.wildfire_step_slab(wslab.t, a[0], a[1], a[5][0], a[6][0])
-
-        record.update(probe_steps(
-            "wildfire", runners, wf_args, lambda K, a: wildfire_slab.ms_spec(wslab.t, K, *a),
-            wf_one, 24, smi))
         runners = [("checkout", wf_philox_runner(kernels.wf_steps_philox, wslab))]
         for i, path in enumerate(args.wf_variant):
-            if "wf_steps_philox" in path.read_text():
-                lib = ctypes.CDLL(str(probe_dir / f"wf_{i}.so"))
-                runners.append((path.stem, wf_philox_runner(entry(lib, path, "wf_steps_philox"),
-                                                            wslab)))
+            lib = nvcc_build(path, probe_dir / f"wf_{i}.so")
+            runners.append((path.stem, wf_philox_runner(entry(lib, path, "wf_steps_philox"),
+                                                        wslab)))
+
+        def wf_one(n):
+            st = wildfire_slab.reset_batch(wslab, n, generator=gen)
+            acts = torch.randint(0, 5, (n, 2), generator=gen, device=DEV, dtype=torch.int32)
+            rnd = torch.rand((n, wslab.step_draws), generator=gen, device=DEV)
+            return lambda: wildfire_slab.wildfire_step_slab(
+                wslab.t, st.cells.reshape(n, -1), st.agent_pos.reshape(n, -1), acts, rnd)
 
         def philox_args(n, K):
             key = philox.key_of(n + K)
@@ -378,7 +393,7 @@ def main():
 
         record.update(probe_steps(
             "wildfire philox", runners, philox_args,
-            lambda K, a: wildfire_slab.ms_philox_spec(wslab.t, K, *a[:7]), wf_one, 24, smi))
+            lambda K, a: wildfire_slab.ms_philox_spec(wslab.t, K, *a[:7]), wf_one, (1, 24), smi))
     log(json.dumps(record))
 
 
@@ -431,14 +446,29 @@ def probe_rollouts():
     roll, states, _, _ = cs.collect_episode_path()
     cs.time_rollout(roll, "Collect episode", states, cs.STEPS_PER_CALL, MAIN.num_agents,
                     cs.COLLECT_WARMUP_MAX)
-    roll, first, _, states, _ = cs.wildfire_episode_path()
+    roll, _, _, states, _ = cs.wildfire_episode_path()
     cs.time_rollout(roll, "Wildfire episode", states, cs.WF_STEPS_PER_CALL, WF_MAIN.num_agents,
                     cs.WF_WARMUP_MAX)
-    if hasattr(cs, "predrawn_wildfire_call"):
-        call = cs.predrawn_wildfire_call(roll.slab, torch.Generator(device=DEV).manual_seed(0))
-        cs.time_rollout(call, "Wildfire episode, pre-drawn (torch.rand and wf_steps)", first,
-                        cs.WF_STEPS_PER_CALL, WF_MAIN.num_agents, cs.WF_WARMUP_MAX)
     cs.run_vector_envs()
+
+
+def probe_collect_episode(smi):
+    """The Collect episode call (the main config at B = 8192, 500 steps)
+    at chunks of 25 and of 50, each timed as ``chip_smoke.py``'s phase 3
+    times it, in turns (25, 50, 50, 25), with nothing before them in the
+    process but the build."""
+    import chip_smoke as cs
+
+    rolls = {}
+    for chunk in (25, 50):
+        roll = collect_slab.make_collect_episode_rollout(MAIN, B, chunk=chunk)
+        rolls[chunk] = [roll, roll.reset(seed=0)[0]]
+    for chunk in (25, 50, 50, 25):
+        roll, states = rolls[chunk]
+        log(f"Collect episode at chunk {chunk} ({smi}):")
+        rolls[chunk][1] = cs.time_rollout(roll, f"Collect episode, chunk {chunk}", states,
+                                          cs.STEPS_PER_CALL, MAIN.num_agents,
+                                          cs.COLLECT_WARMUP_MAX)
 
 
 def probe_render(smi):

@@ -1,4 +1,4 @@
-"""The port's Collect episode path on the CPU: ``ms_steps`` against the JAX
+"""The port's Collect episode path on the CPU: ``ms_spec`` against the JAX
 package's K-step episode math bit for bit, the boundary reset against its
 packed-plane reset, and ``make_collect_episode_rollout``'s invariants, its
 generator stream and the configs it refuses."""
@@ -17,6 +17,8 @@ torch.set_num_threads(1)
 
 MAIN = dict(layout="quadrants_respawn", respawn=True, max_steps=50)
 SINGLE = dict(agents_index=(3,), layout="even", respawn=False, max_steps=100)
+FIXED = dict(layout="even", fixed_horizon=True, max_steps=50)
+BOARD16 = dict(size=16, num_balls=45, layout="quadrants_respawn", respawn=True, max_steps=50)
 LAYOUTS = ("even", "quadrants", "rooms", "quadrants_respawn")
 
 
@@ -31,7 +33,8 @@ def _eq(got, want):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("kw", [MAIN, SINGLE], ids=["main", "single"])
+@pytest.mark.parametrize("kw", [MAIN, SINGLE, FIXED, BOARD16],
+                         ids=["main", "single", "fixed_horizon", "16x16"])
 def test_ms_steps_match_jax_episode_math(kw):
     """K steps from fresh boards on one packed (B, K * (A + 3)) float buffer
     [actions as floats, move-order and respawn uniforms]: planes, positions,
@@ -39,7 +42,9 @@ def test_ms_steps_match_jax_episode_math(kw):
     and 7, which are a no-op."""
     jcfg, tcfg = _cfgs(**kw)
     slab = tslab.make_collect_slab(tcfg, "cpu")
-    B, K, A = 32, 12, tcfg.num_agents
+    # The 16x16 board's agents start further from its balls.
+    B, K = (64, 24) if kw is BOARD16 else (32, 12)
+    A = tcfg.num_agents
     rt, plan = jpc.make_reset_tables(jcfg)
     wall = jcollect._wall_mask(jcfg)
     rng = np.random.default_rng(A)
@@ -59,7 +64,7 @@ def test_ms_steps_match_jax_episode_math(kw):
         jnp.asarray(np.asarray(rwd, np.float32)), jnp.asarray(np.asarray(slot, np.int32)),
         jcfg.num_ball_types,
     )
-    got = tslab.ms_steps(
+    got = tslab.ms_spec(
         slab, *(torch.from_numpy(x.copy()) for x in (go, gc, gs, pos)),
         torch.from_numpy(acts.astype(np.int32).transpose(1, 0, 2).copy()),
         torch.from_numpy(rnd.transpose(1, 0, 2).copy()),
@@ -127,7 +132,7 @@ def test_episode_rollout_invariants():
 
 
 def test_episode_rollout_draws_chunks_and_a_reset_from_the_generator():
-    """One episode of chunks 20, 20 and 10 equals ``ms_steps`` and the
+    """One episode of chunks 20, 20 and 10 equals ``ms_spec`` and the
     all-rows reset on the generator's draws, in the rollout's order."""
     n = 8
     roll = _rollout(n, chunk=20)
@@ -140,7 +145,7 @@ def test_episode_rollout_draws_chunks_and_a_reset_from_the_generator():
     for K in (20, 20, 10):
         acts = torch.randint(0, 4, (K, n, 2), generator=roll.generator, dtype=torch.int32)
         rnd = torch.rand((K, n, 3), generator=roll.generator)
-        go, gc, gs, pos, rew, _ = tslab.ms_steps(roll.slab, go, gc, gs, pos, acts, rnd)
+        go, gc, gs, pos, rew, _ = tslab.ms_spec(roll.slab, go, gc, gs, pos, acts, rnd)
         reward = reward + rew.sum()
     fresh = tslab.collect_reset_slab(roll.slab.rt, torch.rand((n, 17), generator=roll.generator),
                                      roll.slab.reset_arrays)

@@ -166,7 +166,7 @@ def test_the_plain_route_calls_no_kernel_wrapper(monkeypatch):
     roll = wildfire_slab.make_wildfire_episode_rollout(WF_MAIN, n, device="cpu", chunk=5)
     s0, _ = roll.reset(4)
     want_roll = roll(s0, 12)
-    _refuse(monkeypatch, wildfire_slab, "wildfire_step_slab", "wf_philox_slab", "wf_ms_slab")
+    _refuse(monkeypatch, wildfire_slab, "wildfire_step_slab", "wf_philox_slab")
     got = wildfire_slab.step_batch(plain, states, acts, rnd=rnd)
     assert torch.equal(got[0].cells, want[0].cells) and torch.equal(got[2], want[2])
     roll_plain = dataclasses.replace(roll, slab=plain)
@@ -187,7 +187,8 @@ def test_the_plain_route_calls_no_kernel_wrapper(monkeypatch):
     roll = collect_slab.make_collect_episode_rollout(cfg, n, device="cpu", chunk=4)
     s0, _ = roll.reset(6)
     want_roll = roll(s0, 12)
-    _refuse(monkeypatch, collect_slab, "collect_step_slab", "collect_reset_slab")
+    _refuse(monkeypatch, collect_slab, "collect_step_slab", "collect_reset_slab",
+            "collect_ms_slab")
     roll_plain = dataclasses.replace(roll, slab=dataclasses.replace(roll.slab, kernel=False))
     roll_plain.reset(6)
     got_roll = roll_plain(s0, 12)

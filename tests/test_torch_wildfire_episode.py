@@ -2,7 +2,7 @@
 the auto-reset) against the eager JAX episode math (``_ms_math`` in its
 pre-drawn tuple form, adj = tril = None) bit for bit, K steps at once
 against K one-step chunks, the kernel's fresh board walked as the kernel
-walks it, ``wf_ms_slab``'s CPU rule, and ``make_wildfire_episode_rollout``'s
+walks it, and ``make_wildfire_episode_rollout``'s
 counter-based draws, invariants and statistics against the JAX episode
 rollout."""
 
@@ -166,21 +166,6 @@ def test_kernel_fresh_board_equals_reset_spec(kw):
         assert got_cells == cells[b].tolist(), b
         assert got_pos == pos[b].tolist(), b
     assert ((cells == twf.TREE).sum(1) + (cells == twf.FIRE).sum(1) < t.n_fires).any()
-
-
-def test_wf_ms_slab_runs_ms_spec_on_the_cpu():
-    _, tcfg = _cfgs(MAIN, max_steps=4)
-    slab = tslab.make_wildfire_slab(tcfg, "cpu")
-    t = slab.t
-    K, B = 5, 6
-    args = _torch(_inputs(t, B, K, seed=1))
-    before = tslab.wf_ms_slab.launches
-    got = tslab.wf_ms_slab(slab, *args)
-    assert tslab.wf_ms_slab.launches == before  # the plain version launches nothing
-    for g, w in zip(got, tslab.ms_spec(t, K, *args)):
-        assert torch.equal(g, w)
-    with pytest.raises(ValueError, match="no Wildfire steps"):
-        tslab.wf_ms_slab(slab, *(x.to("meta") for x in args))
 
 
 def _rollout(n, kw=MAIN, chunk=8, **over):
