@@ -33,7 +33,8 @@ without them.  Phases, each of which fails the run on any fault:
    a config of 17 ball types (counters past a warp's 32 lanes), at
    B = 8192, 8189 and 5.  The CtF K-step entry ``ctf_steps`` is held to its
    ``ms_spec`` over 100 steps as chunks of 25 and of 50 on the four CtF
-   configs, at a ``max_steps`` of 30 so that every env resets at least
+   configs and a non-square patrol board, and as launches of one step on
+   CTF_MAIN, at a ``max_steps`` of 30 so that every env resets at least
    twice, at B = 8192, 8189 and 5.  The Wildfire K-step entry, which makes
    its draws in the kernel, ``wf_steps_philox``, is held to
    ``ms_philox_spec`` (``ms_spec`` on the draws of ``ops/philox.py``'s
@@ -324,6 +325,22 @@ CTF_3V3 = CtfConfig.from_map_path(
     enemy_policies=(PolicySpec("capture"), PolicySpec("patrol"), PolicySpec("rw")),
 )
 
+
+def non_square_map():
+    """board.txt cut to 10 x 7, both flags kept: the swapped bounds check
+    (row against S1, column against S0) lets agents step off the board."""
+    from gym_multigrid_tpu_torch.utils.map import load_text_map
+
+    fm = load_text_map(MAP).astype(int)[:, :7]
+    return tuple(tuple(int(v) for v in row) for row in fm)
+
+
+CTF_NON_SQUARE = CtfConfig(
+    map_data=non_square_map(), num_blue_agents=2, num_red_agents=2,
+    enemy_policies=(PolicySpec("patrol_fight"), PolicySpec("fight")),
+    obstacle_penalty_ratio=0.5,
+)
+
 # Maze and Wildfire: the configs the repo's family bench drives
 # (bench_all.py:165-178), 1000 and 400 steps per rollout call
 # (bench_all.py:84).
@@ -445,6 +462,9 @@ PHILOX_WORD_OPS = 3
 # MS_CHUNKS), and the max_steps of their phase-2 configs: every env resets
 # at least three times in 100 steps.
 CTF_CHUNK = 50
+CTF_MS_CHUNKS = (25, CTF_CHUNK)
+# Envs of the ctf_steps launch timed for one env's chain of steps.
+CHAIN_ROWS = 64
 WF_CHUNK = 24
 MS_CHECK_MAX_STEPS = 30
 # Untimed rollout calls at most before the timed ones: Collect's, Maze's
@@ -1126,7 +1146,7 @@ def check_maze_steps_kernel(cfg, name, seed, n=B, steps=100, chunks=(25, 100)):
     return err
 
 
-def check_ctf_steps_kernel(cfg, name, seed, n=B, steps=100, chunks=(25, CTF_CHUNK)):
+def check_ctf_steps_kernel(cfg, name, seed, n=B, steps=100, chunks=CTF_MS_CHUNKS):
     """``ctf_ms_slab`` (the kernel entry ``ctf_steps``) against ``ms_spec``
     over ``steps`` steps with the auto-reset from the batch reset, random
     step counts and running returns.  Blue ids -2..6 (the invalid ones
@@ -2403,18 +2423,21 @@ def main():
     check_misaligned_refused()
     ctf_ms_err = max(
         check_ctf_steps_kernel(dataclasses.replace(cfg, max_steps=MS_CHECK_MAX_STEPS), name,
-                               seed=70 + i, n=n)
-        for i, (cfg, name, n) in enumerate((
-            (CTF_MAIN, "CTF_MAIN", B),
-            (CTF_PATROL, "2v2 patrol/patrol_fight, obstacle penalty", B),
-            (CTF_1V1, "1v1 fight, obstacle penalty", B),
-            (CTF_3V3, "3v3 capture/patrol/rw", B),
-            # Ragged batches: no multiple of a block's envs (64, or 32
-            # above 4 agents).
-            (CTF_MAIN, "CTF_MAIN, ragged", RAGGED[0]),
-            (CTF_3V3, "3v3, ragged", RAGGED[0]),
-            (CTF_PATROL, "2v2 patrol, ragged", RAGGED[1]),
-            (CTF_1V1, "1v1, ragged", RAGGED[1]),
+                               seed=70 + i, n=n, chunks=chunks)
+        for i, (cfg, name, n, chunks) in enumerate((
+            (CTF_MAIN, "CTF_MAIN", B, CTF_MS_CHUNKS),
+            (CTF_PATROL, "2v2 patrol/patrol_fight, obstacle penalty", B, CTF_MS_CHUNKS),
+            (CTF_1V1, "1v1 fight, obstacle penalty", B, CTF_MS_CHUNKS),
+            (CTF_3V3, "3v3 capture/patrol/rw", B, CTF_MS_CHUNKS),
+            # Ragged batches: no multiple of a block's 32 envs.
+            (CTF_MAIN, "CTF_MAIN, ragged", RAGGED[0], CTF_MS_CHUNKS),
+            (CTF_3V3, "3v3, ragged", RAGGED[0], CTF_MS_CHUNKS),
+            (CTF_PATROL, "2v2 patrol, ragged", RAGGED[1], CTF_MS_CHUNKS),
+            (CTF_1V1, "1v1, ragged", RAGGED[1], CTF_MS_CHUNKS),
+            # Agents off the board (the swapped bounds) and spawns the moves
+            # cannot reach; then launches of one step.
+            (CTF_NON_SQUARE, "non-square 10x7 patrol_fight/fight", B, CTF_MS_CHUNKS),
+            (CTF_MAIN, "CTF_MAIN, launches of 1", B, (1,)),
         ))
     )
     # The Wildfire K-step entry, its draws made in the kernel, against
@@ -2652,6 +2675,13 @@ def main():
                 torch.rand((CTF_CHUNK, B, cslab.step_draws), generator=gen, device=DEV),
                 torch.rand((CTF_CHUNK, B, cslab.reset_draws), generator=gen, device=DEV))
     cms_ms, cms_all = time_ms(lambda: ctf_ms_slab(cslab, *cte_args), 200)
+    # The same launch at B = CHAIN_ROWS, one or two warps on the card: the
+    # time of one env's chain of CTF_CHUNK steps.
+    chain = ctf_slab.reset_batch(cslab, CHAIN_ROWS, generator=gen)
+    chain_args = (chain.pos.reshape(CHAIN_ROWS, -1), chain.dir, chain.terminated,
+                  chain.collided, chain.step_count, torch.zeros((CHAIN_ROWS,), device=DEV),
+                  *(x[:, :CHAIN_ROWS].contiguous() for x in cte_args[6:]))
+    cms_chain_ms, cms_chain_all = time_ms(lambda: ctf_ms_slab(cslab, *chain_args), 200)
     cms_plain_ms, cms_plain_all = time_ms(
         lambda: ctf_slab.ms_spec(cslab.t, CTF_CHUNK, *cte_args, cslab.flags, cslab.border,
                                  cslab.pool, cslab.bterr, cslab.rterr), 1, windows=3)
@@ -2671,7 +2701,9 @@ def main():
         torch.rand((CTF_CHUNK, B, cslab.reset_draws), generator=gen, device=DEV)), 50)
     log(f"ctf_steps: {cms_ms * 1e3:.2f} us/launch of {CTF_CHUNK} steps (median of windows "
         f"{us(cms_all)}), {cms_ms * 1e3 / CTF_CHUNK:.4f} us a step against ctf_step's "
-        f"{ctf_ms * 1e3:.2f}; bound {cms_bound * 1e3:.2f} us ({cms_by}; {cms_bytes} bytes take "
+        f"{ctf_ms * 1e3:.2f}; at B={CHAIN_ROWS} {cms_chain_ms * 1e3:.2f} us/launch "
+        f"{us(cms_chain_all)}, {cms_chain_ms * 1e3 / CTF_CHUNK:.4f} us a step of one env's "
+        f"chain; bound {cms_bound * 1e3:.2f} us ({cms_by}; {cms_bytes} bytes take "
         f"{cms_parts[0] * 1e3:.2f} us, {cms_ops} operations ({cms_done} respawns) "
         f"{cms_parts[1] * 1e3:.2f} us), ms_spec {cms_plain_ms * 1e3:.1f} us "
         f"{us(cms_plain_all)}; the chunk's three draws {cms_draw_ms * 1e3:.2f} us "
@@ -2813,7 +2845,7 @@ def main():
          "replaces": "gym_multigrid_tpu/ops/pallas_ctf.py:492",
          "launches": cte_launches["ctf_steps"], "max_abs_err": ctf_ms_err,
          "ms": cms_ms, "plain_ms": cms_plain_ms, "bound_ms": cms_bound,
-         "bound_by": cms_by, "library_ms": None},
+         "bound_by": cms_by, "library_ms": None, f"ms_b{CHAIN_ROWS}": cms_chain_ms},
         # The Wildfire K steps with the draws made in the kernel
         # (ops/philox.py's counters), 24 steps a launch on the Wildfire
         # episode path.

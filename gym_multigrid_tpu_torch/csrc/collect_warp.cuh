@@ -7,6 +7,8 @@
 
 #include <cuda_runtime.h>
 
+#include "select.cuh"
+
 namespace collect {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -25,16 +27,7 @@ constexpr int kNorth = 0, kEast = 1, kSouth = 2, kWest = 3;
 // selects them.
 constexpr int kOffBoard = -1;
 
-// a == b ? x : y, as one compare and one select.  Written in PTX so that
-// the compiler cannot fold a chain of them over a register array into a
-// dynamic index of the array, which it lowers into a branch per word.
-__device__ __forceinline__ int select_eq(int a, int b, int x, int y) {
-  int r;
-  asm("{\n\t.reg .pred p;\n\tsetp.eq.s32 p, %1, %2;\n\tselp.b32 %0, %3, %4, p;\n\t}"
-      : "=r"(r)
-      : "r"(a), "r"(b), "r"(x), "r"(y));
-  return r;
-}
+using regsel::select_eq;
 
 // Value of cell idx (0 <= idx < C) of a plane held across the warp.
 template <int NK>

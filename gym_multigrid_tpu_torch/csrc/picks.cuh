@@ -22,13 +22,12 @@ __device__ __forceinline__ int floor_pick(float u, int n) {
 // j that unrolls, j is a constant and `taken` stays in registers.
 template <int N>
 __device__ __forceinline__ int pick_untaken(float u, int n, int j, int (&taken)[N]) {
-  int x = 0;
-  if (n - j > 0) {
-    x = floor_pick(u, n - j);
+  // As selects, with no branch on n - j.
+  const bool left = n - j > 0;
+  int x = left ? floor_pick(u, n - j) : 0;
 #pragma unroll
-    for (int q = 0; q < N; ++q)
-      if (q < j && taken[q] <= x) ++x;
-  }
+  for (int q = 0; q < N; ++q)
+    if (q < j) x += left && taken[q] <= x;
   const int cell = x;
 #pragma unroll
   for (int q = 0; q < N; ++q) {

@@ -57,7 +57,7 @@ ENTRY_POINTS = {
     "collect_reset.cu": {"collect_reset": [_P] * 8 + [_I] * 10 + [_P]},
     "ctf_step.cu": {
         "ctf_step": [_P] * 21 + [_I] * 17 + [_F] * 7 + [_P],
-        "ctf_steps": [_P] * 25 + [_I] * 21 + [_F] * 7 + [_P],
+        "ctf_steps": [_P] * 21 + [_I] * 20 + [_F] * 7 + [_P],
     },
     "maze_step.cu": {
         "maze_step": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],

@@ -174,6 +174,71 @@ def cell_planes(flags):
     return ((flags[None, :] & weights[:, None]) != 0).to(torch.int32)
 
 
+#: A cell's key in the K-step kernel (``csrc/ctf_step.cu`` ``kRowKey``):
+#: ``row * KEY_ROW + col``.
+KEY_ROW = 65536
+#: Where the K-step kernel's info word (:func:`cell_info`) holds the row and
+#: the column of the closest red-border cell (its ``kInfoRowShift``,
+#: ``kInfoColShift``), 10 bits each, above the flag byte.
+INFO_ROW_SHIFT = 8
+INFO_COL_SHIFT = 18
+
+
+def agent_positions(t: CtfKTables) -> tuple[np.ndarray, np.ndarray]:
+    """(rows, cols) int64 of every position an agent can hold, in the K-step
+    kernel's order: the positions the move's bounds check admits (row below
+    ``bound0``, column below ``bound1``, row-major), then the board's cells
+    (row-major), where the spawns land.  On a non-square board the first
+    part holds cells off the board, and the second cells the moves cannot
+    reach."""
+    rows, cols = np.divmod(np.arange(t.bound0 * t.bound1), t.bound1)
+    board_rows, board_cols = np.divmod(np.arange(t.s0 * t.s1), t.s1)
+    return np.concatenate([rows, board_rows]), np.concatenate([cols, board_cols])
+
+
+def closest_border(t: CtfKTables, border) -> np.ndarray:
+    """(n,) int32: for each position of :func:`agent_positions`, the index of
+    the closest cell of ``border`` ((2, nb) rows then columns), ties to the
+    first: ``_red_actions``' patrol scan, tabulated once a slab."""
+    rows, cols = agent_positions(t)
+    border = np.asarray(border, dtype=np.int64)
+    d = (rows[:, None] - border[0][None, :]) ** 2 + (cols[:, None] - border[1][None, :]) ** 2
+    return d.argmin(axis=1).astype(np.int32)
+
+
+def cell_info(t: CtfKTables, cells, border) -> np.ndarray:
+    """(n,) int32, the K-step kernel's info word of each position of
+    :func:`agent_positions`: the flag byte (:data:`CELL_FLAG_BITS`) of the
+    board cell it clips to, the row of its closest border cell
+    (:func:`closest_border`) at bit ``INFO_ROW_SHIFT`` and the column at
+    ``INFO_COL_SHIFT``."""
+    rows, cols = agent_positions(t)
+    cells, border = np.asarray(cells), np.asarray(border, dtype=np.int64)
+    q = rows.clip(0, t.s0 - 1) * t.s1 + cols.clip(0, t.s1 - 1)
+    flags = sum((cells[r][q] > 0).astype(np.int64) * bit for r, bit in enumerate(CELL_FLAG_BITS))
+    near = closest_border(t, border)
+    info = flags | border[0][near] << INFO_ROW_SHIFT | border[1][near] << INFO_COL_SHIFT
+    return info.astype(np.int32)
+
+
+def steps_table(t: CtfKTables, cells, border, pool, bterr, rterr) -> np.ndarray:
+    """(2 * (n_bt + n_rt) + n_positions + n_pool,) int32, the static table
+    the K-step kernel copies into shared memory: each territory cell
+    (blue, then red) as its key (:data:`KEY_ROW`) and its info word, then
+    :func:`cell_info`, then the patrol pool's keys."""
+    info = cell_info(t, cells, border)
+    n_ab = t.bound0 * t.bound1
+
+    def keys(rc):
+        rc = np.asarray(rc, dtype=np.int64)
+        return rc[0] * KEY_ROW + rc[1]
+
+    terr = np.concatenate([np.asarray(bterr), np.asarray(rterr)], axis=1).astype(np.int64)
+    terr_info = info[n_ab + terr[0] * t.s1 + terr[1]]
+    pairs = np.stack([keys(terr), terr_info], axis=1).reshape(-1)
+    return np.concatenate([pairs, info, keys(pool)]).astype(np.int32)
+
+
 def n_perm_draws(t: CtfKTables) -> int:
     """Uniforms for the MvN move order: one index into the A! permutations
     for up to 4 agents, A - 1 Fisher-Yates draws beyond."""
@@ -708,11 +773,8 @@ def ctf_ms_slab(slab: "CtfSlab", pos, dirs, term, coll, sc, run_ret, blue_acts, 
         ("blue_acts", blue_acts, torch.int32, (K, B, nb)),
         ("rnd_step", rnd_step, torch.float32, (K, B, R)),
         ("rnd_reset", rnd_reset, torch.float32, (K, B, A)),
-        ("flags", slab.flags, torch.uint8, (t.s0 * t.s1,)),
-        ("border", slab.border, torch.int32, (2, n_border)),
-        ("pool", slab.pool, torch.int32, (2, n_pool)),
-        ("bterr", slab.bterr, torch.int32, (2, n_bt)),
-        ("rterr", slab.rterr, torch.int32, (2, n_rt)),
+        ("steps_table", slab.steps_table, torch.int32,
+         (2 * (n_bt + n_rt) + t.bound0 * t.bound1 + t.s0 * t.s1 + n_pool,)),
     ):
         _build.check_arg(name, x, dtype, shape, dev)
     kinds, p_opt = _policy_arrays(t, dev)
@@ -726,12 +788,11 @@ def ctf_ms_slab(slab: "CtfSlab", pos, dirs, term, coll, sc, run_ret, blue_acts, 
         err = kernels.ctf_steps(
             pos.data_ptr(), dirs.data_ptr(), term.data_ptr(), coll.data_ptr(),
             sc.data_ptr(), run_ret.data_ptr(), blue_acts.data_ptr(), rnd_step.data_ptr(),
-            rnd_reset.data_ptr(), slab.flags.data_ptr(), slab.border.data_ptr(),
-            slab.pool.data_ptr(), slab.bterr.data_ptr(), slab.rterr.data_ptr(),
-            kinds.data_ptr(), p_opt.data_ptr(),
+            rnd_reset.data_ptr(), slab.steps_table.data_ptr(), kinds.data_ptr(),
+            p_opt.data_ptr(),
             *(o.data_ptr() for o in outs),
             B, K, nb, nr, int(t.mvn), t.s0, t.s1, t.bound0, t.bound1,
-            *t.blue_flag, *t.red_flag, n_border, n_pool, R,
+            *t.blue_flag, *t.red_flag, n_pool, R,
             int(t.mvn and t.obstacle_penalty != 0),
             int(not t.mvn and t.obstacle_penalty != 0),
             n_bt, n_rt, t.max_steps,
@@ -768,6 +829,8 @@ class CtfSlab:
     pool: torch.Tensor  # (2, np) int32
     bterr: torch.Tensor  # (2, n_bt) int32
     rterr: torch.Tensor  # (2, n_rt) int32
+    #: The K-step kernel's static table (:func:`steps_table`), int32.
+    steps_table: torch.Tensor
     #: The route (:func:`kernel_route`): the kernel wrappers, or the plain
     #: versions on the slab's device.
     kernel: bool
@@ -795,10 +858,13 @@ def make_ctf_slab(cfg: CtfConfig, device) -> CtfSlab:
         raise ValueError("a patrol policy needs a red border, and this map has none")
     cells, border, pool = ctf_static_inputs(cfg)
     kernel = kernel_route(t, device.type, border.shape[1], pool.shape[1])
-    bterr, rterr = ctf_reset_inputs(cfg, device)
+    bterr, rterr = ctf_reset_inputs(cfg)
+    table = torch.from_numpy(steps_table(t, cells.numpy(), border.numpy(), pool.numpy(),
+                                         bterr.numpy(), rterr.numpy()))
     cells = cells.to(device)
     return CtfSlab(cfg, device, t, cells, cell_flags(cells), border.to(device),
-                   pool.to(device), bterr, rterr, kernel)
+                   pool.to(device), bterr.to(device), rterr.to(device), table.to(device),
+                   kernel)
 
 
 def step_batch(

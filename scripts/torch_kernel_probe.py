@@ -31,14 +31,20 @@ From the root of a checkout, with a CUDA device and ``nvcc``.  It
    ``maze_step``, so the launch floor and the per-step latency of one
    env's chain can be read apart;
 6. does the same for ``collect_steps`` at the Collect main config (K in
-   (1, 25, 50)), ``ctf_steps`` at ``CTF_MAIN`` (K in (1, 50)) and
-   ``wf_steps_philox`` at ``WF_MAIN`` (K in (1, 24)), each build checked
-   bit-equal to its plain version (``ms_spec``; ``ms_philox_spec``, the
-   same steps on ``ops/philox.py``'s draws), beside the one-step
-   ``collect_step``, ``ctf_step`` and ``wildfire_step``; at B = 8192 and
-   the full chunk the checkout's build and each variant are timed in turns
-   (checkout, variants, variants reversed, checkout, twice).  A variant
-   has the checkout's C interface.
+   (1, 25, 50)), ``ctf_steps`` at ``CTF_MAIN`` and at ``CTF_PATROL`` (K in
+   (1, 50)) and ``wf_steps_philox`` at ``WF_MAIN`` (K in (1, 24)), each
+   build checked bit-equal to its plain version (``ms_spec``;
+   ``ms_philox_spec``, the same steps on ``ops/philox.py``'s draws), beside
+   the one-step ``collect_step``, ``ctf_step`` and ``wildfire_step``; at
+   B = 8192 and the full chunk the checkout's build and each variant are
+   timed in turns (checkout, variants, variants reversed, checkout,
+   twice).  A variant has the checkout's C interface; a ``ctf_steps``
+   variant may have the one from before the slab's ``steps_table``.  The
+   ``ctf_steps`` builds are the checkout's, the checkout's source in its
+   lane-group layout (``-DCTF_STEPS_GROUP=1``) and the variants; for each,
+   the static SASS instructions of the largest step loop of its 2v2
+   instance (the chain's, where a warp decodes beside it; ``cuobjdump
+   -sass``, that kernel's SASS written to ``chiprun_out/``).
 
 ``--only`` runs the named sections (default: all but ``isolated``).
 ``--only isolated`` times the host-bound paths of ``chip_smoke.py`` alone
@@ -81,7 +87,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import CTF_MAIN, MAIN, MAZE_MAIN, WF_MAIN, time_ms  # noqa: E402
+from chip_smoke import CTF_MAIN, CTF_PATROL, MAIN, MAZE_MAIN, WF_MAIN, time_ms  # noqa: E402
 from gym_multigrid_tpu_torch.envs.wildfire import ignite_thresholds  # noqa: E402
 from gym_multigrid_tpu_torch.ops import (  # noqa: E402
     _build,
@@ -179,22 +185,29 @@ def maze_runner(fn, slab):
     return run
 
 
-def ctf_runner(fn, slab):
-    """``ctf_steps`` through ``fn`` with ``ctf_ms_slab``'s arguments."""
+def ctf_runner(fn, slab, source: Path):
+    """``ctf_steps`` through ``fn`` with ``ctf_ms_slab``'s arguments, in the
+    C interface of ``source``: the slab's ``steps_table``, or (a source from
+    before it) the flag bytes, the border, the pool and the territories."""
     t = slab.t
     kinds, p_opt = ctf_slab._policy_arrays(t, DEV)
+    params = re.search(r'extern "C" int ctf_steps\(([^)]*)\)', source.read_text()).group(1)
+    packed = "table" in params
 
     def run(pos, dirs, term, coll, sc, run_ret, acts, rnd_step, rnd_reset):
         n, K = pos.shape[0], acts.shape[0]
         outs = (torch.empty_like(pos), torch.empty_like(dirs), torch.empty_like(term),
                 torch.empty_like(coll), torch.empty_like(sc), torch.empty_like(run_ret),
                 torch.empty_like(run_ret), torch.empty_like(run_ret), torch.empty_like(sc))
-        tables = (slab.flags, slab.border, slab.pool, slab.bterr, slab.rterr, kinds, p_opt)
+        if packed:
+            tables, counts = (slab.steps_table, kinds, p_opt), (slab.pool.shape[1],)
+        else:
+            tables = (slab.flags, slab.border, slab.pool, slab.bterr, slab.rterr, kinds, p_opt)
+            counts = (slab.border.shape[1], slab.pool.shape[1])
         err = fn(*(x.data_ptr() for x in (pos, dirs, term, coll, sc, run_ret, acts, rnd_step,
                                            rnd_reset, *tables)),
                  *(o.data_ptr() for o in outs), n, K, t.n_blue, t.n_red, int(t.mvn), t.s0, t.s1,
-                 t.bound0, t.bound1, *t.blue_flag, *t.red_flag, slab.border.shape[1],
-                 slab.pool.shape[1], ctf_slab.rnd_width(t),
+                 t.bound0, t.bound1, *t.blue_flag, *t.red_flag, *counts, ctf_slab.rnd_width(t),
                  int(t.mvn and t.obstacle_penalty != 0), int(not t.mvn and t.obstacle_penalty != 0),
                  slab.bterr.shape[1], slab.rterr.shape[1], t.max_steps,
                  t.battle_range * t.battle_range, t.randomness, 1.0 - t.randomness,
@@ -204,6 +217,47 @@ def ctf_runner(fn, slab):
         assert err == 0, f"ctf_steps: CUDA error {err}"
         return outs
     return run
+
+
+def sass_loop(lib: Path, kernel: str, out: Path) -> int | None:
+    """Static SASS instructions of the largest loop of the kernel whose
+    mangled name matches the regular expression ``kernel`` in ``lib``
+    (``cuobjdump -sass``): for a K-step kernel, the body of its loop over
+    the steps.  That kernel's SASS goes to ``out``.  None where the kernel
+    or a loop is not found."""
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300).stdout
+    for func in re.split(r"\n\s*Function : ", text)[1:]:
+        if not re.search(kernel, func.split("\n", 1)[0]):
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(func)
+        addrs, labels, branches = [], {}, []
+        pending = []
+        for line in func.splitlines():
+            label = re.match(r"\s*(\.L_x_\d+):", line)
+            if label:
+                pending.append(label.group(1))
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if not m:
+                continue
+            addr = int(m.group(1), 16)
+            addrs.append(addr)
+            for name in pending:
+                labels[name] = addr
+            pending = []
+            target = re.search(r"\bBRA\b.*?(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))", m.group(2))
+            if target:
+                branches.append((addr, target.group(1) or int(target.group(2), 16)))
+        loops = [(src, labels.get(dst, dst)) for src, dst in branches]
+        loops = [(src, dst) for src, dst in loops if isinstance(dst, int) and dst < src]
+        if not loops:
+            return None
+        src, dst = max(loops, key=lambda sd: sd[0] - sd[1])
+        return sum(dst <= a <= src for a in addrs)
+    return None
 
 
 def collect_runner(fn, slab):
@@ -344,31 +398,7 @@ def main():
     if "maze" in sections:
         record.update(probe_maze(args.maze_variant, kernels, probe_dir, gen, smi))
     if "ctf" in sections:
-        cslab = ctf_slab.make_ctf_slab(CTF_MAIN, DEV)
-        runners = [("checkout", ctf_runner(kernels.ctf_steps, cslab))]
-        for i, path in enumerate(args.ctf_variant):
-            lib = nvcc_build(path, probe_dir / f"ctf_{i}.so")
-            runners.append((path.stem, ctf_runner(entry(lib, path, "ctf_steps"), cslab)))
-
-        def ctf_args(n, K):
-            st = ctf_slab.reset_batch(cslab, n, generator=gen)
-            return (st.pos.reshape(n, -1), st.dir, st.terminated, st.collided, st.step_count,
-                    torch.zeros(n, device=DEV),
-                    torch.randint(0, 5, (K, n, 2), generator=gen, device=DEV, dtype=torch.int32),
-                    torch.rand((K, n, cslab.step_draws), generator=gen, device=DEV),
-                    torch.rand((K, n, cslab.reset_draws), generator=gen, device=DEV))
-
-        def ctf_one(n):
-            a = ctf_args(n, 1)
-            one = (cslab.t, a[0], a[1], a[2], a[3], a[6][0], a[7][0], cslab.flags, cslab.border,
-                   cslab.pool)
-            return lambda: ctf_slab.ctf_step_slab(*one)
-
-        record.update(probe_steps(
-            "ctf", runners, ctf_args,
-            lambda K, a: ctf_slab.ms_spec(cslab.t, K, *a, cslab.flags, cslab.border, cslab.pool,
-                                          cslab.bterr, cslab.rterr),
-            ctf_one, (1, 50), smi))
+        record.update(probe_ctf(args.ctf_variant, kernels, probe_dir, gen, smi))
     if "wildfire" in sections:
         wslab = wildfire_slab.make_wildfire_slab(WF_MAIN, DEV)
         runners = [("checkout", wf_philox_runner(kernels.wf_steps_philox, wslab))]
@@ -395,6 +425,55 @@ def main():
             "wildfire philox", runners, philox_args,
             lambda K, a: wildfire_slab.ms_philox_spec(wslab.t, K, *a[:7]), wf_one, (1, 24), smi))
     log(json.dumps(record))
+
+
+def probe_ctf(variants, kernels, probe_dir, gen, smi):
+    """Section 6 for ``ctf_steps``: the checkout's build (one thread an
+    env), the checkout's source built in the lane-group layout
+    (``-DCTF_STEPS_GROUP=1``) and each variant, on ``CTF_MAIN`` and on
+    ``CTF_PATROL``; with each build's SASS loop count."""
+    source = _build.CSRC / "ctf_step.cu"
+    builds = [("checkout", source, _build.library_path("ctf_step.cu"), kernels.ctf_steps)]
+    lanes = probe_dir / "ctf_lanes.so"
+    builds.append(("lane groups", source, lanes,
+                   entry(nvcc_build(source, lanes, "-DCTF_STEPS_GROUP=1"), source, "ctf_steps")))
+    for i, path in enumerate(variants):
+        lib = probe_dir / f"ctf_{i}.so"
+        builds.append((path.stem, path, lib, entry(nvcc_build(path, lib), path, "ctf_steps")))
+    out = {}
+    for name, _, lib, _ in builds:
+        # The 2v2 MvN instance: steps_kernel<2, 2, true>, or before it
+        # steps_kernel<4> (templated on the agent count or the lanes an env).
+        n = sass_loop(lib, "12steps_kernelILi(2ELi2ELb1|4)EE",
+                      ROOT / "chiprun_out" / f"sass_{lib.stem}.txt")
+        log(f"ctf_steps {name}: {n} SASS instructions in the largest step loop of its 2v2 "
+            "instance")
+        out[f"ctf {name} step loop SASS instructions"] = n
+    for cfg_name, cfg in (("CTF_MAIN", CTF_MAIN), ("CTF_PATROL", CTF_PATROL)):
+        cslab = ctf_slab.make_ctf_slab(cfg, DEV)
+        runners = [(name, ctf_runner(fn, cslab, src)) for name, src, _, fn in builds]
+
+        def ctf_args(n, K, cslab=cslab):
+            st = ctf_slab.reset_batch(cslab, n, generator=gen)
+            return (st.pos.reshape(n, -1), st.dir, st.terminated, st.collided, st.step_count,
+                    torch.zeros(n, device=DEV),
+                    torch.randint(0, 5, (K, n, cslab.t.n_blue), generator=gen, device=DEV,
+                                  dtype=torch.int32),
+                    torch.rand((K, n, cslab.step_draws), generator=gen, device=DEV),
+                    torch.rand((K, n, cslab.reset_draws), generator=gen, device=DEV))
+
+        def ctf_one(n, cslab=cslab, ctf_args=ctf_args):
+            a = ctf_args(n, 1)
+            one = (cslab.t, a[0], a[1], a[2], a[3], a[6][0], a[7][0], cslab.flags, cslab.border,
+                   cslab.pool)
+            return lambda: ctf_slab.ctf_step_slab(*one)
+
+        out.update(probe_steps(
+            f"ctf {cfg_name}", runners, ctf_args,
+            lambda K, a, cslab=cslab: ctf_slab.ms_spec(
+                cslab.t, K, *a, cslab.flags, cslab.border, cslab.pool, cslab.bterr, cslab.rterr),
+            ctf_one, (1, 50), smi))
+    return out
 
 
 def probe_isolated(after_checks: bool):

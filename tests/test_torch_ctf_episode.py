@@ -129,8 +129,8 @@ def test_k_steps_equal_k_one_step_chunks(kw):
 
 
 def _kernel_spawn(u, a, n, mvn):
-    """The kernel's spawn_cell (csrc/ctf_step.cu) with picks::pick_untaken
-    (csrc/picks.cuh), in float32: pick j takes r = floor_pick(u_j, n - j)
+    """The kernel's spawn picks (csrc/ctf_step.cu ms::decode) with
+    picks::pick_untaken (csrc/picks.cuh), in float32: pick j takes r = floor_pick(u_j, n - j)
     and moves it up by one for each taken cell at or below it, the taken
     cells in ascending order; cell 0 once the territory is used up."""
     f32 = np.float32
