@@ -145,10 +145,28 @@ without them.  Phases, each of which fails the run on any fault:
 4. Profile 50 steps of each ``BatchedEnv`` rollout, 100 of each episode
    path, one iteration of each training path, one self-play iteration and
    one Collect evaluation call and one Collect vector-env step: device time
-   by kernel, device time a step and idle share.
+   by kernel, device time a step and idle share (``utils/profiling.py``
+   ``trace`` and ``summarize_profile``).
+5. Multi-process runs.  In this process, a process group of world size 1
+   under NCCL (a ``file://`` store in a temporary directory): the Collect
+   episode rollout at B = 8192 under ``sharded_episode_rollout``,
+   ``reset(seed=0)`` and 500 steps, counted (20 ``collect_steps``, 11
+   ``collect_reset``), its metrics and states bit-equal to the unsharded
+   rollout reset from the rank's seed, one all-reduce of three float64
+   scalars a call (``comm_audit.audit_call``), timed in turns with the
+   unsharded call; the Collect training cell under ``make_ppo(...,
+   mesh)`` against the plain learner from the same seeds (net seed, env
+   states and generator, the action generator): 2 counted iterations
+   each, then the parameters within 1e-5 of the plain ones (the largest
+   difference over the largest parameter); the audit of a further
+   iteration (all-reduces only, none larger than the parameters' bytes, no
+   uint8 operand); env-steps/s with and without DDP in turns; the group
+   is then destroyed.  Then ``scripts/multihost_dryrun.py`` with two gloo
+   ranks both on cuda:0: exit 0, the parameters bit-equal across ranks
+   after each train step (no rate: the ranks share the card).
 
 Prints the timing lines, one JSON line of the render phase's readings,
-one JSON line of kernel records (with each kernel's launches in one
+one JSON line of phase 5's readings, one JSON line of kernel records (with each kernel's launches in one
 evaluation call and in the four 200-step vector env runs), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
@@ -160,15 +178,18 @@ import dataclasses
 import functools
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
+import torch.distributed as dist
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device")
@@ -243,6 +264,13 @@ from gym_multigrid_tpu_torch.ops.wildfire_slab import (  # noqa: E402
     wf_philox_slab,
     wildfire_step_slab,
 )
+from gym_multigrid_tpu_torch.parallel.comm_audit import audit_call  # noqa: E402
+from gym_multigrid_tpu_torch.parallel.mesh import (  # noqa: E402
+    distributed_initialize,
+    fold_in_axis,
+    make_mesh,
+)
+from gym_multigrid_tpu_torch.parallel.shard import sharded_episode_rollout  # noqa: E402
 from gym_multigrid_tpu_torch.parallel.vector import (  # noqa: E402
     NextStepEnv,
     make_collect_batch,
@@ -276,6 +304,9 @@ from gym_multigrid_tpu_torch.render.tiles import (  # noqa: E402
     render_wildfire_batch,
 )
 from gym_multigrid_tpu_torch.scripts.evaluate import policy_frames  # noqa: E402
+from gym_multigrid_tpu_torch.scripts.multihost_dryrun import param_rel_err  # noqa: E402
+from gym_multigrid_tpu_torch.utils import profiling  # noqa: E402
+from gym_multigrid_tpu_torch.utils.misc import tree_map  # noqa: E402
 from gym_multigrid_tpu_torch.wrappers.toroid import toroid_obs_fn  # noqa: E402
 
 B = 8192
@@ -383,9 +414,10 @@ OUT_ROWS = 1024
 OUT_STEPS = 30
 ROLLOUT_CHECK_ROWS = 64
 
-# H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 rate, and
-# int32 ALU ops on the CUDA cores (132 SMs x 64 int32 lanes x 1.98 GHz).
-MEM_BYTES_PER_S = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 rate (the
+# port's one table, utils/profiling.py), and int32 ALU ops on the CUDA cores
+# (132 SMs x 64 int32 lanes x 1.98 GHz).
+MEM_BYTES_PER_S = profiling.MEM_BYTES_PER_S["h100-sxm"]
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # Integer operations each function needs, with its masks bit-packed, one
 # bit per cell: a masked pick (a respawn, a ball placement, a uniform agent
@@ -2303,41 +2335,240 @@ def profile_rollout(rollout, states, name, steps=50):
 
 def profile_call(call, what, per, unit, tries=2):
     """Device time by kernel and the idle share of one ``call()`` under
-    ``torch.profiler``: the twelve longest kernels, and the port's own
+    ``torch.profiler`` (``utils/profiling.py`` ``trace`` and
+    ``summarize_profile``): the twelve longest kernels, and the port's own
     kernels wherever they rank; launches counted per ``per`` ``unit``s.  A
     short window right after a long one has come back with no device
     record at all: the call is then profiled again, up to ``tries`` times."""
-    kinds = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(tries):
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=kinds) as prof:
-            t0 = time.perf_counter()
+        with profiling.trace() as prof:
             call()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        # A user annotation on the device (the optimizer's step range) spans
-        # kernels already counted: kernels only.
-        rows = sorted(
-            ((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)),
-            key=lambda r: -r[1],
-        )
-        busy_us = sum(r[1] for r in rows)
-        if busy_us > 0:
+        summary = profiling.summarize_profile(prof, top=12)
+        if summary["device"] == "cuda":
             break
         log(f"profile of {what}, try {attempt + 1}: no device time recorded")
-    if busy_us > 0:
+    if summary["device"] == "cuda":
+        busy_us, wall_us = summary["device_us"], summary["wall_us"]
         log(f"profile of {what} (wall clock under the profiler): "
             f"wall {wall_us:.0f} us, device kernels {busy_us:.0f} us ({busy_us / per:.2f} us "
-            f"and {sum(r[2] for r in rows) / per:.2f} launches per {unit}), idle share "
-            f"{1 - busy_us / wall_us:.3f}")
-        for rank, (key, dev_us, count) in enumerate(rows):
-            # A template kernel's name starts with its return type.
-            if rank < 12 or key.startswith(("void collect::", "void ctf::", "maze::",
-                                            "void wildfire::")):
-                log(f"  #{rank + 1:<3d} {dev_us:9.1f} us  {count:5d}x  {key[:90]}")
+            f"and {summary['launches'] / per:.2f} launches per {unit}), idle share "
+            f"{summary['idle_share']:.3f}")
+        rows = {(i + 1, *r) for i, r in enumerate(summary["kernels"])}
+        for rank, key, dev_us, count in sorted(rows | set(summary["port_kernels"])):
+            log(f"  #{rank:<3d} {dev_us:9.1f} us  {count:5d}x  {key[:90]}")
     else:
         log(f"profile of {what}: no device time recorded (device busy share not measured)")
+
+
+#: Phase 5: the largest parameter difference allowed between the
+#: data-parallel learner at world size 1 and the plain one after DDP_ITERS
+#: iterations from the same seeds, over the largest parameter.
+DDP_RTOL = 1e-5
+DDP_ITERS = 2
+#: Every metric of each of those iterations against the plain learner's:
+#: |ddp - plain| <= DDP_METRIC_ATOL + DDP_METRIC_RTOL * |plain| (the
+#: explained variance is summed in float64 on the mesh path).
+DDP_METRIC_RTOL = 1e-5
+DDP_METRIC_ATOL = 1e-5
+#: Rounds of the timed turns of phase 5 (plain, sharded, sharded, plain
+#: each): the host-bound calls spread by up to 2x between calls.
+EPISODE_TURNS, TRAIN_TURNS = 20, 5
+
+
+def time_turns(fns, rounds):
+    """Host-wall ms of each named call (ending in a synchronise), run in
+    turns: A B B A per round for two calls.  Returns {name: [ms, ...]}."""
+    names = list(fns)
+    times = {name: [] for name in names}
+    for _ in range(rounds):
+        for name in names + names[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def quartiles(xs):
+    """(first quartile, median, third quartile), rounded to µs."""
+    xs = sorted(xs)
+    return tuple(round(xs[int(q * (len(xs) - 1))], 3) for q in (0.25, 0.5, 0.75))
+
+
+def check_sharded_episode(mesh):
+    """The Collect episode rollout at B = 8192 under
+    ``sharded_episode_rollout`` at world size 1: reset(seed=0) and one
+    500-step call, counted (20 ``collect_steps`` and 11 ``collect_reset``),
+    its metrics and states bit-equal to the unsharded rollout reset from
+    the rank's seed; the audit of a call (one all-reduce of the three
+    scalar metrics, float64); then both timed in turns.  Returns the
+    launch counts."""
+    sharded = sharded_episode_rollout(make_collect_episode_rollout(MAIN, B), mesh)
+
+    def drive():
+        states, _ = sharded.reset(0)
+        return sharded(states, STEPS_PER_CALL)
+
+    counts, (s_states, s_metrics) = run_counted(drive)
+    n_eps = STEPS_PER_CALL // MAIN.max_steps
+    check_launches(counts, {"collect_steps": n_eps * -(-MAIN.max_steps // COLLECT_CHUNK),
+                            "collect_reset": n_eps + 1}, "sharded Collect episode")
+    plain = make_collect_episode_rollout(MAIN, B)
+    p_states, _ = plain.reset(fold_in_axis(0, mesh))
+    p_states, p_metrics = plain(p_states, STEPS_PER_CALL)
+    for k, v in p_metrics.items():
+        check(s_metrics[k].dtype == v.dtype and torch.equal(s_metrics[k], v),
+              f"sharded episode rollout: {k} {s_metrics[k]} != {v}")
+    for f in dataclasses.fields(p_states):
+        check(torch.equal(getattr(s_states, f.name), getattr(p_states, f.name)),
+              f"sharded episode rollout: state {f.name} differs")
+    ops = audit_call(sharded, s_states, STEPS_PER_CALL)
+    check([(o.kind, o.shapes) for o in ops] == [("all_reduce", [("float64", (3,))])],
+          f"sharded episode rollout's collectives: {ops}")
+    states = {"sharded": s_states, "plain": p_states}
+
+    def call(name, roll):
+        def run():
+            states[name], _ = roll(states[name], STEPS_PER_CALL)
+        return run
+
+    times = time_turns({"plain": call("plain", plain), "sharded": call("sharded", sharded)},
+                       EPISODE_TURNS)
+    agent_steps = B * STEPS_PER_CALL * MAIN.num_agents
+    log(f"sharded Collect episode rollout at world size 1 ({dist.get_backend()}), B={B}, "
+        f"{STEPS_PER_CALL} steps: launches {counts}; metrics and states bit-equal to the "
+        f"unsharded rollout from the rank's seed; collectives a call {[(o.op_name, o.shapes) for o in ops]}; "
+        f"host wall ms a call in turns: sharded {[round(t, 3) for t in times['sharded']]}, "
+        f"plain {[round(t, 3) for t in times['plain']]}; quartiles sharded "
+        f"{quartiles(times['sharded'])}, plain {quartiles(times['plain'])}; agent-steps/s {agent_steps / (median(times['sharded']) / 1e3)} "
+        f"sharded, {agent_steps / (median(times['plain']) / 1e3)} plain (medians); after: {gpu_clocks()}")
+    return counts
+
+
+def check_ddp_training(mesh):
+    """The Collect training cell (B = 8192, ``ActorCritic((256, 256))``,
+    TRAIN_CFG) under ``make_ppo(..., mesh)`` at world size 1 against the
+    plain ``make_ppo`` started from the same seeds (the same net seed, the
+    rank's env states and env generator, the action generator seeded from
+    ``fold_in_axis(1)``): DDP_ITERS counted iterations each, every metric
+    of each within DDP_METRIC_ATOL/RTOL, then every parameter within
+    DDP_RTOL relative; the audit of a further iteration
+    (all-reduces only, none above the parameters' bytes, no uint8
+    operand); then env-steps/s of both in turns."""
+    env, _, n_actions, agents = make_family_batch("collect", B)
+    net = full_width_net(env, n_actions, agents)
+    init_fn, train_step = make_ppo(env, net, TRAIN_CFG, mesh)
+    _, carry = init_fn(0)
+    gen = torch.Generator(device=DEV).manual_seed(fold_in_axis(1, mesh))
+    p_env, *_ = make_family_batch("collect", B)
+    p_net = full_width_net(p_env, n_actions, agents)
+    p_init, p_step = make_ppo(p_env, p_net, TRAIN_CFG)
+    p_init(0)
+    p_env.generator.set_state(train_step.env.generator.get_state())
+    p_carry = tree_map(torch.clone, carry)
+    p_gen = torch.Generator(device=DEV).manual_seed(fold_in_axis(1, mesh))
+    per_iter = {"collect_step": TRAIN_CFG.rollout_len, "collect_reset": TRAIN_CFG.rollout_len}
+    metric_diff = 0.0
+    for i in range(DDP_ITERS):
+        counts, (carry, metrics) = run_counted(lambda: train_step(carry, gen))
+        check_launches(counts, per_iter, f"data-parallel training iteration {i}")
+        check(all(math.isfinite(float(metrics[k])) for k in ("loss", "pg_loss", "v_loss")),
+              f"data-parallel losses {metrics}")
+        p_carry, p_metrics = p_step(p_carry, p_gen)
+        check(set(metrics) == set(p_metrics), f"data-parallel metrics {sorted(metrics)}")
+        for k, want in p_metrics.items():
+            got, want = float(metrics[k]), float(want)
+            check(abs(got - want) <= DDP_METRIC_ATOL + DDP_METRIC_RTOL * abs(want),
+                  f"iteration {i}: the data-parallel {k} {got} against the plain {want}")
+            metric_diff = max(metric_diff, abs(got - want))
+    rel = param_rel_err(net, p_net)
+    diff = max(float((a.detach() - b.detach()).abs().max())
+               for a, b in zip(net.parameters(), p_net.parameters()))
+    check(rel <= DDP_RTOL, f"data-parallel params differ from the plain learner's by {rel}")
+    param_bytes = sum(p.numel() * p.element_size() for p in net.parameters())
+    ops = audit_call(train_step, carry, gen)
+    kinds = {o.kind for o in ops}
+    biggest = max(o.bytes for o in ops)
+    check(kinds == {"all_reduce"}, f"data-parallel train step collectives {kinds}")
+    check(biggest <= param_bytes, f"an all-reduce of {biggest} bytes > params' {param_bytes}")
+    check(all(dt != "uint8" for o in ops for dt, _ in o.shapes), "uint8 operand on the wire")
+    state = {"ddp": (carry, gen, train_step), "plain": (p_carry, p_gen, p_step)}
+
+    def iteration(name):
+        def run():
+            c, g, step = state[name]
+            c, m = step(c, g)
+            float(m["loss"])  # the trainer's one read a step
+            state[name] = (c, g, step)
+        return run
+
+    times = time_turns({"plain": iteration("plain"), "ddp": iteration("ddp")}, TRAIN_TURNS)
+    steps = B * TRAIN_CFG.rollout_len
+    log(f"data-parallel training at world size 1 ({dist.get_backend()}), B={B}, hidden "
+        f"{TRAIN_HIDDEN}, {TRAIN_CFG.num_epochs} epochs x {TRAIN_CFG.num_minibatches} "
+        f"minibatches: after {DDP_ITERS} iterations the params differ from the plain "
+        f"learner's by at most {diff} ({rel} relative; tolerance {DDP_RTOL}); "
+        f"every metric of each iteration within {metric_diff} of the plain learner's "
+        f"(tolerance {DDP_METRIC_ATOL} + {DDP_METRIC_RTOL} relative), losses "
+        f"{float(metrics['loss'])} vs {float(p_metrics['loss'])}; collectives an "
+        f"iteration: {len(ops)} all-reduces, the largest {biggest} bytes (params {param_bytes}); "
+        f"host wall ms an iteration in turns: ddp {[round(t, 1) for t in times['ddp']]}, plain "
+        f"{[round(t, 1) for t in times['plain']]}; quartiles ddp {quartiles(times['ddp'])}, "
+        f"plain {quartiles(times['plain'])}; env-steps/s {steps / (median(times['ddp']) / 1e3)} "
+        f"with DDP, {steps / (median(times['plain']) / 1e3)} without (medians); after: {gpu_clocks()}")
+    return rel
+
+
+def check_two_ranks_on_one_card():
+    """The dryrun launcher, 2 ranks under gloo, both on cuda:0: it must exit
+    0 with the ranks' params bit-equal after every step.  No rate: the
+    ranks share one card."""
+    out = Path(tempfile.mkdtemp(prefix="dryrun_")) / "multihost.json"
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "gym_multigrid_tpu_torch.scripts.multihost_dryrun",
+             "--num-processes", "2", "--device", "cuda", "--backend", "gloo",
+             "--timeout", "300", "--out", str(out)],
+            capture_output=True, text=True, timeout=360, cwd=Path(__file__).resolve().parent,
+        )
+        check(proc.returncode == 0,
+              f"two gloo ranks on one card: exit {proc.returncode}\n{proc.stdout[-3000:]}"
+              f"\n{proc.stderr[-3000:]}")
+        rec = json.loads(out.read_text())
+    finally:
+        shutil.rmtree(out.parent, ignore_errors=True)
+    check(rec["ok"] and rec["workers_agree"] and rec["device"] == "cuda:0", f"dryrun {rec}")
+    log(f"two gloo ranks on cuda:0 (dryrun launcher): workers_agree {rec['workers_agree']}, "
+        f"update_rel_err {rec['update_rel_err']}, rollout_episodes {rec['rollout_episodes']}, "
+        f"losses {rec['losses']} (no rate: the two ranks share one card)")
+    return rec
+
+
+def run_multiprocess_phase():
+    """Phase 5: world size 1 under NCCL in this process (the sharded
+    episode rollout, the data-parallel train step), then two gloo ranks on
+    the card; the process group is destroyed at the end, and any failure
+    fails the run."""
+    store = tempfile.mkdtemp(prefix="nccl_store_")
+    distributed_initialize(backend="nccl", init_method=f"file://{os.path.join(store, 'store')}",
+                           rank=0, world_size=1, device=DEV)
+    try:
+        mesh = make_mesh()
+        check(mesh.world_size == 1 and mesh.device == DEV and dist.get_backend() == "nccl",
+              f"mesh {mesh} on {dist.get_backend()}")
+        sharded_counts = check_sharded_episode(mesh)
+        ddp_rel = check_ddp_training(mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    dryrun = check_two_ranks_on_one_card()
+    return sharded_counts, ddp_rel, dryrun
 
 
 def main():
@@ -2792,6 +3023,9 @@ def main():
     profile_call(eval_collect_call, "one Collect evaluation call", EVAL_STEPS, "step")
     profile_call(lambda: vec_collect.step(vec_actions), "one Collect vector-env step", 1, "step")
 
+    # Phase 5: multi-process runs.
+    sharded_counts, ddp_rel, dryrun = run_multiprocess_phase()
+
     record = {"kernels": [
         {"name": "collect_step", "route": "cuda",
          "source": "gym_multigrid_tpu_torch/csrc/collect_step.cu",
@@ -2805,6 +3039,7 @@ def main():
          "replaces": "gym_multigrid_tpu/ops/pallas_collect.py:1127",
          "launches": launches["collect_reset"],
          "launches_collect_episode_path": ce_launches["collect_reset"],
+         "launches_sharded_episode_call": sharded_counts["collect_reset"],
          "launches_training_iteration": tc_launches["collect_reset"], "max_abs_err": reset_err,
          "ms": reset_ms, "plain_ms": reset_plain_ms, "bound_ms": reset_bound,
          "bound_by": reset_by, "library_ms": None},
@@ -2862,6 +3097,7 @@ def main():
          "source": "gym_multigrid_tpu_torch/csrc/collect_step.cu",
          "replaces": "gym_multigrid_tpu/ops/pallas_collect.py:290",
          "launches": ce_launches["collect_steps"], "max_abs_err": collect_ms_err,
+         "launches_sharded_episode_call": sharded_counts["collect_steps"],
          "ms": cst_ms, "plain_ms": cst_plain_ms, "bound_ms": cst_bound,
          "bound_by": cst_by, "library_ms": None},
     ]}
@@ -2877,6 +3113,9 @@ def main():
         f"{host_err}; configs outside the kernels' envelope, card == CPU: {out_err}")
     log(json.dumps({"render": render_readings, "stacked_max_abs_err": stacked_err,
                     "toroid_max_abs_err": toroid_err, "gif_launches": gif_launches}))
+    log(json.dumps({"multiprocess": {"sharded_episode_launches": sharded_counts,
+                                     "ddp_param_max_rel_err": ddp_rel,
+                                     "two_gloo_ranks_on_one_card": dryrun}}))
     log(json.dumps(record))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

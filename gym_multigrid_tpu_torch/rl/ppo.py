@@ -12,6 +12,12 @@ seeds it) for the env, and the learner's (passed to ``train_step``) for
 the actions and the epoch shuffles.  Nothing in a train step waits for
 the device: the metrics come back as 0-d device tensors.
 
+With a mesh (``parallel/mesh.py``) W processes train one policy under
+data parallelism: each rank steps ``num_envs / W`` envs and holds their
+shuffle blocks, ``DistributedDataParallel`` averages the gradients before
+the clip, the advantages of a minibatch are normalised by the statistics
+of the whole minibatch, and the metrics are those of the whole batch.
+
 Not ported, as TPU workarounds: the packed (n, A + 3) scalar row of the
 minibatch gather (five gathers are the same math) and the remote-dispatch
 scan over iterations.
@@ -19,12 +25,17 @@ scan over iterations.
 
 from __future__ import annotations
 
+import math
+import warnings
 from dataclasses import dataclass
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from gym_multigrid_tpu_torch.parallel.mesh import fold_in_axis
+from gym_multigrid_tpu_torch.parallel.shard import local_batch, psum_scalars
 from gym_multigrid_tpu_torch.rl.networks import sample_actions
 
 __all__ = [
@@ -56,10 +67,11 @@ class PPOConfig:
     # the env's dtype.
     obs_buffer_dtype: str | None = None
     # The epoch shuffle draws an independent permutation in each of
-    # ``shuffle_blocks`` (default ``dp_shards``) blocks of envs, and every
-    # minibatch takes an equal share of each block.  This changes which
-    # minibatches are drawn, not their marginals; blocks must be a
-    # multiple of dp_shards.
+    # ``shuffle_blocks`` blocks of envs, and every minibatch takes an equal
+    # share of each block.  This changes which minibatches are drawn, not
+    # their marginals; blocks must be a multiple of dp_shards and of a
+    # mesh's world size W, and default to the least such number
+    # (dp_shards without a mesh).
     dp_shards: int = 1
     shuffle_blocks: int | None = None
 
@@ -151,25 +163,111 @@ def _clip_by_global_norm_(params, max_norm: float) -> None:
         g.mul_(scale)
 
 
-def make_update_fn(net: torch.nn.Module, optimizer: torch.optim.Optimizer, cfg: PPOConfig):
-    """The PPO update: ``update(traj, last_value, generator) -> metrics``.
+def _ddp(net: torch.nn.Module, mesh) -> torch.nn.Module:
+    """``net`` under ``DistributedDataParallel`` on ``mesh``: its backward
+    averages the gradients over the ranks, and no forward broadcasts
+    buffers (``broadcast_buffers=False``)."""
+    with warnings.catch_warnings():
+        # Newer torch deprecates broadcast_buffers for forward_sync_buffers,
+        # whose False still broadcasts at construction; the learner's nets
+        # hold no buffers either way.
+        warnings.simplefilter("ignore", FutureWarning)
+        return torch.nn.parallel.DistributedDataParallel(
+            net, device_ids=[mesh.device] if mesh.device.type == "cuda" else None,
+            process_group=mesh.group, broadcast_buffers=False,
+        )
+
+
+def _episode_stats(ep_sum: torch.Tensor, ep_cnt: torch.Tensor) -> dict:
+    return {"episodes": ep_cnt, "ep_return_mean": ep_sum / ep_cnt.clamp(min=1)}
+
+
+def _global_metrics(epoch_metrics: dict, traj: Transition, returns: torch.Tensor,
+                    episodes, mesh) -> dict:
+    """The whole batch's metrics from this rank's, in ONE all-reduce.  Every
+    rank holds as many rows, so a mean over the batch (each loss term of a
+    minibatch, ``reward_per_step``) is the mean of the ranks' means; the two
+    variances of ``explained_variance`` combine from each rank's sum and
+    centred sum of squares (float64); episode counts and returns add."""
+    W = mesh.world_size
+
+    def moments(x):  # (sum, centred sum of squares + sum**2 / n): both add over ranks
+        x = x.double()
+        total = x.sum()
+        return total, ((x - total / x.numel()) ** 2).sum() + total * total / x.numel()
+
+    local = dict(epoch_metrics, reward_per_step=traj.reward.mean())
+    local["ret_s"], local["ret_q"] = moments(returns)
+    local["res_s"], local["res_q"] = moments(returns - traj.value)
+    if episodes is not None:
+        local["ep_sum"], local["ep_cnt"] = episodes
+    g = psum_scalars(local, mesh)
+    n = returns.numel() * W
+
+    def var(s, q):
+        return (q - s * s / n) / n
+
+    metrics = {k: g[k] / W for k in (*epoch_metrics, "reward_per_step")}
+    metrics["explained_variance"] = (
+        1.0 - var(g["res_s"], g["res_q"]) / (var(g["ret_s"], g["ret_q"]) + 1e-8)
+    ).to(torch.float32)
+    if episodes is not None:
+        metrics.update(_episode_stats(g["ep_sum"], g["ep_cnt"]))
+    return metrics
+
+
+def make_update_fn(net: torch.nn.Module, optimizer: torch.optim.Optimizer, cfg: PPOConfig,
+                   mesh=None):
+    """The PPO update: ``update(traj, last_value, generator, episodes=None)
+    -> metrics``.
 
     GAE, then per epoch a fresh shuffle of the (T * B) buffer split into
     ``num_minibatches`` minibatches, one clipped gradient step each (SB3's
     update), on ``net``'s parameters through ``optimizer``.  Metrics are
     0-d tensors: each loss term the mean over an epoch's minibatches, of
     the last epoch; ``reward_per_step``; ``explained_variance`` of the
-    pre-update critic."""
+    pre-update critic; with ``episodes=(ep_sum, ep_cnt)`` (a rollout's
+    summed episode returns and count), ``episodes`` and ``ep_return_mean``.
+
+    With a ``mesh`` of W ranks, ``traj`` holds this rank's B envs, S / W of
+    the S shuffle blocks (S is W unless the config asks for more), and the
+    W ranks together compute the update of one process over the
+    concatenated buffer: the forward and backward run
+    under ``DistributedDataParallel``, which averages the gradients before
+    the clip, so every rank clips and steps alike; a minibatch's advantages
+    are normalised by the whole minibatch's mean and standard deviation
+    (two scalar all-reduces); the metrics are the whole batch's (one
+    all-reduce).  Each rank draws the whole (S, T * B * W / S) shuffle
+    matrix and keeps its own blocks' rows, so generators seeded alike give
+    the shuffle of one process."""
     params = [p for p in net.parameters()]
+    model = net if mesh is None else _ddp(net, mesh)
+    W, rank = (1, 0) if mesh is None else (mesh.world_size, mesh.rank)
+
+    def normalise(advantages):
+        """Per-minibatch advantage normalisation (SB3), population std."""
+        if mesh is None:
+            return (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+        # Every rank holds as many rows: the minibatch's mean is the mean of
+        # the ranks' means, its variance the mean of each rank's mean square
+        # deviation about that mean (one all-reduce each).  At world size 1
+        # both are the plain expression's bit for bit (sqrt(s * s) == s in
+        # binary floating point).
+        local_mean, local_std = advantages.mean(), advantages.std(correction=0)
+        mean = local_mean.clone()
+        dist.all_reduce(mean, group=mesh.group)
+        mean = mean / W
+        spread = local_std.square() + (local_mean - mean).square()
+        dist.all_reduce(spread, group=mesh.group)
+        return (advantages - mean) / (torch.sqrt(spread / W) + 1e-8)
 
     def loss_fn(obs, actions, old_logp, advantages, returns):
-        logits, value = net(obs)
+        logits, value = model(obs)
         lse = torch.logsumexp(logits, dim=-1)
         chosen = logits.gather(-1, actions[..., None].long())[..., 0]
         logp = (chosen - lse).sum(dim=-1)
         ratio = torch.exp(logp - old_logp)
-        # Per-minibatch advantage normalisation (SB3), population std.
-        adv = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+        adv = normalise(advantages)
         pg1 = ratio * adv
         pg2 = ratio.clamp(1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv
         pg_loss = -torch.minimum(pg1, pg2).mean()
@@ -186,18 +284,22 @@ def make_update_fn(net: torch.nn.Module, optimizer: torch.optim.Optimizer, cfg: 
             "clip_fraction": clip_fraction,
         }
 
-    def update(traj: Transition, last_value: torch.Tensor, generator: torch.Generator):
+    def update(traj: Transition, last_value: torch.Tensor, generator: torch.Generator,
+               episodes=None):
         with torch.no_grad():
             advantages, returns = compute_gae(traj, last_value, cfg)
         T, B = traj.reward.shape
-        S = cfg.shuffle_blocks or cfg.dp_shards
+        S = cfg.shuffle_blocks or math.lcm(cfg.dp_shards, W)
         if S % cfg.dp_shards:
             raise ValueError(
                 f"shuffle_blocks={S} must be a multiple of dp_shards={cfg.dp_shards}"
             )
-        if B % S:
-            raise ValueError(f"num_envs={B} not divisible by shuffle blocks={S}")
-        n_local = T * (B // S)
+        if S % W:
+            raise ValueError(f"shuffle_blocks={S} must be a multiple of the world size {W}")
+        S_local = S // W
+        if B % S_local:
+            raise ValueError(f"num_envs={B * W} not divisible by shuffle blocks={S}")
+        n_local = T * (B // S_local)
         if n_local % cfg.num_minibatches:
             raise ValueError(
                 f"rollout_len*num_envs/blocks={n_local} not divisible by "
@@ -207,20 +309,21 @@ def make_update_fn(net: torch.nn.Module, optimizer: torch.optim.Optimizer, cfg: 
         dev = traj.reward.device
 
         def blocks(x):
-            # (T, B, ...) -> (S, T*B/S, ...), env-major: each block holds
-            # whole envs.
+            # (T, B, ...) -> (S_local, T*B/S_local, ...), env-major: each
+            # block holds whole envs.
             x = x.movedim(1, 0)
-            return x.reshape((S, n_local) + x.shape[2:])
+            return x.reshape((S_local, n_local) + x.shape[2:])
 
         flat = [blocks(x) for x in (traj.obs, traj.actions, traj.logp, advantages, returns)]
-        rows = torch.arange(S, device=dev)[:, None]
+        rows = torch.arange(S_local, device=dev)[:, None]
+        mine = slice(rank * S_local, (rank + 1) * S_local)
         epoch_metrics = None
         for _ in range(cfg.num_epochs):
-            perm = torch.rand((S, n_local), generator=generator, device=dev).argsort(dim=1)
-            idxs = perm.reshape(S, cfg.num_minibatches, mb_local).transpose(0, 1)
+            perm = torch.rand((S, n_local), generator=generator, device=dev)[mine].argsort(dim=1)
+            idxs = perm.reshape(S_local, cfg.num_minibatches, mb_local).transpose(0, 1)
             per_mb = []
-            for idx in idxs:  # (S, mb_local): block s takes its own rows
-                mb = [x[rows, idx].reshape((S * mb_local,) + x.shape[2:]) for x in flat]
+            for idx in idxs:  # (S_local, mb_local): block s takes its own rows
+                mb = [x[rows, idx].reshape((S_local * mb_local,) + x.shape[2:]) for x in flat]
                 loss, metrics = loss_fn(*mb)
                 optimizer.zero_grad(set_to_none=True)
                 loss.backward()
@@ -228,18 +331,22 @@ def make_update_fn(net: torch.nn.Module, optimizer: torch.optim.Optimizer, cfg: 
                 optimizer.step()
                 per_mb.append(metrics)
             epoch_metrics = {k: torch.stack([m[k] for m in per_mb]).mean() for k in per_mb[0]}
+        if mesh is not None:
+            return _global_metrics(epoch_metrics, traj, returns, episodes, mesh)
         metrics = dict(epoch_metrics)
         metrics["reward_per_step"] = traj.reward.mean()
         ret_var = returns.var(correction=0)
         metrics["explained_variance"] = 1.0 - (returns - traj.value).var(correction=0) / (
             ret_var + 1e-8
         )
+        if episodes is not None:
+            metrics.update(_episode_stats(*episodes))
         return metrics
 
     return update
 
 
-def make_ppo(env, net: torch.nn.Module, cfg: PPOConfig):
+def make_ppo(env, net: torch.nn.Module, cfg: PPOConfig, mesh=None):
     """(init_fn, train_step) for a ``BatchedEnv`` and an actor-critic.
 
     - ``init_fn(seed) -> (optimizer, carry)``: re-initialises ``net`` (on
@@ -252,21 +359,35 @@ def make_ppo(env, net: torch.nn.Module, cfg: PPOConfig):
 
     Per-agent rewards (B, A) sum into a team reward; per-env rewards
     (CtF, Maze) are the team's.  Actions are reshaped to
-    ``env.actions_shape`` (Maze takes (B,), the net emits (B, 1))."""
+    ``env.actions_shape`` (Maze takes (B,), the net emits (B, 1)).
+
+    With a ``mesh`` (``parallel/mesh.py``) of W ranks, ``env`` describes
+    the whole batch and this rank steps ``num_envs / W`` of its envs
+    (``train_step.env``), reset from ``fold_in_axis`` of the env seed; the
+    net starts alike on every rank; ``generator`` should be the rank's own
+    (seeded from ``fold_in_axis``); the update is :func:`make_update_fn`'s
+    under the mesh, and the metrics are the whole batch's.  The rollout's
+    forwards call ``net`` itself, not the data-parallel wrapper, so they
+    issue no collective; ``train_step.rollout`` gives the rank's own
+    episode statistics."""
+    if mesh is not None:
+        env = local_batch(env, mesh)
     net.to(env.device)
     optimizer = make_optimizer(net, cfg)
     store_obs = make_obs_store(cfg)
-    update = make_update_fn(net, optimizer, cfg)
+    update = make_update_fn(net, optimizer, cfg, mesh)
     B, dev = env.num_envs, env.device
 
     def init_fn(seed: int):
         env_seed, net_seed = (int(s) for s in np.random.SeedSequence(seed).generate_state(2))
         net.reset_parameters(torch.Generator().manual_seed(net_seed))
         optimizer.state.clear()
-        states, _ = env.reset(env_seed)
+        states, _ = env.reset(env_seed if mesh is None else fold_in_axis(env_seed, mesh))
         return optimizer, RolloutCarry(states, torch.zeros((B,), dtype=torch.float32, device=dev))
 
-    def rollout(carry: RolloutCarry, generator: torch.Generator):
+    def collect(carry: RolloutCarry, generator: torch.Generator):
+        """The rollout: (carry, traj, last value, summed episode returns,
+        episode count)."""
         states, run_ret = carry
         ep_sum = torch.zeros((), dtype=torch.float32, device=dev)
         ep_cnt = torch.zeros((), dtype=torch.int32, device=dev)
@@ -302,20 +423,18 @@ def make_ppo(env, net: torch.nn.Module, cfg: PPOConfig):
             ))
             obs, logits, value = next_obs, logits_2[:B], value_2[:B]
         traj = Transition(*(torch.stack(xs) for xs in zip(*steps)))
-        ep_stats = {
-            "episodes": ep_cnt,
-            "ep_return_mean": ep_sum / ep_cnt.clamp(min=1),
-        }
-        return RolloutCarry(states, run_ret), traj, value, ep_stats
+        return RolloutCarry(states, run_ret), traj, value, ep_sum, ep_cnt
+
+    def rollout(carry: RolloutCarry, generator: torch.Generator):
+        carry, traj, last_value, ep_sum, ep_cnt = collect(carry, generator)
+        return carry, traj, last_value, _episode_stats(ep_sum, ep_cnt)
 
     def train_step(carry: RolloutCarry, generator: torch.Generator):
-        carry, traj, last_value, ep_stats = rollout(carry, generator)
-        metrics = update(traj, last_value, generator)
-        metrics.update(ep_stats)
-        return carry, metrics
+        carry, traj, last_value, ep_sum, ep_cnt = collect(carry, generator)
+        return carry, update(traj, last_value, generator, episodes=(ep_sum, ep_cnt))
 
     # Its two halves, for callers that time them apart:
     # rollout(carry, generator) -> (carry, traj, last_value, ep_stats) and
-    # update(traj, last_value, generator) -> metrics.
-    train_step.rollout, train_step.update = rollout, update
+    # update(traj, last_value, generator) -> metrics; and the batch it steps.
+    train_step.rollout, train_step.update, train_step.env = rollout, update, env
     return init_fn, train_step

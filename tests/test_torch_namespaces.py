@@ -1,6 +1,6 @@
 """The port's ``envs``, ``parallel`` and ``rl`` namespaces export the names
-of the JAX package's (``parallel`` without its mesh helpers and
-``sharded_rollout``, which belong to the multi-process runs), the adapter
+of the JAX package's (``parallel`` without the GSPMD sharding descriptions
+and tensor parallelism, which the port leaves out on purpose), the adapter
 classes resolve on first use, and importing the package still loads no
 gymnasium, matplotlib or JAX."""
 
@@ -10,11 +10,11 @@ import sys
 
 import pytest
 
-#: JAX's ``parallel`` names that the multi-process slice brings.
-MULTI_PROCESS = {"make_mesh", "batch_sharding", "batch_tree_shardings", "shard_batch_tree",
-                 "param_tp_shardings", "replicated", "distributed_initialize", "fold_in_axis",
-                 "sharded_rollout"}
-NAMESPACES = {"envs": set(), "parallel": MULTI_PROCESS, "rl": set()}
+#: JAX's ``parallel`` names the port does not have: GSPMD sharding
+#: descriptions, and tensor parallelism of the MLP, which one card holds
+#: whole (``parallel/mesh.py``).
+NOT_PORTED = {"batch_sharding", "batch_tree_shardings", "param_tp_shardings", "replicated"}
+NAMESPACES = {"envs": set(), "parallel": NOT_PORTED, "rl": set()}
 
 
 @pytest.mark.parametrize("namespace", sorted(NAMESPACES))
