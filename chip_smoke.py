@@ -164,15 +164,40 @@ without them.  Phases, each of which fails the run on any fault:
    is then destroyed.  Then ``scripts/multihost_dryrun.py`` with two gloo
    ranks both on cuda:0: exit 0, the parameters bit-equal across ranks
    after each train step (no rate: the ranks share the card).
+6. The worked example and the root scripts, each run counted.  First the
+   kernels of its largest paths against their plain versions at the
+   batch those paths give them: ``ctf_step`` at the 1M-env run's 2**20
+   rows, with that run's masked CtF reset there card == CPU, and each
+   K-step kernel and ``collect_reset`` at the sweeps' 65536.  Pursuit
+   (``examples/custom_env.py``): the batch step at B = 8192 on the card
+   bit-equal to the CPU for 50 steps from one state and action set, then
+   the example's ``main`` (256 envs, a 120-step random rollout, 60 PPO
+   iterations; no kernel of the port), finite losses, iterations/s.
+   ``train_mvn_ctf_rl`` at its defaults for 3 iterations, then resumed
+   for 1 (64 ``ctf_step`` an iteration, the metrics' step axis
+   continuing), and its greedy episode through the gymnasium-free per-env
+   functions (one ``ctf_step`` a frame, uint8 frames).  ``bench_ppo_scale
+   --profile`` at the JAX record's config, 2**20 CtF envs (16 ``ctf_step``
+   an iteration), finite losses, moved parameters, env-steps/s, the
+   rollout/update split, a profile, and the peak memory beside
+   ``reckon_ppo_peak``.  ``measure_train_step`` at its defaults (32
+   ``collect_step`` and ``collect_reset`` a step), then ``audit_comm``'s
+   audit of the same config at world size 1 under NCCL and the pod model
+   on the card's own measurement.  ``soak`` (6 windows) and
+   ``sweep_batch`` (B = 1024, 4096, 16384, 65536) on the four families'
+   episode paths, each call's K-step launches counted.
 
 Prints the timing lines, one JSON line of the render phase's readings,
-one JSON line of phase 5's readings, one JSON line of kernel records (with each kernel's launches in one
-evaluation call and in the four 200-step vector env runs), the card's
+one JSON line of phase 5's readings, one of phase 6's, one JSON line of
+kernel records (with each kernel's launches in one evaluation call, in
+the four 200-step vector env runs and on phase 6's paths, as counted
+there, and its max_abs_err at phase 6's largest batches), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import functools
@@ -302,6 +327,21 @@ from gym_multigrid_tpu_torch.render.tiles import (  # noqa: E402
     render_ctf_batch,
     render_maze_batch,
     render_wildfire_batch,
+)
+from gym_multigrid_tpu_torch.examples import custom_env  # noqa: E402
+from gym_multigrid_tpu_torch.scripts import (  # noqa: E402
+    audit_comm,
+    bench_ppo_scale,
+    measure_train_step,
+    soak,
+    sweep_batch,
+    train_mvn_ctf_rl,
+)
+from gym_multigrid_tpu_torch.scripts.bench_multichip import (  # noqa: E402
+    CHUNKS,
+    FAMILIES,
+    align_steps,
+    family_cfg,
 )
 from gym_multigrid_tpu_torch.scripts.evaluate import policy_frames  # noqa: E402
 from gym_multigrid_tpu_torch.scripts.multihost_dryrun import param_rel_err  # noqa: E402
@@ -623,10 +663,11 @@ def check_reset_kernel(cfg, seed, n=B):
     return err
 
 
-def check_collect_steps_kernel(cfg, name, seed, n=B, steps=2 * COLLECT_CHUNK):
+def check_collect_steps_kernel(cfg, name, seed, n=B, steps=2 * COLLECT_CHUNK,
+                               chunks=COLLECT_MS_CHUNKS):
     """``collect_ms_slab`` (the kernel entry ``collect_steps``) against
     ``ms_spec`` over ``steps`` steps from the batch reset, as launches of
-    each chunk size in ``COLLECT_MS_CHUNKS``, every launch compared: planes,
+    each chunk size in ``chunks``, every launch compared: planes,
     positions, reward sums and info counters bit for bit.  Action ids 0..3
     with -1, 4 and 7 mixed in.  At B = 8192 fails unless balls were picked
     up, and, where two agents' counters outrun a warp's 32 lanes, unless a
@@ -639,7 +680,7 @@ def check_collect_steps_kernel(cfg, name, seed, n=B, steps=2 * COLLECT_CHUNK):
     rnd = torch.rand((steps, n, 3), generator=gen, device=DEV)
     start = (s.grid_obj, s.grid_color, s.grid_slot, s.agent_pos.reshape(n, -1))
     err, cnt = 0.0, None
-    for chunk in COLLECT_MS_CHUNKS:
+    for chunk in chunks:
         cur, cnt = start, 0
         for k0 in range(0, steps, chunk):
             part = (acts[k0:k0 + chunk], rnd[k0:k0 + chunk])
@@ -651,7 +692,7 @@ def check_collect_steps_kernel(cfg, name, seed, n=B, steps=2 * COLLECT_CHUNK):
         check(picks > 0, f"{name}: no pickups")
         check(cnt.shape[1] <= 32 or past_lanes > 0, f"{name}: no counter past the 32nd")
     log(f"collect_steps kernel == ms_spec: {name}, {steps} steps at B={n} as launches of "
-        f"{', '.join(map(str, COLLECT_MS_CHUNKS))}: {picks} pickups ({past_lanes} counted past "
+        f"{', '.join(map(str, chunks))}: {picks} pickups ({past_lanes} counted past "
         f"the 32nd counter), max_abs_err {err}")
     return err
 
@@ -2571,6 +2612,368 @@ def run_multiprocess_phase():
     return sharded_counts, ddp_rel, dryrun
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the worked example and the root scripts
+# ---------------------------------------------------------------------------
+
+#: Pursuit rows held card against CPU, the steps they take, and the config.
+PURSUIT_ROWS, PURSUIT_STEPS = B, 50
+PURSUIT_CFG = custom_env.PursuitConfig(size=9, num_agents=3)
+#: The soak windows of this phase (the script's default is 30).
+SOAK_WINDOWS = 6
+#: The rows of the 1M-env PPO run and the sweeps' largest batch: phase 6
+#: holds the kernels of those paths to their plain versions there.
+PPO_ROWS, SWEEP_ROWS = 1 << 20, 65536
+#: The episode rollouts' K-step kernel of each family.
+EPISODE_KERNEL = {"collect": "collect_steps", "ctf": "ctf_steps", "maze": "maze_steps",
+                  "wildfire": "wf_steps_philox"}
+
+
+def episode_call_launches(family, steps):
+    """Launches of one ``steps``-step call of a family's episode rollout
+    from fresh states: one K-step launch a chunk (a chunk ends at an
+    episode's end for Collect) and, for Collect, one all-rows reset an
+    episode."""
+    chunk = CHUNKS[family]
+    if family == "collect":
+        eps = steps // MAIN.max_steps
+        return {"collect_steps": eps * -(-MAIN.max_steps // chunk), "collect_reset": eps}
+    return {EPISODE_KERNEL[family]: -(-steps // chunk)}
+
+
+def times_launches(per_call, calls, reset_family=None):
+    """``per_call`` launches times ``calls``, plus the Collect reset of a
+    ``reset(seed)`` when ``reset_family`` is Collect."""
+    total = {k: v * calls for k, v in per_call.items()}
+    if reset_family == "collect":
+        total["collect_reset"] = total.get("collect_reset", 0) + 1
+    return total
+
+
+def per_unit(counts, units, less=None, times=1):
+    """The launches by kernel that a run counted, ``less`` (by kernel)
+    taken off first, over the ``units`` (iterations, frames, calls) they
+    cover, times ``times``; whole numbers where they divide.  Kernels the
+    run did not launch are left out."""
+    out = {}
+    for name, n in counts.items():
+        q = (n - (less or {}).get(name, 0)) * times / units
+        if n:
+            out[name] = int(q) if q == int(q) else q
+    return out
+
+
+def check_pursuit():
+    """The worked example on the card.  First the batch step at
+    B = PURSUIT_ROWS on PURSUIT_CFG, card against CPU, from one state drawn
+    on the CPU and one pre-drawn (steps, B, A) action set: every field,
+    obs, reward and flag bit-equal for PURSUIT_STEPS chained steps.  Then
+    the example's ``main`` at its sizes (256 envs, a 120-step random
+    rollout, 60 PPO iterations), counted: no kernel of the port.  Returns
+    the readings."""
+    cfg, n, A = PURSUIT_CFG, PURSUIT_ROWS, PURSUIT_CFG.num_agents
+    gen = torch.Generator().manual_seed(600)
+    cpu_slab, card_slab = custom_env.make_pursuit(cfg, "cpu"), custom_env.make_pursuit(cfg, DEV)
+    s_cpu = custom_env.reset_batch(cpu_slab, n, generator=gen)
+    acts = torch.randint(0, custom_env.NUM_ACTIONS, (PURSUIT_STEPS, n, A), generator=gen,
+                         dtype=torch.int32)
+    s_card = type(s_cpu)(*(x.to(DEV) for x in state_fields(s_cpu)))
+    err, ended = 0.0, 0
+    for t in range(PURSUIT_STEPS):
+        want = custom_env.step_batch(cpu_slab, s_cpu, acts[t])
+        got = custom_env.step_batch(card_slab, s_card, acts[t].to(DEV))
+        err = max(err, card_equals_cpu(flat_step(got), flat_step(want)))
+        s_cpu, s_card = want[0], got[0]
+        ended += int((want[3] | want[4]).sum())
+    check(ended > 0, "no Pursuit episode ended")
+    log(f"Pursuit batch step, card == CPU: B={n}, size {cfg.size}, {A} pursuers, "
+        f"{PURSUIT_STEPS} steps, {ended} episode ends, max_abs_err {err}")
+    counts, res = run_counted(lambda: custom_env.main([]))
+    check_launches(counts, {}, "Pursuit example")
+    check(len(res["losses"]) == 60 and all(math.isfinite(x) for x in res["losses"]),
+          f"Pursuit PPO losses {res['losses']}")
+    check(res["device"] == str(DEV) and res["random_episodes"] > 0, f"Pursuit main {res}")
+    log(f"Pursuit main on {res['device']}: random policy {res['random_episodes']} episodes, "
+        f"mean return {res['random_return']}; PPO after 60 iterations {res['ppo_return']}, "
+        f"{res['ppo_iters_per_s']} iterations/s; losses {res['losses']}")
+    return {"step_max_abs_err": err, "random_return": res["random_return"],
+            "ppo_return": res["ppo_return"], "ppo_iters_per_s": res["ppo_iters_per_s"],
+            "losses_finite": True}
+
+
+def check_train_mvn_ctf_rl(out):
+    """``train_mvn_ctf_rl`` at its defaults (512 envs, rollout 64) for 3
+    iterations into ``out``, then resumed for 1 more, each run counted:
+    64 ``ctf_step`` launches an iteration and no other kernel; the metrics'
+    step axis continues across the resume.  Then the greedy episode
+    through the gymnasium-free core, counted: one ``ctf_step`` a frame
+    after the first, uint8 frames.  Returns the readings."""
+    from gym_multigrid_tpu_torch.utils.logging import read_metrics_csv
+
+    per_iter = train_mvn_ctf_rl.parse_args([]).rollout_len
+    walls, total = [], collections.Counter()
+    for iters in (3, 1):
+        args = train_mvn_ctf_rl.parse_args(["--iters", str(iters), "--out", out,
+                                            "--no-tensorboard"])
+        w0 = time.perf_counter()
+        counts, (cfg, net, metrics) = run_counted(lambda: train_mvn_ctf_rl.train(args))
+        walls.append(time.perf_counter() - w0)
+        check_launches(counts, {"ctf_step": per_iter * iters}, f"train_mvn_ctf_rl, {iters} iters")
+        total.update(counts)
+        check(all(math.isfinite(metrics[k]) for k in ("loss", "pg_loss", "v_loss", "entropy")),
+              f"train_mvn_ctf_rl losses {metrics}")
+    steps = read_metrics_csv(os.path.join(out, "logs", "metrics.csv"))["step"]
+    check(steps == [0.0, 1.0, 2.0, 3.0], f"train_mvn_ctf_rl step axis after the resume: {steps}")
+    g_counts, frames = run_counted(lambda: train_mvn_ctf_rl.greedy_episode_frames(cfg, net))
+    H, W = cfg.field_map.shape
+    check(all(f.dtype == np.uint8 and f.shape == (H * 32, W * 32, 3) for f in frames),
+          "greedy episode frames")
+    check_launches(g_counts, {"ctf_step": len(frames) - 1}, "greedy CtF episode")
+    log(f"train_mvn_ctf_rl: 3 iterations then 1 resumed, {per_iter} ctf_step launches an "
+        f"iteration, step axis {steps}; host wall {[round(w, 2) for w in walls]} s (resume and "
+        f"snapshot included); greedy episode {len(frames)} frames, {g_counts['ctf_step']} "
+        f"ctf_step launches")
+    return {"launches_an_iteration": per_unit(total, 3 + 1),
+            "launches_a_frame": per_unit(g_counts, len(frames) - 1),
+            "greedy_frames": len(frames), "host_wall_s": walls}
+
+
+def reckon_ppo_peak(n, T, L, A, hidden):
+    """Reckoned peak bytes of a ``make_ppo`` iteration over ``n`` envs with
+    an int8 obs buffer of L-wide obs, A agents and the MLP's ``hidden``
+    width (bf16): the larger of
+    - the last rollout step: T buffer rows of L + 4A + 24 bytes an env
+      (int8 obs, int32 actions, six float32 columns), three int32 obs of
+      the batch (this step's, the step's and the next), and the two-batch
+      forward's concatenated int32 input beside its largest pair of
+      temporaries (the bf16 input with its scaled copy, or the bf16 input
+      with a layer's product and its tanh);
+    - the stack of the buffer: two copies;
+    - the update: the buffer and its env-major blocks (obs, actions and
+      three float32 columns)."""
+    row = L + 4 * A + 24
+    buf = T * n * row
+    m = 2 * n
+    forward = 4 * m * L + max(2 * 2 * m * L, 2 * m * L + 2 * 2 * m * hidden)
+    last_step = buf + 3 * 4 * n * L + forward
+    stack = 2 * buf + 4 * n * L
+    update = buf + T * n * (L + 4 * A + 12)
+    return max(last_step, stack, update)
+
+
+def check_ppo_1m():
+    """``bench_ppo_scale`` at its defaults, the JAX record's config (2**20
+    CtF envs, rollout 16, 128 minibatches, 64 shuffle blocks, int8 obs
+    buffer) with ``--profile``, counted: 16 ``ctf_step`` launches an
+    iteration (one untimed, four timed, one timed as its rollout and update
+    apart, one profiled) and no other kernel; finite losses, moved
+    parameters; env-steps/s, the split, the profile's top kernels and idle
+    share, and the peak memory beside the reckoned peak."""
+    counts, rec = run_counted(lambda: bench_ppo_scale.main(["--profile"]))
+    iters = 1 + 4 + 2
+    check_launches(counts, {"ctf_step": rec["rollout_len"] * iters}, "1M-env PPO")
+    check(rec["finite"] and rec["param_max_change"] > 0, f"1M-env PPO {rec}")
+    env, cfg, _, _ = make_family_batch("ctf", 1, "cpu")
+    L = int(env.reset(0)[1].shape[1])
+    reckoned = reckon_ppo_peak(rec["envs"], rec["rollout_len"], L, cfg.num_blue_agents,
+                               TRAIN_HIDDEN[0])
+    log(f"1M-env PPO ({rec['envs']} envs, rollout {rec['rollout_len']}, "
+        f"{rec['num_minibatches']} minibatches, {rec['shuffle_blocks']} shuffle blocks, "
+        f"{rec['obs_buffer_dtype']} obs of {L}): {rec['env_steps_per_sec']} env-steps/s on "
+        f"{rec['card']}; peak memory {rec['peak_memory_bytes']} bytes, reckoned "
+        f"{reckoned}; losses {rec['losses']}; launches {counts}")
+    prof = rec["profile"]
+    log(f"1M-env PPO iteration: rollout {rec['split_s']['rollout']} s, update "
+        f"{rec['split_s']['update']} s (CUDA events); profiled iteration: wall "
+        f"{prof['wall_us']} us, device kernels {prof['device_us']} us, {prof['launches']} "
+        f"launches, idle share {prof['idle_share']}")
+    for key, dev_us, count in prof["kernels"]:
+        log(f"  {dev_us:12.1f} us  {count:6d}x  {key[:100]}")
+    return {"env_steps_per_sec": rec["env_steps_per_sec"], "split_s": rec["split_s"],
+            "idle_share": prof["idle_share"],
+            "peak_memory_bytes": rec["peak_memory_bytes"], "reckoned_peak_bytes": reckoned,
+            "losses": rec["losses"], "launches_an_iteration": per_unit(counts, iters)}
+
+
+def check_train_step_and_pod_model(out):
+    """``measure_train_step`` at its defaults into ``out``, counted (32
+    ``collect_step`` and 32 ``collect_reset`` a step, one untimed and five
+    timed, and the reset of ``init_fn``), then the audit of the same config at world size 1 under NCCL
+    (``audit_comm.audit``) and the pod model on the card's measurement and
+    the audited train step's bytes."""
+    counts, ts = run_counted(lambda: measure_train_step.main(["--out", out]))
+    steps = 1 + 5
+    per_step = ts["config"]["rollout_len"]
+    check_launches(counts, {"collect_step": per_step * steps,
+                            "collect_reset": per_step * steps + 1}, "measure_train_step")
+    check(ts["train_step_s"] > 0 and ts["backend"] != "cpu", f"train step measurement {ts}")
+    store = tempfile.mkdtemp(prefix="nccl_store_")
+    distributed_initialize(backend="nccl", init_method=f"file://{os.path.join(store, 'store')}",
+                           rank=0, world_size=1, device=DEV)
+    try:
+        cfg = ts["config"]
+        audited = audit_comm.audit(make_mesh(), cfg["per_device_envs"], cfg["rollout_len"],
+                                   cfg["num_minibatches"], cfg["num_epochs"])
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    nbytes = audited["train_step"]["bytes"]
+    model = audit_comm.pod_model(nbytes, cfg["per_device_envs"], cfg["rollout_len"],
+                                 audit_comm.read_measurement(out))
+    check(all(0 < v["efficiency_no_overlap"] <= 1 for k, v in model.items()
+              if k != "assumptions"), f"pod model {model}")
+    log(f"measure_train_step: {ts['train_step_s']} s a train step (best of "
+        f"{[round(t, 6) for t in ts['train_step_s_all']]}) at {ts['env_steps_per_train_step']} "
+        f"env-steps on {ts['backend']}; launches {counts}; audited train step "
+        f"{audited['train_step']['by_kind']}, {nbytes} bytes; pod model {json.dumps(model)}")
+    # Less the one reset of init_fn.
+    return {"train_step_s": ts["train_step_s"], "train_step_bytes": nbytes,
+            "launches_a_step": per_unit(counts, steps, less={"collect_reset": 1}),
+            "pod_model": {k: v["efficiency_no_overlap"] for k, v in model.items()
+                          if k != "assumptions"}}
+
+
+def check_soaks(out_dir):
+    """``soak`` on each family at SOAK_WINDOWS windows (its default window
+    of 400 steps and at least two seconds), counted: the episode kernels
+    of every call and nothing else.  Returns the readings and each
+    window's launches by kernel."""
+    readings, window_launches = {}, collections.Counter()
+    for family in FAMILIES:
+        out = os.path.join(out_dir, f"soak_{family}_torch.json")
+        counts, rec = run_counted(lambda: soak.main(
+            ["--family", family, "--windows", str(SOAK_WINDOWS), "--out", out]))
+        per_call = episode_call_launches(family, rec["steps_per_call"])
+        calls = 3 + SOAK_WINDOWS * rec["calls_per_window"]  # warm-up, two to size a window
+        check_launches(counts, times_launches(per_call, calls, family), f"{family} soak")
+        # Less the Collect reset of reset(seed), over the calls, times a
+        # window's calls.
+        window_launches.update(per_unit(counts, calls, less={"collect_reset": 1},
+                                        times=rec["calls_per_window"]))
+        readings[family] = {"agent_steps_per_sec": rec["agent_steps_per_sec"],
+                            "drift_pct": rec["drift_first_vs_last_third_pct"],
+                            "calls_per_window": rec["calls_per_window"]}
+        log(f"soak {family}: {rec['command']}; agent-steps/s {rec['agent_steps_per_sec']}; "
+            f"drift {rec['drift_first_vs_last_third_pct']}%; windows {rec['windows']}")
+    return readings, dict(window_launches)
+
+
+def check_sweeps():
+    """``sweep_batch`` on the four families at its default batches, steps
+    and reps, each point counted: the episode kernels of its calls (one
+    untimed, the timed reps) and nothing else.  Returns the rates by family
+    and batch, and a point's launches by kernel."""
+    rates, point_launches = {}, {}
+    for family in FAMILIES:
+        steps = align_steps(family, 200)
+        for batch in (1024, 4096, 16384, 65536):
+            counts, point = run_counted(lambda: sweep_batch.measure(family, batch, steps, 4, None))
+            per_call = episode_call_launches(family, steps)
+            want = times_launches(per_call, 1 + 4, family)
+            check_launches(counts, want, f"{family} sweep at {batch}")
+            check(point["agent_steps_per_sec"] > 0, f"sweep point {point}")
+            rates.setdefault(family, {})[batch] = point["agent_steps_per_sec"]
+            point_launches.update(per_unit(counts, 1))
+            log(json.dumps(point))
+    return rates, point_launches
+
+
+def check_masked_ctf_reset(cfg, name, seed, n):
+    """``ctf_slab.reset_batch`` under a done mask (plain PyTorch: the CtF
+    reset has no kernel) at ``n`` rows on the card against the same on the
+    CPU, from the same states, mask and uniforms: every field bit for bit.
+    On the CPU, the rows not done keep their state and the done rows take
+    the unmasked reset's."""
+    cpu, card = ctf_slab.make_ctf_slab(cfg, "cpu"), ctf_slab.make_ctf_slab(cfg, DEV)
+    gen = torch.Generator().manual_seed(seed)
+    A, (s0, s1) = cfg.num_agents, cfg.field_map.shape
+    states = CtfState(
+        torch.stack([torch.randint(0, s0, (n, A), generator=gen, dtype=torch.int32),
+                     torch.randint(0, s1, (n, A), generator=gen, dtype=torch.int32)], dim=2),
+        torch.randint(0, 4, (n, A), generator=gen, dtype=torch.int32),
+        torch.rand((n, A), generator=gen) < 0.1,
+        torch.rand((n, A), generator=gen) < 0.1,
+        torch.randint(0, cfg.max_steps, (n,), generator=gen, dtype=torch.int32),
+    )
+    done = torch.rand((n,), generator=gen) < 0.3
+    rnd = torch.rand((n, cpu.reset_draws), generator=gen)
+    want = ctf_slab.reset_batch(cpu, n, rnd=rnd, done=done, states=states)
+    fresh = ctf_slab.reset_batch(cpu, n, rnd=rnd)
+    for w, f, old in zip(*map(state_fields, (want, fresh, states))):
+        check(torch.equal(w[done], f[done]) and torch.equal(w[~done], old[~done]),
+              f"{name}: the masked CtF reset on the CPU")
+    got = ctf_slab.reset_batch(card, n, rnd=rnd.to(DEV), done=done.to(DEV),
+                               states=CtfState(*(x.to(DEV) for x in state_fields(states))))
+    err = card_equals_cpu(state_fields(got), state_fields(want))
+    log(f"masked CtF reset, card == CPU: {name} at B={n}, {int(done.sum())} rows reset, "
+        f"max_abs_err {err}")
+    return err
+
+
+def check_large_batches():
+    """The kernels of phase 6's largest paths against their plain versions
+    at the batch those paths give them.  ``ctf_step`` at the 1M-env PPO
+    run's PPO_ROWS on its config, 3 chained steps with done rows respawned,
+    and that run's masked CtF reset at the same rows, card against CPU.
+    At the sweeps' SWEEP_ROWS on their configs: each family's K-step
+    kernel as launches of its episode path's chunk (CtF and Wildfire with
+    max_steps cut to MS_CHECK_MAX_STEPS, so that every env resets within
+    the check), and the Collect reset, masked and not.  Returns
+    max_abs_err by (kernel, rows)."""
+    _, ppo_cfg, _, _ = make_family_batch("ctf", 1, "cpu")
+    cfgs = {family: family_cfg(family)[0] for family in FAMILIES}
+    ms_cut = {f: dataclasses.replace(cfgs[f], max_steps=MS_CHECK_MAX_STEPS)
+              for f in ("ctf", "wildfire")}
+    n = SWEEP_ROWS
+    return {
+        ("ctf_step", PPO_ROWS): check_ctf_step_kernel(ppo_cfg, "1M-env PPO config", 3, seed=610,
+                                                      n=PPO_ROWS),
+        ("ctf_masked_reset", PPO_ROWS): check_masked_ctf_reset(ppo_cfg, "1M-env PPO config",
+                                                               611, PPO_ROWS),
+        ("collect_steps", n): check_collect_steps_kernel(
+            cfgs["collect"], "sweep config", seed=612, n=n, chunks=(CHUNKS["collect"],)),
+        ("collect_reset", n): check_reset_kernel(cfgs["collect"], 613, n=n),
+        ("ctf_steps", n): check_ctf_steps_kernel(ms_cut["ctf"], "sweep config", 614, n=n,
+                                                 chunks=(CHUNKS["ctf"],)),
+        ("maze_steps", n): check_maze_steps_kernel(cfgs["maze"], "sweep config", 615, n=n,
+                                                   chunks=(CHUNKS["maze"],)),
+        ("wf_steps_philox", n): check_wf_philox_kernel(ms_cut["wildfire"], "sweep config", 616,
+                                                       n=n, chunks=(CHUNKS["wildfire"],)),
+    }
+
+
+def run_example_and_scripts_phase():
+    """Phase 6: the worked example and the root scripts on the card; the
+    scripts' files go to a temporary directory, removed at the end.
+    Returns (the phase's readings, the launches of its paths by kernel,
+    max_abs_err by (kernel, rows) at the paths' largest batches)."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase6_")
+    try:
+        large = check_large_batches()
+        pursuit = check_pursuit()
+        mvn = check_train_mvn_ctf_rl(os.path.join(tmp, "mvn"))
+        ppo_1m = check_ppo_1m()
+        train_step = check_train_step_and_pod_model(os.path.join(tmp, "train_step_time.json"))
+        soaks, soak_launches = check_soaks(tmp)
+        sweeps, sweep_launches = check_sweeps()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    readings = {"large_batch_max_abs_err": {f"{k}_b{rows}": e for (k, rows), e in large.items()},
+                "pursuit": pursuit, "train_mvn_ctf_rl": mvn, "ppo_1m": ppo_1m,
+                "measure_train_step": train_step, "soak": soaks, "sweep_batch": sweeps,
+                "seconds": time.perf_counter() - t0}
+    launches = {
+        "train_mvn_ctf_rl_iteration": mvn["launches_an_iteration"],
+        "greedy_episode_frame": mvn["launches_a_frame"],
+        "ppo_1m_iteration": ppo_1m["launches_an_iteration"],
+        "measure_train_step": train_step["launches_a_step"],
+        "soak_window": soak_launches,
+        "sweep_point": sweep_launches,
+    }
+    return readings, launches, large
+
+
 def main():
     # Phase 1: build.
     t0 = time.perf_counter()
@@ -3026,6 +3429,9 @@ def main():
     # Phase 5: multi-process runs.
     sharded_counts, ddp_rel, dryrun = run_multiprocess_phase()
 
+    # Phase 6: the worked example and the root scripts.
+    phase6, phase6_launches, phase6_errs = run_example_and_scripts_phase()
+
     record = {"kernels": [
         {"name": "collect_step", "route": "cuda",
          "source": "gym_multigrid_tpu_torch/csrc/collect_step.cu",
@@ -3109,6 +3515,11 @@ def main():
     for r in record["kernels"]:
         r["launches_evaluation_call"] = per_eval[r["name"]]
         r["launches_vector_env"] = per_vec[r["name"]]
+        for path, per_kernel in phase6_launches.items():
+            r[f"launches_{path}"] = per_kernel.get(r["name"], 0)
+        for (name, rows), e in phase6_errs.items():
+            if name == r["name"]:
+                r[f"max_abs_err_b{rows}"] = e
     log(f"per-env functions and host-policy path, card == CPU: max_abs_err {per_env_err}, "
         f"{host_err}; configs outside the kernels' envelope, card == CPU: {out_err}")
     log(json.dumps({"render": render_readings, "stacked_max_abs_err": stacked_err,
@@ -3116,6 +3527,7 @@ def main():
     log(json.dumps({"multiprocess": {"sharded_episode_launches": sharded_counts,
                                      "ddp_param_max_rel_err": ddp_rel,
                                      "two_gloo_ranks_on_one_card": dryrun}}))
+    log(json.dumps({"example_and_scripts": phase6}))
     log(json.dumps(record))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -6,6 +6,7 @@ Usage:
   python -m gym_multigrid_tpu_torch.scripts.audit_comm [--num-processes 2]
       [--device cpu|cuda] [--per-device-envs 64] [--rollout 32]
       [--minibatches 8] [--epochs 1] [--out out/comm_audit_torch.json]
+      [--train-step-time out/train_step_time_torch.json]
 
 Starts ``--num-processes`` ranks (``multihost_dryrun.launch``).  Each runs,
 under ``torch.profiler`` (``parallel/comm_audit.py`` ``audit_call``), one
@@ -18,6 +19,11 @@ should all-reduce only its packed scalar metrics, the train step only
 gradient buckets no larger than the parameters and scalars.  The inventory
 is dynamic: one entry a collective issued, so the train step's gradient
 all-reduces appear once a minibatch and epoch.
+
+The record also holds the pod efficiency model (:func:`pod_model`): the
+train step's all-reduce bytes over an H100 cluster's links against the
+train step's compute, as ``measure_train_step`` measured it on a card.
+Without that measurement the model is skipped.
 """
 
 from __future__ import annotations
@@ -27,12 +33,70 @@ import json
 import os
 import sys
 
+from gym_multigrid_tpu_torch.scripts.measure_train_step import (
+    DEFAULT_OUT as DEFAULT_TRAIN_STEP_TIME,
+)
 from gym_multigrid_tpu_torch.scripts.multihost_dryrun import (
     add_worker_flags,
     launch,
     report,
     start_worker,
 )
+
+
+#: The H100 platform's published link rates, the pod model's stated
+#: assumptions: NVLink 4 gives each GPU 900 GB/s, 450 GB/s each way, among
+#: the 8 GPUs of a node (DGX H100); between nodes each GPU has one 400 Gb/s
+#: InfiniBand NDR port, 50 GB/s each way.
+NVLINK_BYTES_PER_S = 4.5e11
+IB_BYTES_PER_S = 5.0e10
+#: (devices, link rate, label) of each modelled cluster: one node, two
+#: nodes and 32 nodes; a ring across nodes runs at the InfiniBand rate.
+POD_POINTS = ((8, NVLINK_BYTES_PER_S, "nvlink"), (16, IB_BYTES_PER_S, "ib_2nodes"),
+              (256, IB_BYTES_PER_S, "ib_32nodes"))
+
+
+def pod_model(train_step_bytes: int, per_device_envs: int, rollout: int,
+              measured: dict | None) -> dict:
+    """JAX's pod efficiency model (its ``scripts/audit_comm.py``) on the
+    H100 platform's links.  A ring all-reduce moves ``2 (n - 1) / n`` of
+    the train step's all-reduced bytes through each device's link, so at
+    ``n`` devices it takes ``2 (n - 1) / n * train_step_bytes / rate``;
+    with no overlap the efficiency is ``compute / (compute + all_reduce)``.
+    The compute is ``measured`` (``measure_train_step``'s record: its
+    ``train_step_s`` at ``env_steps_per_train_step``), scaled by env-steps
+    to ``per_device_envs * rollout``.  With no measurement the model is
+    skipped rather than derived from a wrong compute term."""
+    assumptions = {"nvlink_allreduce_bw_Bps": NVLINK_BYTES_PER_S,
+                   "infiniband_bw_Bps": IB_BYTES_PER_S}
+    if measured is None:
+        assumptions["compute_from"] = (
+            "NO MEASUREMENT — run python -m gym_multigrid_tpu_torch.scripts.measure_train_step "
+            "on the card first")
+        return {"assumptions": assumptions}
+    scale = rollout * per_device_envs / measured["env_steps_per_train_step"]
+    compute_s = measured["train_step_s"] * scale
+    assumptions["compute_from"] = (
+        f"measured full train step on {measured['backend']} ({measured['run_date']}): "
+        f"{measured['train_step_s']:.2e} s at {measured['env_steps_per_train_step']} "
+        "env-steps/step" + (f", scaled x{scale:.2f} to this config" if scale != 1 else ""))
+    model = {}
+    for n, rate, label in POD_POINTS:
+        ar = 2 * (n - 1) / n * train_step_bytes / rate
+        model[f"{label}_n{n}"] = {
+            "all_reduce_s": ar,
+            "compute_s_measured": compute_s,
+            "efficiency_no_overlap": compute_s / (compute_s + ar),
+        }
+    return dict(model, assumptions=assumptions)
+
+
+def read_measurement(path: str) -> dict | None:
+    """``measure_train_step``'s record at ``path``, or None without one."""
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
 
 
 def describe(ops) -> dict:
@@ -121,16 +185,23 @@ def main(argv=None) -> int:
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--timeout", type=float, default=300)
     p.add_argument("--out", default=os.path.join("out", "comm_audit_torch.json"))
+    p.add_argument("--train-step-time", default=DEFAULT_TRAIN_STEP_TIME,
+                   help="measure_train_step's record, the pod model's compute")
     add_worker_flags(p)
     args = p.parse_args(argv)
     if args.rank is not None:
         run_worker(args)
         return 0
+    from gym_multigrid_tpu_torch.scripts import out_path
+
+    args.out = out_path(args.out)
     records = launch([sys.executable, "-m", "gym_multigrid_tpu_torch.scripts.audit_comm",
                       "--device", args.device, "--per-device-envs", str(args.per_device_envs),
                       "--rollout", str(args.rollout), "--minibatches", str(args.minibatches),
                       "--epochs", str(args.epochs)], args.num_processes, args.timeout)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    records[0]["pod_model"] = pod_model(records[0]["train_step"]["bytes"], args.per_device_envs,
+                                        args.rollout, read_measurement(args.train_step_time))
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(records[0], f, indent=2)
         f.write("\n")

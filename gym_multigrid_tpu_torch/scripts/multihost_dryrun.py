@@ -283,7 +283,7 @@ def run_launcher(args) -> int:
         "train_seconds_per_process": [r["train_seconds"] for r in results],
     }
     if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        os.makedirs(os.path.dirname(args.out), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(record, f, indent=2)
             f.write("\n")
@@ -306,6 +306,10 @@ def main(argv=None) -> int:
     if args.rank is not None:
         run_worker(args)
         return 0
+    if args.out:
+        from gym_multigrid_tpu_torch.scripts import out_path
+
+        args.out = out_path(args.out)
     return run_launcher(args)
 
 

@@ -24,6 +24,7 @@ import os
 import subprocess
 import sys
 
+from gym_multigrid_tpu_torch.scripts import out_path
 from gym_multigrid_tpu_torch.scripts.bench_multichip import FAMILIES
 from gym_multigrid_tpu_torch.scripts.multihost_dryrun import REPO
 
@@ -50,10 +51,11 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=os.path.join("out", "sol_report_torch.json"))
     p.add_argument("--cpu", action="store_true")
     args = p.parse_args(argv)
+    args.out = out_path(args.out)
 
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    trace_root = os.path.join(os.path.dirname(os.path.abspath(args.out)), "sol_trace_torch")
+    trace_root = os.path.join(os.path.dirname(args.out), "sol_trace_torch")
     records = {}
     for family in args.families.split(","):
         cmd = [sys.executable, "-m", "gym_multigrid_tpu_torch.scripts.profile_rollout",
@@ -70,7 +72,7 @@ def main(argv=None) -> int:
         rec = json.loads(lines[-1])
         rec["binding_resource"] = binding_resource(rec)
         records[family] = rec
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"batch": args.batch, "path": "episode", "families": records}, f, indent=2)
         f.write("\n")

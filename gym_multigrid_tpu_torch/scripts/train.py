@@ -75,6 +75,9 @@ def main(argv=None) -> None:
     from gym_multigrid_tpu_torch.rl.networks import ActorCritic, ConvActorCritic
     from gym_multigrid_tpu_torch.rl.ppo import PPOConfig
     from gym_multigrid_tpu_torch.rl.trainer import train_loop
+    from gym_multigrid_tpu_torch.scripts import out_path
+
+    args.out = out_path(args.out)
 
     env, cfg, num_actions, policy_agents = make_family_batch(
         args.family,

@@ -61,6 +61,9 @@ def main(argv=None):
     p.add_argument("--cpu", action="store_true", help="run on the CPU, not the CUDA device")
     p.add_argument("--no-tensorboard", action="store_true")
     args = p.parse_args(argv)
+    from gym_multigrid_tpu_torch.scripts import out_path
+
+    args.out = out_path(args.out)
 
     import torch
 

@@ -14,12 +14,16 @@ Counterpart of ``gym_multigrid_tpu/utils/profiling.py``, on
   ``summarize_xplane``).
 * :func:`collective_events`: the collectives the block issued, which
   ``parallel/comm_audit.py`` reads.
+* :func:`timed` and :func:`card_label`: the seconds a block of device
+  work takes, and the card it ran on, for the measurement scripts.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
+import time
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -28,9 +32,9 @@ from torch.autograd import DeviceType
 
 from gym_multigrid_tpu_torch.utils.misc import tree_leaves
 
-__all__ = ["MEM_BYTES_PER_S", "Collective", "SolEstimate", "annotate", "collective_events",
-           "sol_report",
-           "state_nbytes", "summarize_profile", "trace"]
+__all__ = ["MEM_BYTES_PER_S", "Collective", "SolEstimate", "annotate", "card_label",
+           "collective_events", "sol_report", "state_nbytes", "summarize_profile", "timed",
+           "trace"]
 
 #: Peak memory rate of one card, bytes/s (NVIDIA's data sheet: the H100
 #: SXM's 3.35 TB/s of HBM3).
@@ -44,6 +48,48 @@ PORT_KERNELS = ("void collect::", "void ctf::", "maze::", "void wildfire::")
 #: Process-group backends whose collectives the profiler records as
 #: ``<backend>:<op>``.
 COLLECTIVE_BACKENDS = ("gloo", "nccl")
+
+
+def card_label(device) -> str:
+    """What a measurement ran on: ``"cpu"``, or the card's name and power
+    limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` prints them (the name alone, from torch,
+    where ``nvidia-smi`` cannot be run)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device.type
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        out = ""
+    return out or f"{torch.cuda.get_device_name(index)}, power limit not read"
+
+
+class Timed(NamedTuple):
+    result: object
+    seconds: float
+
+
+def timed(device, fn) -> Timed:
+    """``fn()`` and the seconds it took: on a card between two CUDA events
+    recorded around it, with one synchronise after it; on the CPU by the
+    host clock."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        result = fn()
+        return Timed(result, time.perf_counter() - t0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    result = fn()
+    end.record()
+    end.synchronize()
+    return Timed(result, start.elapsed_time(end) / 1e3)
 
 
 @contextlib.contextmanager
