@@ -186,13 +186,26 @@ without them.  Phases, each of which fails the run on any fault:
    on the card's own measurement.  ``soak`` (6 windows) and
    ``sweep_batch`` (B = 1024, 4096, 16384, 65536) on the four families'
    episode paths, each call's K-step launches counted.
+7. The bench entry points, each in processes of its own:
+   ``scripts/bench.py`` (Collect episode rollout, B = 8192, 500-step
+   calls), ``scripts/bench_all.py --all-paths`` (each family's episode
+   and step paths, a fresh process a family) and ``bench_all --families
+   ctf --partial-obs 7``.  Each must exit 0 and print its lines, each
+   with every key, three finite positive windows, the best of them as
+   its value, ``vs_baseline`` from the value, the card's name and power
+   limit as ``device``, and the launches a call that its path must make
+   (a 500-step Collect episode call 20 ``collect_steps`` and 10
+   ``collect_reset``; CtF 8 ``ctf_steps``, Maze 10 ``maze_steps``,
+   Wildfire 17 ``wf_steps_philox``; a step-path call its step kernel once
+   a step, and Collect's masked reset once a step).
 
 Prints the timing lines, one JSON line of the render phase's readings,
-one JSON line of phase 5's readings, one of phase 6's, one JSON line of
-kernel records (with each kernel's launches in one evaluation call, in
-the four 200-step vector env runs and on phase 6's paths, as counted
-there, and its max_abs_err at phase 6's largest batches), the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``.
+one JSON line of phase 5's readings, one of phase 6's, one of phase 7's,
+one JSON line of kernel records (with each kernel's launches in one
+evaluation call, in the four 200-step vector env runs, on phase 6's
+paths and in a call of each bench line, as counted there, and its
+max_abs_err at phase 6's largest batches), the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -205,6 +218,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -337,11 +351,14 @@ from gym_multigrid_tpu_torch.scripts import (  # noqa: E402
     sweep_batch,
     train_mvn_ctf_rl,
 )
-from gym_multigrid_tpu_torch.scripts.bench_multichip import (  # noqa: E402
+from gym_multigrid_tpu_torch.scripts.bench_all import (  # noqa: E402
+    BASELINES,
     CHUNKS,
     FAMILIES,
+    MS_STEPS,
     align_steps,
     family_cfg,
+    kernel_wrappers,
 )
 from gym_multigrid_tpu_torch.scripts.evaluate import policy_frames  # noqa: E402
 from gym_multigrid_tpu_torch.scripts.multihost_dryrun import param_rel_err  # noqa: E402
@@ -1585,10 +1602,7 @@ def bound(nbytes, ops):
 
 
 #: Each kernel's wrapper, whose ``launches`` counts its launches.
-WRAPPERS = {"collect_step": collect_step_slab, "collect_reset": collect_reset_slab,
-            "ctf_step": ctf_step_slab, "ctf_steps": ctf_ms_slab, "maze_step": maze_step_slab,
-            "maze_steps": maze_ms_slab, "wildfire_step": wildfire_step_slab,
-            "wf_steps_philox": wf_philox_slab, "collect_steps": collect_ms_slab}
+WRAPPERS = kernel_wrappers()
 
 
 def run_counted(drive):
@@ -2974,6 +2988,119 @@ def run_example_and_scripts_phase():
     return readings, launches, large
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 7: the bench entry points
+# ---------------------------------------------------------------------------
+
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "device", "windows",
+              "kernel_launches_per_call"}
+
+
+def bench_call_launches(family, path, steps):
+    """Launches of one ``steps``-step call of a bench path: the episode
+    path's as ``episode_call_launches`` (Collect: two ``collect_steps`` and
+    one all-rows ``collect_reset`` a 50-step episode); the step path's
+    step kernel once a step and, for Collect, the masked reset once a
+    step."""
+    if path == "episode":
+        return episode_call_launches(family, steps)
+    want = {VEC_FAMILIES[family][0]: steps}
+    if family == "collect":
+        want["collect_reset"] = steps
+    return want
+
+
+def run_bench(args, timeout):
+    """``python -m gym_multigrid_tpu_torch.scripts.<args>`` from the
+    checkout: it must exit 0 and print only JSON lines on stdout.  Returns
+    the lines and the process's wall seconds."""
+    t0 = time.perf_counter()
+    # A process group of its own, so that a timeout also stops bench_all's
+    # family processes.
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"gym_multigrid_tpu_torch.scripts.{args[0]}", *args[1:]],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True,
+        cwd=Path(__file__).resolve().parent,
+    )
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    seconds = time.perf_counter() - t0
+    what = " ".join(args)
+    check(proc.returncode == 0,
+          f"{what}: exit {proc.returncode}\n{stdout[-3000:]}\n{stderr[-3000:]}")
+    out = stdout.strip().splitlines()
+    check(all(ln.startswith("{") for ln in out), f"{what}: stdout not all JSON lines: {out}")
+    log(f"{what}: {seconds:.1f} s, {len(out)} lines")
+    return [json.loads(ln) for ln in out], seconds
+
+
+def check_bench_line(rec, metric, baseline, want, card):
+    """One bench line: every key, finite positive value and windows, the
+    value the best window, vs_baseline from the value, the card named with
+    its power limit, and the path's launches a call."""
+    check(set(rec) == BENCH_KEYS, f"{metric}: keys {sorted(rec)}")
+    windows = rec["windows"]
+    check(len(windows) == 3 and all(math.isfinite(w) and w > 0 for w in windows),
+          f"{metric}: windows {windows}")
+    check(rec["metric"] == metric and rec["unit"] == "agent-steps/s", f"{metric}: {rec}")
+    check(math.isfinite(rec["value"]) and rec["value"] > 0
+          and rec["value"] == round(max(windows), 1), f"{metric}: value {rec['value']}")
+    check(rec["vs_baseline"] == round(rec["value"] / baseline, 2),
+          f"{metric}: vs_baseline {rec['vs_baseline']}")
+    check(rec["device"] == card, f"{metric}: device {rec['device']!r}, the card is {card!r}")
+    check(rec["kernel_launches_per_call"] == want,
+          f"{metric}: launches a call {rec['kernel_launches_per_call']}, expected {want}")
+    log(json.dumps(rec))
+
+
+def run_bench_phase():
+    """Phase 7: ``bench``, ``bench_all --all-paths`` (each family in its
+    own process) and ``bench_all --families ctf --partial-obs VIEW``, each
+    a process of its own, every line checked.  Returns (each line's value
+    and windows by label, the launches a call by kernel and label, the
+    phase's seconds)."""
+    t0 = time.perf_counter()
+    card = profiling.card_label(DEV)
+    readings, launches = {}, collections.defaultdict(dict)
+
+    def expect(label, rec, metric, family, path, steps):
+        want = bench_call_launches(family, path, steps)
+        check_bench_line(rec, metric, BASELINES[family], want, card)
+        readings[label] = {"value": rec["value"], "windows": rec["windows"]}
+        for name, n in rec["kernel_launches_per_call"].items():
+            launches[name][label] = n
+
+    lines, seconds = run_bench(["bench"], timeout=300)
+    check(len(lines) == 1, f"bench printed {len(lines)} lines, not one")
+    expect("bench", lines[0], f"agent-steps/sec/chip (Collect, batch {B})", "collect",
+           "episode", STEPS_PER_CALL)
+    readings["bench_seconds"] = seconds
+    lines, seconds = run_bench(["bench_all", "--all-paths"], timeout=900)
+    by_metric = {rec["metric"]: rec for rec in lines}
+    check(len(by_metric) == len(lines) == 2 * len(FAMILIES), f"bench_all lines {lines}")
+    for family in FAMILIES:
+        for path in ("episode", "step"):
+            metric = f"agent-steps/sec/chip ({family}, batch {B}, {path}, cuda)"
+            check(metric in by_metric, f"bench_all: no line {metric!r}")
+            expect(f"{family} {path}", by_metric[metric], metric, family, path,
+                   MS_STEPS[family])
+    readings["bench_all_seconds"] = seconds
+    lines, seconds = run_bench(["bench_all", "--families", "ctf", "--partial-obs", str(VIEW)],
+                               timeout=300)
+    check(len(lines) == 1, f"bench_all --partial-obs printed {len(lines)} lines, not one")
+    expect(f"ctf step pov{VIEW}", lines[0],
+           f"agent-steps/sec/chip (ctf, batch {B}, step, pov{VIEW}, cuda)", "ctf", "step",
+           MS_STEPS["ctf"])
+    readings["bench_all_pov_seconds"] = seconds
+    seconds = time.perf_counter() - t0
+    log(f"phase 7 (the bench entry points): {seconds:.1f} s")
+    return readings, dict(launches), seconds
+
 def main():
     # Phase 1: build.
     t0 = time.perf_counter()
@@ -3432,6 +3559,9 @@ def main():
     # Phase 6: the worked example and the root scripts.
     phase6, phase6_launches, phase6_errs = run_example_and_scripts_phase()
 
+    # Phase 7: the bench entry points, each in processes of its own.
+    bench_readings, bench_launches, bench_s = run_bench_phase()
+
     record = {"kernels": [
         {"name": "collect_step", "route": "cuda",
          "source": "gym_multigrid_tpu_torch/csrc/collect_step.cu",
@@ -3520,6 +3650,7 @@ def main():
         for (name, rows), e in phase6_errs.items():
             if name == r["name"]:
                 r[f"max_abs_err_b{rows}"] = e
+        r["launches_bench_call"] = bench_launches.get(r["name"], {})
     log(f"per-env functions and host-policy path, card == CPU: max_abs_err {per_env_err}, "
         f"{host_err}; configs outside the kernels' envelope, card == CPU: {out_err}")
     log(json.dumps({"render": render_readings, "stacked_max_abs_err": stacked_err,
@@ -3528,6 +3659,7 @@ def main():
                                      "ddp_param_max_rel_err": ddp_rel,
                                      "two_gloo_ranks_on_one_card": dryrun}}))
     log(json.dumps({"example_and_scripts": phase6}))
+    log(json.dumps({"bench": bench_readings, "seconds": bench_s}))
     log(json.dumps(record))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,7 +1,8 @@
 """Command-line entry points of the port: ``python -m
 gym_multigrid_tpu_torch.scripts.<name>`` with ``train``, ``evaluate``,
 ``train_selfplay``, ``league_matrix``, the CtF MvN trainer
-``train_mvn_ctf_rl``, the multi-process runs ``multihost_dryrun``,
+``train_mvn_ctf_rl``, the benchmark harnesses ``bench`` and ``bench_all``,
+the multi-process runs ``multihost_dryrun``,
 ``bench_multichip`` and ``audit_comm``, the profiling scripts
 ``profile_rollout`` and ``sol_record``, the measurements
 ``bench_ppo_scale``, ``measure_train_step``, ``soak`` and ``sweep_batch``,

@@ -8,8 +8,8 @@ Usage:
 
 Each point of W starts W processes (``multihost_dryrun.launch``), one rank
 each, every rank with ``--per-device-envs`` envs of the family's benchmark
-config (the configs of JAX's ``bench_all.py``), and times ``--reps`` calls
-of the path after one untimed call:
+config (``bench_all.family_cfg``, the configs of JAX's ``bench_all.py``),
+and times ``--reps`` calls of the path after one untimed call:
 
 - ``episode``: the family's episode rollout under
   ``sharded_episode_rollout`` (the K-step kernels on the card);
@@ -38,56 +38,22 @@ import os
 import sys
 import time
 
+from gym_multigrid_tpu_torch.scripts.bench_all import (
+    CHUNKS,
+    FAMILIES,
+    align_steps,
+    family_cfg,
+)
 from gym_multigrid_tpu_torch.scripts.multihost_dryrun import (
-    REPO,
     add_worker_flags,
     launch,
     report,
     start_worker,
 )
 
-FAMILIES = ("collect", "ctf", "maze", "wildfire")
 PATHS = ("episode", "step", "ppo-train")
-#: Steps a K-step launch of each family's episode rollout.
-CHUNKS = {"collect": 25, "ctf": 50, "maze": 100, "wildfire": 24}
 #: Weak-scaling target of the JAX package's BASELINE.md.
 TARGET = 0.90
-
-
-def family_cfg(family: str):
-    """(config, make_*_batch, make_*_episode_rollout, agents an env): the
-    benchmark config of each family, as JAX's ``bench_all._family_cfg``."""
-    from gym_multigrid_tpu_torch.envs.collect import CollectConfig
-    from gym_multigrid_tpu_torch.envs.maze import MazeConfig
-    from gym_multigrid_tpu_torch.envs.wildfire import WildfireConfig
-    from gym_multigrid_tpu_torch.ops import collect_slab, ctf_slab, maze_slab, wildfire_slab
-    from gym_multigrid_tpu_torch.parallel import vector
-    from gym_multigrid_tpu_torch.rl.families import make_ctf_cfg
-
-    if family == "collect":
-        cfg = CollectConfig(layout="quadrants_respawn", respawn=True, max_steps=50)
-        return (cfg, vector.make_collect_batch, collect_slab.make_collect_episode_rollout,
-                cfg.num_agents)
-    if family == "ctf":
-        cfg = make_ctf_cfg(opponents=("fight", "rw"))
-        return cfg, vector.make_ctf_batch, ctf_slab.make_ctf_episode_rollout, cfg.num_agents
-    if family == "maze":
-        cfg = MazeConfig.from_map_path(os.path.join(REPO, "tests/assets/board_maze.txt"),
-                                       max_steps=100)
-        return cfg, vector.make_maze_batch, maze_slab.make_maze_episode_rollout, 1
-    if family == "wildfire":
-        cfg = WildfireConfig(size=16, max_steps=100)
-        return (cfg, vector.make_wildfire_batch, wildfire_slab.make_wildfire_episode_rollout,
-                cfg.num_agents)
-    raise ValueError(f"unknown family {family!r}; expected one of {FAMILIES}")
-
-
-def align_steps(family: str, steps: int) -> int:
-    """Collect's episode rollout runs whole lockstep episodes: a multiple
-    of its 50 steps."""
-    if family != "collect":
-        return steps
-    return max(50, steps // 50 * 50)
 
 
 def synchronize(device) -> None:

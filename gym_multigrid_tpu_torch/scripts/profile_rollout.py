@@ -9,7 +9,7 @@ Usage:
 
 Paths: ``episode``, the family's episode rollout (one K-step kernel launch
 a chunk on the card), and ``step``, its ``BatchedEnv`` (a step kernel
-launch a step); configs and chunks as ``bench_multichip.py``'s.  Prints
+launch a step); configs and chunks as ``bench_all.py``'s.  Prints
 agent-steps/s and the fraction of the designed-traffic ceiling: the bytes
 the design must move an env step are the state read and written once (once
 a chunk on the episode path) plus the stream of pre-drawn actions and
@@ -33,7 +33,7 @@ import json
 import sys
 import time
 
-from gym_multigrid_tpu_torch.scripts.bench_multichip import CHUNKS, align_steps, family_cfg
+from gym_multigrid_tpu_torch.scripts.bench_all import CHUNKS, align_steps, family_cfg
 
 #: The card whose memory rate sets the ceiling.
 CHIP = "h100-sxm"

@@ -6,7 +6,7 @@ Usage:
       [--windows 30] [--window-steps 400] [--cpu] [--out out/soak_<family>_torch.json]
 
 Runs the family's episode rollout (the benchmark config, chunk and step
-alignment of ``scripts/bench_multichip.py``; on the card one K-step kernel
+alignment of ``scripts/bench_all.py``; on the card one K-step kernel
 launch a chunk) for ``--windows`` consecutive windows.  Each window chains
 as many calls of ``--window-steps`` steps as two calls before the
 windows say fill ``WINDOW_SECONDS``, between two CUDA events with one
@@ -26,27 +26,10 @@ import datetime
 import json
 import os
 
+from gym_multigrid_tpu_torch.scripts.bench_all import align_steps, chained_calls, episode_rollout
+
 #: Seconds of work a window holds, judged from two calls before the windows.
 WINDOW_SECONDS = 2.0
-
-def episode_rollout(family: str, batch: int, device):
-    """(rollout, agents an env): the family's episode rollout at ``batch``
-    envs, with its benchmark config and chunk."""
-    from gym_multigrid_tpu_torch.scripts.bench_multichip import CHUNKS, family_cfg
-
-    cfg, _, make_episode, agents = family_cfg(family)
-    roll = make_episode(cfg, batch, device=device, chunk=CHUNKS[family])
-    if roll is None:
-        raise ValueError(f"{family} has no episode rollout for its benchmark config")
-    return roll, agents
-
-
-def chained_calls(roll, states, steps: int, calls: int):
-    """``calls`` consecutive rollout calls of ``steps`` steps; returns the
-    states and the last call's metrics."""
-    for _ in range(calls):
-        states, metrics = roll(states, steps)
-    return states, metrics
 
 
 def main(argv=None) -> dict:
@@ -60,7 +43,6 @@ def main(argv=None) -> dict:
     args = p.parse_args(argv)
 
     from gym_multigrid_tpu_torch.scripts import out_path
-    from gym_multigrid_tpu_torch.scripts.bench_multichip import align_steps
     from gym_multigrid_tpu_torch.utils.profiling import card_label, timed
 
     out = out_path(args.out or os.path.join("out", f"soak_{args.family}_torch.json"))

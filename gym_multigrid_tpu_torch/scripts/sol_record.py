@@ -25,7 +25,7 @@ import subprocess
 import sys
 
 from gym_multigrid_tpu_torch.scripts import out_path
-from gym_multigrid_tpu_torch.scripts.bench_multichip import FAMILIES
+from gym_multigrid_tpu_torch.scripts.bench_all import FAMILIES
 from gym_multigrid_tpu_torch.scripts.multihost_dryrun import REPO
 
 

@@ -6,7 +6,7 @@ Usage:
       [--batches 1024,4096,16384,65536] [--steps 200] [--reps 4] [--cpu]
 
 Measures agent-steps/s as the batch grows, for each family's episode
-rollout (the benchmark config and chunk of ``scripts/bench_multichip.py``;
+rollout (the benchmark config and chunk of ``scripts/bench_all.py``;
 on the card one K-step kernel launch a chunk, the port's counterpart of
 JAX's ``xla-ms`` path).  Each (family, batch) runs one untimed call of
 ``--steps`` steps (Collect's aligned to whole episodes), then ``--reps``
@@ -26,7 +26,7 @@ import sys
 
 def measure(family: str, batch: int, steps: int, reps: int, device) -> dict:
     """One point of the sweep: ``reps`` timed calls after one untimed."""
-    from gym_multigrid_tpu_torch.scripts.soak import chained_calls, episode_rollout
+    from gym_multigrid_tpu_torch.scripts.bench_all import chained_calls, episode_rollout
     from gym_multigrid_tpu_torch.utils.profiling import card_label, timed
 
     roll, agents = episode_rollout(family, batch, device)
@@ -52,7 +52,7 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--cpu", action="store_true", help="run on the CPU, not the CUDA device")
     args = p.parse_args(argv)
 
-    from gym_multigrid_tpu_torch.scripts.bench_multichip import align_steps
+    from gym_multigrid_tpu_torch.scripts.bench_all import align_steps
 
     points = []
     for family in args.families.split(","):
