@@ -183,7 +183,7 @@ without them.  Phases, each of which fails the run on any fault:
    ``reckon_ppo_peak``.  ``measure_train_step`` at its defaults (32
    ``collect_step`` and ``collect_reset`` a step), then ``audit_comm``'s
    audit of the same config at world size 1 under NCCL and the pod model
-   on the card's own measurement.  ``soak`` (6 windows) and
+   on the card's own measurement.  ``soak`` (4 windows) and
    ``sweep_batch`` (B = 1024, 4096, 16384, 65536) on the four families'
    episode paths, each call's K-step launches counted.
 7. The bench entry points, each in processes of its own:
@@ -198,14 +198,26 @@ without them.  Phases, each of which fails the run on any fault:
    ``collect_reset``; CtF 8 ``ctf_steps``, Maze 10 ``maze_steps``,
    Wildfire 17 ``wf_steps_philox``; a step-path call its step kernel once
    a step, and Collect's masked reset once a step).
+8. The learner's roofline: ``scripts/profile_ppo.py`` at ``sol_record``'s
+   ``bench_scale`` point (8192 CtF envs, rollout 32, 8 minibatches) in
+   this process with a trace, counted (32 ``ctf_step`` launches a train
+   step over one untimed, four timed and one traced step, no other
+   kernel), then ``sol_record --families ctf`` as a process, which must
+   exit 0 and write both PPO points (``bench_scale`` and ``record_1m``,
+   2**20 envs).  Each record's model and executed FLOPs must equal the
+   closed forms computed here from the net's parameters, its share of
+   the dense bf16 peak lie in (0, 1], its device be the card's name and
+   power limit, its profile be the card's with class shares summing to 1,
+   and its binding resource be named.
 
 Prints the timing lines, one JSON line of the render phase's readings,
 one JSON line of phase 5's readings, one of phase 6's, one of phase 7's,
-one JSON line of kernel records (with each kernel's launches in one
-evaluation call, in the four 200-step vector env runs, on phase 6's
-paths and in a call of each bench line, as counted there, and its
-max_abs_err at phase 6's largest batches), the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.
+one of phase 8's, one JSON line of kernel records (with each kernel's
+launches in one evaluation call, in the four 200-step vector env runs, on
+phase 6's paths, in a call of each bench line and, for ``ctf_step``, in
+phase 8's ``profile_ppo`` run, as counted there, and its max_abs_err at
+phase 6's largest batches), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -347,7 +359,9 @@ from gym_multigrid_tpu_torch.scripts import (  # noqa: E402
     audit_comm,
     bench_ppo_scale,
     measure_train_step,
+    profile_ppo,
     soak,
+    sol_record,
     sweep_batch,
     train_mvn_ctf_rl,
 )
@@ -2634,7 +2648,7 @@ def run_multiprocess_phase():
 PURSUIT_ROWS, PURSUIT_STEPS = B, 50
 PURSUIT_CFG = custom_env.PursuitConfig(size=9, num_agents=3)
 #: The soak windows of this phase (the script's default is 30).
-SOAK_WINDOWS = 6
+SOAK_WINDOWS = 4
 #: The rows of the 1M-env PPO run and the sweeps' largest batch: phase 6
 #: holds the kernels of those paths to their plain versions there.
 PPO_ROWS, SWEEP_ROWS = 1 << 20, 65536
@@ -3011,10 +3025,9 @@ def bench_call_launches(family, path, steps):
     return want
 
 
-def run_bench(args, timeout):
+def run_script(args, timeout):
     """``python -m gym_multigrid_tpu_torch.scripts.<args>`` from the
-    checkout: it must exit 0 and print only JSON lines on stdout.  Returns
-    the lines and the process's wall seconds."""
+    checkout: it must exit 0.  Returns its stdout and wall seconds."""
     t0 = time.perf_counter()
     # A process group of its own, so that a timeout also stops bench_all's
     # family processes.
@@ -3033,9 +3046,18 @@ def run_bench(args, timeout):
     what = " ".join(args)
     check(proc.returncode == 0,
           f"{what}: exit {proc.returncode}\n{stdout[-3000:]}\n{stderr[-3000:]}")
+    log(f"{what}: {seconds:.1f} s")
+    return stdout, seconds
+
+
+def run_bench(args, timeout):
+    """``run_script``, whose stdout must be JSON lines only.  Returns the
+    lines and the process's wall seconds."""
+    stdout, seconds = run_script(args, timeout)
     out = stdout.strip().splitlines()
-    check(all(ln.startswith("{") for ln in out), f"{what}: stdout not all JSON lines: {out}")
-    log(f"{what}: {seconds:.1f} s, {len(out)} lines")
+    check(all(ln.startswith("{") for ln in out),
+          f"{' '.join(args)}: stdout not all JSON lines: {out}")
+    log(f"{' '.join(args)}: {len(out)} lines")
     return [json.loads(ln) for ln in out], seconds
 
 
@@ -3100,6 +3122,105 @@ def run_bench_phase():
     seconds = time.perf_counter() - t0
     log(f"phase 7 (the bench entry points): {seconds:.1f} s")
     return readings, dict(launches), seconds
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the learner's roofline
+# ---------------------------------------------------------------------------
+
+#: Train steps of one ``profile_ppo`` run: one untimed, ``--iters`` (4)
+#: timed and one traced.
+PROFILE_PPO_STEPS = 1 + 4 + 1
+
+
+def closed_form_flops(rec):
+    """(model, executed) FLOPs of a CtF train step at ``rec``'s envs B and
+    rollout length T, from a full-width net's own parameters: a sample's
+    forward is ``2 * sum(weight.numel())`` over its dense layers; at E
+    epochs (``PPOConfig``'s default) JAX's count is ``B (1 + T + 3TE)``
+    forwards, the port's executed count ``B (1 + 2T + 3TE)``."""
+    env, _, n_actions, agents = make_family_batch("ctf", 1, "cpu")
+    net = full_width_net(env, n_actions, agents)
+    fwd = 2 * sum(p.numel() for name, p in net.named_parameters() if name.endswith("weight"))
+    B, T, E = rec["envs"], rec["rollout_len"], PPOConfig().num_epochs
+    return B * (1 + T + 3 * T * E) * fwd, B * (1 + 2 * T + 3 * T * E) * fwd
+
+
+def check_roofline(rec, what, card):
+    """One ``profile_ppo`` record: both FLOP counts equal their closed
+    forms, a model rate and a share of the dense bf16 peak in (0, 1], the
+    card named with its power limit, a device profile whose classes' shares
+    sum to 1, a binding resource.  Logs it; returns its readings."""
+    model, executed = closed_form_flops(rec)
+    check(rec["model_flops_per_train_step"] == model,
+          f"{what}: model FLOPs {rec['model_flops_per_train_step']}, closed form {model}")
+    check(rec["executed_model_flops_per_train_step"] == executed,
+          f"{what}: executed FLOPs {rec['executed_model_flops_per_train_step']}, closed form "
+          f"{executed}")
+    mfu, tflops = rec["mfu_vs_bf16_dense_peak"], rec["achieved_model_tflops_per_s"]
+    check(mfu is not None and 0 < mfu <= 1 and math.isfinite(tflops) and tflops > 0,
+          f"{what}: {tflops} TFLOP/s, share {mfu}")
+    check(rec["device"] == card, f"{what}: device {rec['device']!r}, the card is {card!r}")
+    prof = rec["observed_profile"]
+    check(prof["device"] == "cuda" and abs(sum(prof["by_class"].values()) - 1) <= 1e-6,
+          f"{what}: profile {prof['device']}, by_class {prof.get('by_class')}")
+    check(isinstance(rec["binding_resource"], str) and rec["binding_resource"] != "",
+          f"{what}: binding resource {rec['binding_resource']!r}")
+    log(f"{what} ({rec['envs']} envs, rollout {rec['rollout_len']}, {rec['num_minibatches']} "
+        f"minibatches, shuffle blocks {rec['shuffle_blocks']}) on {rec['device']}: "
+        f"{rec['train_step_s']} s a train step, {rec['env_steps_per_s']} env-steps/s; model "
+        f"{rec['model_flops_per_train_step']} FLOPs (executed "
+        f"{rec['executed_model_flops_per_train_step']}), {tflops} TFLOP/s, {mfu} of the "
+        f"dense bf16 peak; obs buffer {rec['rollout_obs_buffer_gb']} GB; profiled step: wall "
+        f"{prof['wall_us']} us, device {prof['device_us']} us, {prof['launches']} launches, "
+        f"idle {prof['idle_share']}, by class {prof['by_class']}; {rec['binding_resource']}")
+    for key, dev_us, count in prof["kernels"]:
+        log(f"  {dev_us:12.1f} us  {count:6d}x  {key[:100]}")
+    for key, host_us, count in prof["host_ops"]:
+        log(f"  host {host_us:12.1f} us  {count:6d}x  {key[:90]}")
+    return {k: rec[k] for k in ("envs", "rollout_len", "train_step_s", "env_steps_per_s",
+                                "model_flops_per_train_step",
+                                "executed_model_flops_per_train_step",
+                                "achieved_model_tflops_per_s", "mfu_vs_bf16_dense_peak",
+                                "rollout_obs_buffer_gb", "binding_resource")} | {
+        "idle_share": prof["idle_share"], "by_class": prof["by_class"]}
+
+
+def run_roofline_phase():
+    """Phase 8: ``profile_ppo`` at the ``bench_scale`` point in this
+    process, counted (``ctf_step`` once a rollout step of each of its
+    train steps, no other kernel), then ``sol_record --families ctf`` as a
+    process, whose file must hold both PPO points; every record checked by
+    ``check_roofline``.  Returns (the readings, ``ctf_step``'s launches in
+    the counted run, the phase's seconds)."""
+    t0 = time.perf_counter()
+    card = profiling.card_label(DEV)
+    tmp = tempfile.mkdtemp(prefix="phase8_")
+    try:
+        argv = [*sol_record.PPO_POINTS["bench_scale"], "--trace", os.path.join(tmp, "trace"),
+                "--json"]
+        counts, rec = run_counted(lambda: profile_ppo.main(argv))
+        check_launches(counts, {"ctf_step": rec["rollout_len"] * PROFILE_PPO_STEPS},
+                       "profile_ppo bench_scale")
+        readings = {"profile_ppo_bench_scale": check_roofline(
+            rec, "profile_ppo bench_scale, in this process", card)}
+        readings["profile_ppo_bench_scale"]["launches_a_train_step"] = per_unit(
+            counts, PROFILE_PPO_STEPS)
+        out = os.path.join(tmp, "sol_report_torch.json")
+        stdout, readings["sol_record_seconds"] = run_script(
+            ["sol_record", "--families", "ctf", "--out", out], timeout=600)
+        log(stdout.strip())
+        with open(out) as f:
+            points = json.load(f).get("ppo_train", {})
+        check(set(points) == set(sol_record.PPO_POINTS),
+              f"sol_record: PPO points {sorted(points)}, expected {sorted(sol_record.PPO_POINTS)}")
+        for name, point in points.items():
+            readings[f"sol_record_{name}"] = check_roofline(point, f"sol_record ppo {name}", card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    log(f"phase 8 (the learner's roofline): {seconds:.1f} s")
+    return readings, counts["ctf_step"], seconds
 
 def main():
     # Phase 1: build.
@@ -3562,6 +3683,9 @@ def main():
     # Phase 7: the bench entry points, each in processes of its own.
     bench_readings, bench_launches, bench_s = run_bench_phase()
 
+    # Phase 8: the learner's roofline.
+    roofline, roofline_launches, roofline_s = run_roofline_phase()
+
     record = {"kernels": [
         {"name": "collect_step", "route": "cuda",
          "source": "gym_multigrid_tpu_torch/csrc/collect_step.cu",
@@ -3584,6 +3708,8 @@ def main():
          "replaces": "gym_multigrid_tpu/ops/pallas_ctf.py:492",
          "launches": ctf_launches["ctf_step"],
          "launches_training_iteration": tf_launches["ctf_step"], "max_abs_err": ctf_err,
+         # Phase 8's profile_ppo run: 32 a train step, PROFILE_PPO_STEPS steps.
+         "launches_profile_ppo": roofline_launches,
          "ms": ctf_ms, "plain_ms": ctf_plain_ms, "bound_ms": ctf_bound,
          "bound_by": ctf_by, "library_ms": None},
         {"name": "maze_step", "route": "cuda",
@@ -3660,6 +3786,7 @@ def main():
                                      "two_gloo_ranks_on_one_card": dryrun}}))
     log(json.dumps({"example_and_scripts": phase6}))
     log(json.dumps({"bench": bench_readings, "seconds": bench_s}))
+    log(json.dumps({"learner_roofline": roofline, "seconds": roofline_s}))
     log(json.dumps(record))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

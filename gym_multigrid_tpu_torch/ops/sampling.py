@@ -1,7 +1,9 @@
-"""Masked uniform picks over (B, C) cell planes (PyTorch port).
+"""Masked uniform picks over (B, C) cell planes, and a weighted choice
+(PyTorch port).
 
-Counterpart of ``gym_multigrid_tpu/ops/sampling.py`` (``PickState``) and
-of ``_masked_pick`` in ``gym_multigrid_tpu/ops/pallas_collect.py``.  The JAX
+Counterpart of ``gym_multigrid_tpu/ops/sampling.py`` (``PickState``,
+``masked_uniform_choice_weighted``) and of ``_masked_pick`` in
+``gym_multigrid_tpu/ops/pallas_collect.py``.  The JAX
 package forms its inclusive prefix sum with shifted adds or a tril matmul
 (TPU workarounds); here it is ``torch.cumsum``.  These plain forms are what
 the slab specs use; the CUDA kernels pick with warp ballots instead and
@@ -80,3 +82,18 @@ class PickState(NamedTuple):
             self.mask & ~hit, self.cum - dec, self.count - picked.to(torch.int32), self.lane
         )
         return hit, idx, nxt
+
+
+def masked_uniform_choice_weighted(weights: torch.Tensor,
+                                   generator: torch.Generator | None = None) -> torch.Tensor:
+    """An index of the last axis of ``weights`` (>= 0) drawn with
+    probability proportional to its weight: Gumbel-max over the log
+    weights, the Gumbel noise drawn from ``generator`` (on the weights'
+    device) as JAX's ``jax.random.gumbel`` draws it, from uniforms in
+    [tiny, 1).  A weight <= 0 is never drawn; a row of such weights gives
+    0.  Returns int32 of ``weights.shape[:-1]``."""
+    w = weights.to(torch.float32)
+    u = torch.rand(w.shape, generator=generator, device=w.device)
+    g = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    logw = torch.where(w > 0, torch.log(w), float("-inf"))
+    return torch.argmax(logw + g, dim=-1).to(torch.int32)

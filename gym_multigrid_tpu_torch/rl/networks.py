@@ -82,6 +82,7 @@ class ActorCritic(_FlaxInit):
     ):
         super().__init__()
         self.num_actions, self.num_agents = num_actions, num_agents
+        self.hidden = tuple(hidden)
         self.activation_dtype = activation_dtype
         widths = [int(np.prod(obs_shape)), *hidden]
         self.torso = nn.ModuleList(nn.Linear(a, b) for a, b in zip(widths, widths[1:]))

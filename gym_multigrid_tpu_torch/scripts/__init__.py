@@ -4,7 +4,7 @@ gym_multigrid_tpu_torch.scripts.<name>`` with ``train``, ``evaluate``,
 ``train_mvn_ctf_rl``, the benchmark harnesses ``bench`` and ``bench_all``,
 the multi-process runs ``multihost_dryrun``,
 ``bench_multichip`` and ``audit_comm``, the profiling scripts
-``profile_rollout`` and ``sol_record``, the measurements
+``profile_rollout``, ``profile_ppo`` and ``sol_record``, the measurements
 ``bench_ppo_scale``, ``measure_train_step``, ``soak`` and ``sweep_batch``,
 and ``plot_learning_curve``."""
 

@@ -30,6 +30,48 @@ import datetime
 import json
 import math
 import os
+from typing import NamedTuple
+
+
+class Learner(NamedTuple):
+    """A PPO learner over a family batch, as :func:`build_learner` made it."""
+
+    env: object  # the BatchedEnv
+    net: object  # the ActorCritic
+    obs_shape: tuple  # one env's observation, from the encode
+    ppo_cfg: object
+    train_step: object  # make_ppo's train_step(carry, generator)
+    carry: object  # init_fn(0)'s rollout carry
+    generator: object  # seeded 1, on the batch's device
+
+
+def build_learner(family: str, args) -> Learner:
+    """The learner of ``make_family_batch(family, args.envs)``: the MLP
+    ``ActorCritic`` over the encode's shape and ``make_ppo`` with
+    ``args.rollout_len``, ``args.minibatches``, ``args.obs_buffer_dtype``
+    and ``args.shuffle_blocks`` (0 or empty: the defaults), initialised
+    from ``init_fn(0)``; on the CPU with ``args.cpu``, else on the current
+    CUDA device.  No train step has run."""
+    import torch
+
+    from gym_multigrid_tpu_torch.rl.families import make_family_batch
+    from gym_multigrid_tpu_torch.rl.networks import ActorCritic
+    from gym_multigrid_tpu_torch.rl.ppo import PPOConfig, make_ppo
+
+    env, cfg, num_actions, policy_agents = make_family_batch(
+        family, args.envs, "cpu" if args.cpu else None)
+    obs_shape = tuple(env.encode(cfg, env.reset(0)[0]).shape[1:])
+    net = ActorCritic(num_actions, policy_agents, obs_shape=obs_shape)
+    ppo_cfg = PPOConfig(
+        rollout_len=args.rollout_len,
+        num_minibatches=args.minibatches,
+        obs_buffer_dtype=args.obs_buffer_dtype or None,
+        shuffle_blocks=args.shuffle_blocks or None,
+    )
+    init_fn, train_step = make_ppo(env, net, ppo_cfg)
+    _, carry = init_fn(0)
+    generator = torch.Generator(device=env.device).manual_seed(1)
+    return Learner(env, net, obs_shape, ppo_cfg, train_step, carry, generator)
 
 
 def main(argv=None) -> dict:
@@ -51,9 +93,6 @@ def main(argv=None) -> dict:
 
     import torch
 
-    from gym_multigrid_tpu_torch.rl.families import make_family_batch
-    from gym_multigrid_tpu_torch.rl.networks import ActorCritic
-    from gym_multigrid_tpu_torch.rl.ppo import PPOConfig, make_ppo
     from gym_multigrid_tpu_torch.scripts import out_path
     from gym_multigrid_tpu_torch.utils.profiling import (
         card_label,
@@ -64,24 +103,14 @@ def main(argv=None) -> dict:
 
     out = out_path(args.out) if args.out else None
 
-    env, cfg, num_actions, policy_agents = make_family_batch(
-        "ctf", args.envs, "cpu" if args.cpu else None)
-    dev = env.device
+    if not args.cpu:
+        torch.cuda.reset_peak_memory_stats()
+    learner = build_learner("ctf", args)
+    net, train_step, carry, generator = (
+        learner.net, learner.train_step, learner.carry, learner.generator)
+    dev = learner.env.device
     on_card = dev.type == "cuda"
-    if on_card:
-        torch.cuda.reset_peak_memory_stats(dev)
-    obs_shape = tuple(env.encode(cfg, env.reset(0)[0]).shape[1:])
-    net = ActorCritic(num_actions, policy_agents, obs_shape=obs_shape)
-    ppo_cfg = PPOConfig(
-        rollout_len=args.rollout_len,
-        num_minibatches=args.minibatches,
-        obs_buffer_dtype=args.obs_buffer_dtype or None,
-        shuffle_blocks=args.shuffle_blocks or None,
-    )
-    init_fn, train_step = make_ppo(env, net, ppo_cfg)
-    _, carry = init_fn(0)
     start = [x.detach().clone() for x in net.parameters()]
-    generator = torch.Generator(device=dev).manual_seed(1)
     carry, metrics = train_step(carry, generator)  # untimed: kernels loaded, allocator warm
     float(metrics["loss"])
 

@@ -9,13 +9,14 @@ Counterpart of ``gym_multigrid_tpu/utils/profiling.py``, on
 * :func:`annotate`: ``record_function``, so that a phase shows up by name.
 * :func:`sol_report`: speed-of-light accounting of a batched env step
   against the card's memory rate.
-* :func:`summarize_profile`: device time by kernel, launches, wall and the
-  device's idle share of a profiled block (in place of JAX's
-  ``summarize_xplane``).
+* :func:`summarize_profile`: device time by kernel and by class of
+  kernel, launches, wall and the device's idle share of a profiled block
+  (in place of JAX's ``summarize_xplane``).
 * :func:`collective_events`: the collectives the block issued, which
   ``parallel/comm_audit.py`` reads.
-* :func:`timed` and :func:`card_label`: the seconds a block of device
-  work takes, and the card it ran on, for the measurement scripts.
+* :func:`timed`, :func:`card_label` and :func:`card_chip`: the seconds a
+  block of device work takes, the card it ran on, and that card's key in
+  the tables of peak rates, for the measurement scripts.
 """
 
 from __future__ import annotations
@@ -32,9 +33,9 @@ from torch.autograd import DeviceType
 
 from gym_multigrid_tpu_torch.utils.misc import tree_leaves
 
-__all__ = ["MEM_BYTES_PER_S", "Collective", "SolEstimate", "annotate", "card_label",
-           "collective_events", "sol_report", "state_nbytes", "summarize_profile", "timed",
-           "trace"]
+__all__ = ["MEM_BYTES_PER_S", "Collective", "SolEstimate", "annotate", "card_chip",
+           "card_label", "collective_events", "sol_report", "state_nbytes",
+           "summarize_profile", "timed", "trace"]
 
 #: Peak memory rate of one card, bytes/s (NVIDIA's data sheet: the H100
 #: SXM's 3.35 TB/s of HBM3).
@@ -45,9 +46,44 @@ WINDOW = "profiled block"
 #: Name prefixes of the port's own CUDA kernels in a trace (a template
 #: kernel's name starts with its return type).
 PORT_KERNELS = ("void collect::", "void ctf::", "maze::", "void wildfire::")
+#: The classes of ``summarize_profile``'s ``by_class`` after the port's own
+#: kernels, each with the fragments of the kernel names it takes, tried in
+#: this order: cuBLAS's and CUTLASS's products (``nvjet`` is cuBLAS's name
+#: for its Hopper GEMMs), then PyTorch's copies, concatenations and
+#: gathers.  A kernel that none names is ``other``.
+KERNEL_CLASSES = (
+    ("matmul", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
+    ("copy", ("copy", "Copy", "cat", "Cat", "gather")),
+)
 #: Process-group backends whose collectives the profiler records as
 #: ``<backend>:<op>``.
 COLLECTIVE_BACKENDS = ("gloo", "nccl")
+
+
+def card_chip(device) -> str | None:
+    """The key of ``device``'s card in the tables of peak rates
+    (:data:`MEM_BYTES_PER_S`): ``"h100-sxm"`` for an H100 SXM, whose name
+    torch reports as ``NVIDIA H100 80GB HBM3`` (the PCIe and NVL parts
+    carry their form in the name); None for any other device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(device)
+    if "H100" in name and ("HBM3" in name or "SXM" in name):
+        return "h100-sxm"
+    return None
+
+
+def kernel_class(name: str) -> str:
+    """The class of a kernel in ``summarize_profile``'s ``by_class``:
+    ``port_kernels`` (:data:`PORT_KERNELS`), a class of
+    :data:`KERNEL_CLASSES`, or ``other``."""
+    if name.startswith(PORT_KERNELS):
+        return "port_kernels"
+    for cls, fragments in KERNEL_CLASSES:
+        if any(f in name for f in fragments):
+            return cls
+    return "other"
 
 
 def card_label(device) -> str:
@@ -171,6 +207,10 @@ def summarize_profile(prof, top: int = 12) -> dict:
     - ``kernels``: the ``top`` longest kernels as (name, us, count), and
       ``port_kernels``: the port's own kernels wherever they rank, as
       (rank, name, us, count);
+    - ``by_class``, only where the trace holds device kernels (absent, so
+      ``None`` to ``.get``, on the CPU): each class of :func:`kernel_class`
+      (``matmul``, ``copy``, ``port_kernels``, ``other``) with its share
+      of the device time of all kernels, not only of the ``top``;
     - ``host_ops``: the ``top`` host ops by self CPU time, (name, us, count).
 
     A device-side user range (the optimizer's step, this block's own)
@@ -192,7 +232,7 @@ def summarize_profile(prof, top: int = 12) -> dict:
     )
     busy_us = sum(r[1] for r in rows)
     on_device = busy_us > 0
-    return {
+    summary = {
         "wall_us": wall_us,
         "device": "cuda" if on_device else "cpu",
         "device_us": busy_us if on_device else None,
@@ -202,6 +242,12 @@ def summarize_profile(prof, top: int = 12) -> dict:
         "port_kernels": [(i + 1, *r) for i, r in enumerate(rows) if r[0].startswith(PORT_KERNELS)],
         "host_ops": host[:top],
     }
+    if on_device:
+        by_class = dict.fromkeys(("matmul", "copy", "port_kernels", "other"), 0.0)
+        for name, dev_us, _ in rows:
+            by_class[kernel_class(name)] += dev_us / busy_us
+        summary["by_class"] = by_class
+    return summary
 
 
 class Collective(NamedTuple):
