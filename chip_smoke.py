@@ -26,12 +26,16 @@ without them.  Phases, each of which fails the run on any fault:
    the Collect reset on them too.  The Maze K-step entry ``maze_steps`` is
    held to ``ms_spec`` over 100 steps with the auto-reset, as four chunks
    of 25 and as one of 100, on both Maze configs at B = 8192 and on the
-   ragged batches.  The Collect K-step entry ``collect_steps`` is held to
-   ``ms_spec`` over 50 steps from the batch reset as launches of 1, 25 and
-   50 steps (planes, positions, reward sums and info counters) on the main
+   ragged batches.  The Collect K-step entry ``collect_steps_philox``,
+   which makes its draws and runs the truncation reset in the kernel, is
+   held to ``ms_philox_spec`` (``ms_spec`` and ``reset_spec`` on the draws
+   of ``ops/philox.py``'s counters) over 60 steps from the first reset's
+   boards, an episode's end 30 steps in, as launches of 1, 25, 50 and 30
+   steps (the packed boards, positions and running rewards) on the main
    config, the one-agent config, a fixed-horizon config, a 16x16 board and
-   a config of 17 ball types (counters past a warp's 32 lanes), at
-   B = 8192, 8189 and 5.  The CtF K-step entry ``ctf_steps`` is held to its
+   a config of 17 ball types, at B = 8192, 8189 and 5; the Collect episode
+   rollout at B = 64 on the card equals the same seed's rollout on the CPU
+   bit for bit.  The CtF K-step entry ``ctf_steps`` is held to its
    ``ms_spec`` over 100 steps as chunks of 25 and of 50 on the four CtF
    configs and a non-square patrol board, and as launches of one step on
    CTF_MAIN, at a ``max_steps`` of 30 so that every env resets at least
@@ -89,8 +93,9 @@ without them.  Phases, each of which fails the run on any fault:
    of which launches its own step kernel once a step and no other kernel of
    the port; then the episode paths, the Collect one
    (``make_collect_episode_rollout`` of the same config, ``reset(seed=0)``
-   and 500 steps: twenty 25-step ``collect_steps`` launches, one all-rows
-   reset an episode and no ``collect_step``) and the Maze one (``make_maze_episode_rollout(MAZE_MAIN, 8192,
+   and 500 steps: twenty 25-step ``collect_steps_philox`` launches, the
+   one all-rows ``collect_reset`` of ``reset`` and no ``collect_step``) and
+   the Maze one (``make_maze_episode_rollout(MAZE_MAIN, 8192,
    chunk=100)``, ``reset(seed=0)`` and 1000 steps: ten ``maze_steps``
    launches), the CtF one (``make_ctf_episode_rollout(CTF_MAIN, 8192,
    chunk=50)``, ``reset(seed=0)`` and 400 steps: eight ``ctf_steps``
@@ -143,15 +148,16 @@ without them.  Phases, each of which fails the run on any fault:
    at B = 1 for 50 steps with an untrained full-width net, counted: one
    step-kernel launch a frame after the first reset, uint8 frames.
 4. Profile 50 steps of each ``BatchedEnv`` rollout, 100 of each episode
-   path, one iteration of each training path, one self-play iteration and
+   path (of the Collect one a whole 500-step call, which must launch at
+   most 32 kernels in all), one iteration of each training path, one self-play iteration and
    one Collect evaluation call and one Collect vector-env step: device time
    by kernel, device time a step and idle share (``utils/profiling.py``
    ``trace`` and ``summarize_profile``).
 5. Multi-process runs.  In this process, a process group of world size 1
    under NCCL (a ``file://`` store in a temporary directory): the Collect
    episode rollout at B = 8192 under ``sharded_episode_rollout``,
-   ``reset(seed=0)`` and 500 steps, counted (20 ``collect_steps``, 11
-   ``collect_reset``), its metrics and states bit-equal to the unsharded
+   ``reset(seed=0)`` and 500 steps, counted (20 ``collect_steps_philox``,
+   one ``collect_reset``), its metrics and states bit-equal to the unsharded
    rollout reset from the rank's seed, one all-reduce of three float64
    scalars a call (``comm_audit.audit_call``), timed in turns with the
    unsharded call; the Collect training cell under ``make_ppo(...,
@@ -194,8 +200,8 @@ without them.  Phases, each of which fails the run on any fault:
    with every key, three finite positive windows, the best of them as
    its value, ``vs_baseline`` from the value, the card's name and power
    limit as ``device``, and the launches a call that its path must make
-   (a 500-step Collect episode call 20 ``collect_steps`` and 10
-   ``collect_reset``; CtF 8 ``ctf_steps``, Maze 10 ``maze_steps``,
+   (a 500-step Collect episode call 20 ``collect_steps_philox``; CtF 8
+   ``ctf_steps``, Maze 10 ``maze_steps``,
    Wildfire 17 ``wf_steps_philox``; a step-path call its step kernel once
    a step, and Collect's masked reset once a step).
 8. The learner's roofline: ``scripts/profile_ppo.py`` at ``sol_record``'s
@@ -288,7 +294,7 @@ from gym_multigrid_tpu_torch.ops import (  # noqa: E402
 )
 from gym_multigrid_tpu_torch.ops.collect_slab import (  # noqa: E402
     AGENT_COUNTS,
-    collect_ms_slab,
+    collect_philox_slab,
     collect_reset_slab,
     collect_step_slab,
     make_collect_episode_rollout,
@@ -392,17 +398,23 @@ THREE = CollectConfig(agents_index=(3, 5, 1), layout="quadrants_respawn", respaw
                       max_steps=50)
 QUADRANTS15 = CollectConfig(size=15, num_balls=30, layout="quadrants")
 # The Collect K-step entry's checks beside MAIN and SINGLE: a fixed-horizon
-# board, a 16x16 board (8 words of cells a lane) and 17 ball types (two
-# agents' 34 info counters, past a warp's 32 lanes); its episode chunk
-# (make_collect_episode_rollout's default) and the chunkings it is checked
-# in.
+# board, a 16x16 board (8 bit words of cells an env) and 17 ball types (17
+# colors and reward slots); its episode chunk (make_collect_episode_rollout's
+# default) and the launch sizes it is checked in: the 25- and 50-step
+# launches span an episode's end, the 30-step one ends on it.
 FIXED = CollectConfig(layout="even", fixed_horizon=True, max_steps=50)
 BOARD16 = CollectConfig(size=16, num_balls=45, layout="quadrants_respawn", respawn=True,
                         max_steps=50)
 TYPES17 = CollectConfig(balls_index=tuple(range(17)), balls_reward=(1.0,) * 17, num_balls=17,
                         layout="even", respawn=True, max_steps=50)
 COLLECT_CHUNK = 25
-COLLECT_MS_CHUNKS = (1, COLLECT_CHUNK, 2 * COLLECT_CHUNK)
+COLLECT_MS_CHUNKS = (1, COLLECT_CHUNK, 2 * COLLECT_CHUNK, 30)
+# Kernels a 500-step Collect episode call may launch in all, the port's and
+# PyTorch's: 20 collect_steps_philox, the pack and unpack, the fills and
+# the sum.
+COLLECT_CALL_LAUNCHES = 32
+# Steps of each check, from COLLECT_MS_LEAD steps before an episode's end.
+COLLECT_MS_STEPS, COLLECT_MS_LEAD = 60, 30
 
 # CtF: the config the repo's family bench drives (bench_all.py), 2v2 on
 # the 10x10 board, 400 steps per rollout call.
@@ -694,37 +706,41 @@ def check_reset_kernel(cfg, seed, n=B):
     return err
 
 
-def check_collect_steps_kernel(cfg, name, seed, n=B, steps=2 * COLLECT_CHUNK,
+def check_collect_steps_kernel(cfg, name, seed, n=B, steps=COLLECT_MS_STEPS,
                                chunks=COLLECT_MS_CHUNKS):
-    """``collect_ms_slab`` (the kernel entry ``collect_steps``) against
-    ``ms_spec`` over ``steps`` steps from the batch reset, as launches of
-    each chunk size in ``chunks``, every launch compared: planes,
-    positions, reward sums and info counters bit for bit.  Action ids 0..3
-    with -1, 4 and 7 mixed in.  At B = 8192 fails unless balls were picked
-    up, and, where two agents' counters outrun a warp's 32 lanes, unless a
-    counter past the 32nd was counted."""
+    """``collect_philox_slab`` (the kernel entry ``collect_steps_philox``)
+    against ``ms_philox_spec`` over ``steps`` steps from fresh boards,
+    starting COLLECT_MS_LEAD steps before an episode's end, as launches of
+    each size in ``chunks``: the packed boards, positions and running
+    rewards bit for bit at every multiple of 5 steps the launches reach
+    (the plain version runs once, in 5-step chunks) and at the end.  At
+    B = 8192 fails unless balls were picked up."""
     slab = make_collect_slab(cfg, DEV)
     check(slab.kernel, f"{name}: not on the kernel route")
-    gen = torch.Generator(device=DEV).manual_seed(seed)
-    s = reset_batch(slab, n, generator=gen)
-    acts = torch.stack([actions(gen, cfg.num_agents, n) for _ in range(steps)])
-    rnd = torch.rand((steps, n, 3), generator=gen, device=DEV)
-    start = (s.grid_obj, s.grid_color, s.grid_slot, s.agent_pos.reshape(n, -1))
-    err, cnt = 0.0, None
+    key = philox.key_of(seed)
+    step0 = cfg.max_steps - COLLECT_MS_LEAD
+    s = reset_batch(slab, n, rnd=philox.collect_first_reset_draws(key, n, slab.reset_draws, DEV))
+    start = (collect_slab.pack_planes(s.grid_obj, s.grid_color, s.grid_slot),
+             s.agent_pos.reshape(n, -1), torch.zeros((n, cfg.num_agents), device=DEV))
+    want, cur = {0: start}, start
+    for k0 in range(0, steps, 5):
+        cur = collect_slab.ms_philox_spec(slab, min(5, steps - k0), *cur, key, step0 + k0)
+        want[min(k0 + 5, steps)] = cur
+    err = 0.0
     for chunk in chunks:
-        cur, cnt = start, 0
-        for k0 in range(0, steps, chunk):
-            part = (acts[k0:k0 + chunk], rnd[k0:k0 + chunk])
-            got = collect_ms_slab(slab, *cur, *part)
-            err = max(err, max_abs_err(got, collect_slab.ms_spec(slab, *cur, *part)))
-            cur, cnt = got[:4], cnt + got[5]
-    picks, past_lanes = int(cnt.sum()), int(cnt[:, 32:].sum())
+        cur, k0 = start, 0
+        while k0 < steps:
+            K = min(chunk, steps - k0)
+            cur = collect_philox_slab(slab, K, *cur, key, step0 + k0)
+            k0 += K
+            if k0 in want:
+                err = max(err, max_abs_err(cur, want[k0]))
+    reward = float(want[steps][2].sum())
     if n == B:
-        check(picks > 0, f"{name}: no pickups")
-        check(cnt.shape[1] <= 32 or past_lanes > 0, f"{name}: no counter past the 32nd")
-    log(f"collect_steps kernel == ms_spec: {name}, {steps} steps at B={n} as launches of "
-        f"{', '.join(map(str, chunks))}: {picks} pickups ({past_lanes} counted past "
-        f"the 32nd counter), max_abs_err {err}")
+        check(reward > 0, f"{name}: no pickups")
+    log(f"collect_steps_philox kernel == ms_philox_spec: {name}, {steps} steps from step "
+        f"{step0} (an episode's end after step {cfg.max_steps - 1}) at B={n} as launches of "
+        f"{', '.join(map(str, chunks))}: reward {reward}, max_abs_err {err}")
     return err
 
 
@@ -1336,6 +1352,35 @@ def check_wildfire_rollout_card_equals_cpu(seed, n=ROLLOUT_CHECK_ROWS, steps=100
     check(episodes > 0, "no episode ended")
     log(f"Wildfire episode rollout, card == CPU from the same seed: 2 x {steps} steps at B={n}, "
         f"{episodes} episodes in the second call, max_abs_err {err}")
+    return err
+
+
+def check_collect_rollout_card_equals_cpu(seed, n=ROLLOUT_CHECK_ROWS, steps=100):
+    """``make_collect_episode_rollout(MAIN, n)`` on the card against the
+    same on the CPU, both reset with ``seed``: the counter-based draws give
+    the same trajectory, the states bit for bit after two calls (the
+    second continuing the step count) and the metrics equal (every
+    reward a whole number, so the two devices' sums are exact); one
+    ``collect_steps_philox`` launch a chunk on the card and the reset's
+    ``collect_reset``, no other kernel."""
+    card = make_collect_episode_rollout(MAIN, n, chunk=COLLECT_CHUNK)
+    cpu = make_collect_episode_rollout(MAIN, n, device="cpu", chunk=COLLECT_CHUNK)
+
+    def run():
+        (s, _), (sc, _) = card.reset(seed), cpu.reset(seed)
+        err = card_equals_cpu(state_fields(s), state_fields(sc))
+        for _ in range(2):
+            (s, m), (sc, mc) = card(s, steps), cpu(sc, steps)
+            err = max(err, card_equals_cpu(state_fields(s) + list(m.values()),
+                                           state_fields(sc) + list(mc.values())))
+        return err, float(m["reward_sum"])
+
+    counts, (err, reward) = run_counted(run)
+    check_launches(counts, {"collect_steps_philox": 2 * -(-steps // COLLECT_CHUNK),
+                            "collect_reset": 1}, "Collect episode card against CPU")
+    check(reward > 0, "no Collect episode reward")
+    log(f"Collect episode rollout, card == CPU from the same seed: 2 x {steps} steps at B={n}, "
+        f"reward {reward} in the second call, max_abs_err {err}")
     return err
 
 
@@ -2396,19 +2441,22 @@ def check_gif_frames():
     return launches
 
 
-def profile_rollout(rollout, states, name, steps=50):
+def profile_rollout(rollout, states, name, steps=50, max_launches=None):
     """Device time by kernel and the idle share over ``steps`` steps of
     ``rollout(states, steps)`` under ``torch.profiler``."""
-    profile_call(lambda: rollout(states, steps), f"{steps} {name} rollout steps", steps, "step")
+    profile_call(lambda: rollout(states, steps), f"{steps} {name} rollout steps", steps, "step",
+                 max_launches=max_launches)
 
 
-def profile_call(call, what, per, unit, tries=2):
+def profile_call(call, what, per, unit, tries=2, max_launches=None):
     """Device time by kernel and the idle share of one ``call()`` under
     ``torch.profiler`` (``utils/profiling.py`` ``trace`` and
     ``summarize_profile``): the twelve longest kernels, and the port's own
-    kernels wherever they rank; launches counted per ``per`` ``unit``s.  A
-    short window right after a long one has come back with no device
-    record at all: the call is then profiled again, up to ``tries`` times."""
+    kernels wherever they rank; launches counted per ``per`` ``unit``s,
+    and, where the trace has device time, at most ``max_launches`` in all
+    when that is given.  A short window right after a long one has come
+    back with no device record at all: the call is then profiled again, up
+    to ``tries`` times."""
     for attempt in range(tries):
         torch.cuda.synchronize()
         with profiling.trace() as prof:
@@ -2420,9 +2468,12 @@ def profile_call(call, what, per, unit, tries=2):
     if summary["device"] == "cuda":
         busy_us, wall_us = summary["device_us"], summary["wall_us"]
         log(f"profile of {what} (wall clock under the profiler): "
-            f"wall {wall_us:.0f} us, device kernels {busy_us:.0f} us ({busy_us / per:.2f} us "
-            f"and {summary['launches'] / per:.2f} launches per {unit}), idle share "
-            f"{summary['idle_share']:.3f}")
+            f"wall {wall_us:.0f} us, device kernels {busy_us:.0f} us in {summary['launches']} "
+            f"launches ({busy_us / per:.2f} us and {summary['launches'] / per:.2f} launches per "
+            f"{unit}), idle share {summary['idle_share']:.3f}")
+        if max_launches is not None:
+            check(summary["launches"] <= max_launches,
+                  f"profile of {what}: {summary['launches']} launches, more than {max_launches}")
         rows = {(i + 1, *r) for i, r in enumerate(summary["kernels"])}
         for rank, key, dev_us, count in sorted(rows | set(summary["port_kernels"])):
             log(f"  #{rank:<3d} {dev_us:9.1f} us  {count:5d}x  {key[:90]}")
@@ -2473,7 +2524,8 @@ def quartiles(xs):
 def check_sharded_episode(mesh):
     """The Collect episode rollout at B = 8192 under
     ``sharded_episode_rollout`` at world size 1: reset(seed=0) and one
-    500-step call, counted (20 ``collect_steps`` and 11 ``collect_reset``),
+    500-step call, counted (20 ``collect_steps_philox`` and the reset's
+    ``collect_reset``),
     its metrics and states bit-equal to the unsharded rollout reset from
     the rank's seed; the audit of a call (one all-reduce of the three
     scalar metrics, float64); then both timed in turns.  Returns the
@@ -2485,9 +2537,8 @@ def check_sharded_episode(mesh):
         return sharded(states, STEPS_PER_CALL)
 
     counts, (s_states, s_metrics) = run_counted(drive)
-    n_eps = STEPS_PER_CALL // MAIN.max_steps
-    check_launches(counts, {"collect_steps": n_eps * -(-MAIN.max_steps // COLLECT_CHUNK),
-                            "collect_reset": n_eps + 1}, "sharded Collect episode")
+    check_launches(counts, {"collect_steps_philox": STEPS_PER_CALL // COLLECT_CHUNK,
+                            "collect_reset": 1}, "sharded Collect episode")
     plain = make_collect_episode_rollout(MAIN, B)
     p_states, _ = plain.reset(fold_in_axis(0, mesh))
     p_states, p_metrics = plain(p_states, STEPS_PER_CALL)
@@ -2653,20 +2704,14 @@ SOAK_WINDOWS = 4
 #: holds the kernels of those paths to their plain versions there.
 PPO_ROWS, SWEEP_ROWS = 1 << 20, 65536
 #: The episode rollouts' K-step kernel of each family.
-EPISODE_KERNEL = {"collect": "collect_steps", "ctf": "ctf_steps", "maze": "maze_steps",
+EPISODE_KERNEL = {"collect": "collect_steps_philox", "ctf": "ctf_steps", "maze": "maze_steps",
                   "wildfire": "wf_steps_philox"}
 
 
 def episode_call_launches(family, steps):
-    """Launches of one ``steps``-step call of a family's episode rollout
-    from fresh states: one K-step launch a chunk (a chunk ends at an
-    episode's end for Collect) and, for Collect, one all-rows reset an
-    episode."""
-    chunk = CHUNKS[family]
-    if family == "collect":
-        eps = steps // MAIN.max_steps
-        return {"collect_steps": eps * -(-MAIN.max_steps // chunk), "collect_reset": eps}
-    return {EPISODE_KERNEL[family]: -(-steps // chunk)}
+    """Launches of one ``steps``-step call of a family's episode rollout:
+    one K-step launch a chunk, which runs the resets too."""
+    return {EPISODE_KERNEL[family]: -(-steps // CHUNKS[family])}
 
 
 def times_launches(per_call, calls, reset_family=None):
@@ -2958,7 +3003,7 @@ def check_large_batches():
                                                       n=PPO_ROWS),
         ("ctf_masked_reset", PPO_ROWS): check_masked_ctf_reset(ppo_cfg, "1M-env PPO config",
                                                                611, PPO_ROWS),
-        ("collect_steps", n): check_collect_steps_kernel(
+        ("collect_steps_philox", n): check_collect_steps_kernel(
             cfgs["collect"], "sweep config", seed=612, n=n, chunks=(CHUNKS["collect"],)),
         ("collect_reset", n): check_reset_kernel(cfgs["collect"], 613, n=n),
         ("ctf_steps", n): check_ctf_steps_kernel(ms_cut["ctf"], "sweep config", 614, n=n,
@@ -3013,8 +3058,8 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "device", "windows",
 
 def bench_call_launches(family, path, steps):
     """Launches of one ``steps``-step call of a bench path: the episode
-    path's as ``episode_call_launches`` (Collect: two ``collect_steps`` and
-    one all-rows ``collect_reset`` a 50-step episode); the step path's
+    path's as ``episode_call_launches`` (Collect: one ``collect_steps_philox``
+    a 25-step chunk); the step path's
     step kernel once a step and, for Collect, the masked reset once a
     step."""
     if path == "episode":
@@ -3335,8 +3380,9 @@ def main():
     )
     wf_px_err = max(wf_px_err, check_wildfire_rollout_card_equals_cpu(seed=120))
     out_err = check_out_of_envelope(seed=130)
-    # The Collect K-step entry: five configs at B = 8192 and the ragged
-    # batches (no multiple of a block's 8 envs).
+    # The Collect K-step entry, its draws and resets made in the kernel:
+    # five configs at B = 8192 and the ragged batches (no multiple of a
+    # block's 64 envs); then the episode rollout, card against CPU.
     collect_ms_err = max(
         check_collect_steps_kernel(cfg, name, seed=140 + 3 * i + j, n=n)
         for i, (cfg, name) in enumerate((
@@ -3344,6 +3390,7 @@ def main():
             (BOARD16, "16x16"), (TYPES17, "17 ball types")))
         for j, n in enumerate((B, *RAGGED))
     )
+    collect_ms_err = max(collect_ms_err, check_collect_rollout_card_equals_cpu(seed=160))
 
     # Phase 3: each path, with the launch counts of its own run.
     launches, (env, *result) = run_counted(collect_main_path)
@@ -3484,39 +3531,56 @@ def main():
         f"the rollout's masked reset_batch (plain PyTorch, no kernel: "
         f"{wslab.reset_draws} uniforms an env) {wf_reset_ms * 1e3:.1f} us {us(wf_reset_all)}")
 
-    # The Collect episode path: one collect_steps launch a chunk, one
-    # all-rows reset an episode, no collect_step.
+    # The Collect episode path: one collect_steps_philox launch a chunk,
+    # the reset's collect_reset, no collect_step.
     ce_launches, (ce_roll, *ce_result) = run_counted(collect_episode_path)
-    n_eps = STEPS_PER_CALL // MAIN.max_steps
-    check_launches(ce_launches, {"collect_steps": n_eps * -(-MAIN.max_steps // COLLECT_CHUNK),
-                                 "collect_reset": n_eps + 1}, "Collect episode")
+    check_launches(ce_launches, {"collect_steps_philox": STEPS_PER_CALL // COLLECT_CHUNK,
+                                 "collect_reset": 1}, "Collect episode")
     ce_states = check_collect_episode_path(ce_roll, *ce_result)
     ce_states = time_rollout(ce_roll, "Collect episode", ce_states, STEPS_PER_CALL,
                              MAIN.num_agents, COLLECT_WARMUP_MAX)
-    # collect_steps a COLLECT_CHUNK-step launch on the episode path's states.
-    A = MAIN.num_agents
-    cst_args = (ce_states.grid_obj, ce_states.grid_color, ce_states.grid_slot,
-                ce_states.agent_pos.reshape(B, -1),
-                torch.randint(0, 4, (COLLECT_CHUNK, B, A), generator=gen, device=DEV,
-                              dtype=torch.int32),
-                torch.rand((COLLECT_CHUNK, B, 3), generator=gen, device=DEV))
-    cslab_e = ce_roll.slab
-    cst_ms, cst_all = time_ms(lambda: collect_ms_slab(cslab_e, *cst_args), 200)
-    cst_plain_ms, cst_plain_all = time_ms(
-        lambda: collect_slab.ms_spec(cslab_e, *cst_args), 1, windows=3)
-    cst_out = collect_ms_slab(cslab_e, *cst_args)
-    cst_picks = int(cst_out[5].sum())
-    cst_bytes = sum(x.numel() * x.element_size() for x in (
-        *cst_args, cslab_e.respawn_rects, cslab_e.slot_rewards, cslab_e.slot_info, *cst_out))
-    # Every pickup is a respawn pick on a respawn config.
-    cst_ops = (COLLECT_CHUNK * B * A * MOVE_OPS + cst_picks * PICKUP_OPS
-               + (pick_ops(cst_picks, MAIN.num_cells) if MAIN.respawn else 0))
+    # collect_steps_philox on the episode path's states at its next step,
+    # two COLLECT_CHUNK-step launches a timed call as the path runs them:
+    # the first inside an episode, the second ending it with a fresh board.
+    cslab_e, A, C = ce_roll.slab, MAIN.num_agents, MAIN.num_cells
+    cst_args = (collect_slab.pack_planes(ce_states.grid_obj, ce_states.grid_color,
+                                         ce_states.grid_slot),
+                ce_states.agent_pos.reshape(B, -1), torch.zeros((B, A), device=DEV))
+    cst_key, cst_step = ce_roll.key, ce_roll.step
+
+    def cst_pair(steps=collect_philox_slab):
+        return [steps(cslab_e, COLLECT_CHUNK, *cst_args, cst_key, cst_step + k0)
+                for k0 in (0, COLLECT_CHUNK)]
+
+    cst_ms, cst_all = time_ms(cst_pair, 100)
+    cst_plain_ms, cst_plain_all = time_ms(lambda: cst_pair(collect_slab.ms_philox_spec), 1,
+                                          windows=3)
+    cst_ms, cst_plain_ms = cst_ms / 2, cst_plain_ms / 2
+    cst_all, cst_plain_all = [t / 2 for t in cst_all], [t / 2 for t in cst_plain_all]
+    # What the pair's data needs, counted by the plain version on the same
+    # launches: the pickups (each bumps one info counter and, on a respawn
+    # config, makes a respawn pick) and one fresh board an env.
+    cst_counts = torch.zeros((B, A * cslab_e.info_ids.shape[0]), dtype=torch.int32, device=DEV)
+    cst_pair(functools.partial(collect_slab.ms_philox_spec, counts=cst_counts))
+    cst_picks = int(cst_counts.sum())
+    cst_out = collect_philox_slab(cslab_e, COLLECT_CHUNK, *cst_args, cst_key, cst_step)
+    tables = (cslab_e.respawn_words, cslab_e.reset_arrays.words, cslab_e.reset_arrays.program,
+              cslab_e.slot_rewards)
+    cst_bytes = sum(x.numel() * x.element_size() for x in (*cst_args, *tables, *cst_out))
+    n_u = cslab_e.reset_draws
+    cst_ops = (2 * COLLECT_CHUNK * B * (A * MOVE_OPS + 2 * PHILOX_CALL_OPS
+                                        + (A + 3) * PHILOX_WORD_OPS)
+               + cst_picks * PICKUP_OPS
+               + (pick_ops(cst_picks, C) if MAIN.respawn else 0)
+               + B * (-(-n_u // 4) * PHILOX_CALL_OPS + n_u * PHILOX_WORD_OPS + C
+                      + pick_ops(len(cslab_e.rt.ball_colors), C) + A * MOVE_OPS)) / 2
     cst_bound, cst_by, *cst_parts = bound(cst_bytes, cst_ops)
-    log(f"collect_steps: {cst_ms * 1e3:.2f} us/launch of {COLLECT_CHUNK} steps (median of "
-        f"windows {us(cst_all)}), {cst_ms * 1e3 / COLLECT_CHUNK:.4f} us a step against "
+    log(f"collect_steps_philox: {cst_ms * 1e3:.2f} "
+        f"us/launch of {COLLECT_CHUNK} steps (median of windows {us(cst_all)}; half of a pair, "
+        f"one ending an episode), {cst_ms * 1e3 / COLLECT_CHUNK:.4f} us a step against "
         f"collect_step's {step_ms * 1e3:.2f}; bound {cst_bound * 1e3:.2f} us ({cst_by}; "
-        f"{cst_bytes} bytes take {cst_parts[0] * 1e3:.2f} us, {cst_ops} operations "
-        f"({cst_picks} pickups) {cst_parts[1] * 1e3:.2f} us), ms_spec "
+        f"{cst_bytes} bytes take {cst_parts[0] * 1e3:.2f} us, {cst_ops:.0f} operations "
+        f"({cst_picks / 2:.0f} pickups a launch) {cst_parts[1] * 1e3:.2f} us), ms_philox_spec "
         f"{cst_plain_ms * 1e3:.1f} us {us(cst_plain_all)}")
 
     # The Maze episode path: MAZE_CHUNK steps a launch.
@@ -3661,7 +3725,9 @@ def main():
     profile_rollout(ctf_env.rollout, ctf_states, "CtF")
     profile_rollout(maze_env.rollout, maze_states, "Maze")
     profile_rollout(wf_env.rollout, wf_states, "Wildfire")
-    profile_rollout(ce_roll, ce_states, "Collect episode", steps=2 * MAIN.max_steps)
+    # A whole 500-step call: at most COLLECT_CALL_LAUNCHES kernels in all.
+    profile_rollout(ce_roll, ce_states, "Collect episode", steps=STEPS_PER_CALL,
+                    max_launches=COLLECT_CALL_LAUNCHES)
     profile_rollout(me_roll, me_states, "Maze episode", steps=MAZE_CHUNK)
     profile_rollout(cte_roll, cte_states, "CtF episode", steps=2 * CTF_CHUNK)
     profile_rollout(wfe_roll, wfe_states, "Wildfire episode", steps=4 * WF_CHUNK + 4)
@@ -3752,14 +3818,16 @@ def main():
          "launches": wfe_launches["wf_steps_philox"], "max_abs_err": wf_px_err,
          "ms": wpx_ms, "plain_ms": wpx_plain_ms, "bound_ms": wpx_bound,
          "bound_by": wpx_by, "library_ms": None},
-        # The Collect K-step entry: collect_step_slab's transition with
-        # _collect_ms_math's sums (pallas_collect.py:696), 25 steps a launch
-        # on the Collect episode path.
-        {"name": "collect_steps", "route": "cuda",
-         "source": "gym_multigrid_tpu_torch/csrc/collect_step.cu",
+        # The Collect K-step entry with its draws and truncation resets
+        # made in the kernel (ops/philox.py's counters): collect_step_slab's
+        # transition with _collect_ms_math's sums and _reset_math's board
+        # (pallas_collect.py:696, :1000), 25 steps a launch on the Collect
+        # episode path.
+        {"name": "collect_steps_philox", "route": "cuda",
+         "source": "gym_multigrid_tpu_torch/csrc/collect_steps.cu",
          "replaces": "gym_multigrid_tpu/ops/pallas_collect.py:290",
-         "launches": ce_launches["collect_steps"], "max_abs_err": collect_ms_err,
-         "launches_sharded_episode_call": sharded_counts["collect_steps"],
+         "launches": ce_launches["collect_steps_philox"], "max_abs_err": collect_ms_err,
+         "launches_sharded_episode_call": sharded_counts["collect_steps_philox"],
          "ms": cst_ms, "plain_ms": cst_plain_ms, "bound_ms": cst_bound,
          "bound_by": cst_by, "library_ms": None},
     ]}

@@ -1,11 +1,11 @@
-// Collect transitions for a batch of envs, written by hand for Hopper
-// (sm_90a): one step (collect_step), and K steps with the rewards and info
-// counters summed (collect_steps).
+// One Collect transition for a batch of envs, written by hand for Hopper
+// (sm_90a): collect_step.
 //
-// collect_step replaces the TPU kernel collect_step_slab of
+// It replaces the TPU kernel collect_step_slab of
 // gym_multigrid_tpu/ops/pallas_collect.py (body _step_math).  Its plain
 // PyTorch version is step_spec in gym_multigrid_tpu_torch/ops/collect_slab.py
-// and the two agree bit for bit.
+// and the two agree bit for bit.  The K steps of the episode path are
+// csrc/collect_steps.cu's collect_steps_philox.
 //
 // What bounds it on this card: memory.  Each env reads its three (C,) int32
 // planes and writes them back, 24 * C bytes (2.4 kB at C = 100), and does a
@@ -22,35 +22,6 @@
 // The TPU kernel's tril matmul, one-hot lane reductions and 128-lane
 // shapes were workarounds for the TPU and are not carried over.
 //
-// collect_steps is the counterpart of the K-step Collect kernel that the
-// JAX package pruned on the TPU (pallas_collect.py, make_collect_episode_
-// rollout; its body _collect_ms_math, :696); its plain version is ms_spec in
-// ops/collect_slab.py, K step_spec steps with each agent's reward and info
-// counters summed step by step, and the two agree bit for bit.  Both entries
-// run the same __device__ transition.  Per launch at C = 100, A = 2, K = 25
-// and B = 8192 the work is the board (three int32 planes read and written
-// once, 19.7 MB), the draws (4.1 MB) and the positions, sums and counters
-// (0.5 MB): about 7 us of memory at 3.35 TB/s.  The K transitions, which
-// the one-step entry runs between two round trips of the board through
-// memory, are what is left, so the design keeps everything but the draws
-// on chip for all K steps:
-// - the board stays packed in the warp's registers from the first step to
-//   the last (NK words a lane: 4 at C <= 128, 8 up to 256 cells); planes,
-//   positions, reward sums and counters are written once at the end;
-// - the draws of 32 steps (A action ids and 3 uniforms a step) are loaded
-//   at once, lane l holding step k0 + l's, and the next 32 steps' are
-//   loaded while these run; a step reads its draws with five __shfl_sync,
-//   so no step waits on a global load but the first of each window, whose
-//   loads are in flight together (a chunk's draws were just written by
-//   torch.rand and lie in L2);
-// - a pickup adds the slot's reward to its agent's sum with __fadd_rn, in
-//   step order.  ms_spec adds +0.0 at every step without one: that changes
-//   no partial sum, since the sum starts at +0 and round-to-nearest never
-//   makes a sum -0, and x + (+0) == x for every other x;
-// - the info counters, A * n_types of them, are held one a lane (counter j
-//   in lane j); counters past the 32nd, for configs with more than 16 ball
-//   types, are counted in place in the output by lane 0, which zeroes them
-//   first.
 // Packed: a cell is obj | color << 8 | slot << 16, obj and color in
 // 0..255 and slot a signed 16-bit value, which holds every cell an env
 // makes (object ids 0..3, color ids, reward slots below n_balls + n_colors
@@ -65,7 +36,6 @@ namespace {
 constexpr int kObjBits = 0xff;          // a packed cell's object byte
 constexpr int kColorShift = 8, kSlotShift = 16;
 constexpr int kSlotBits = ~0xffff;      // a packed cell's reward slot
-constexpr int kMaxLaneCounters = 32;    // counters held in lanes
 
 __device__ __forceinline__ int pack(int obj, int color, int slot) {
   return obj | color << kColorShift | slot << kSlotShift;
@@ -218,97 +188,6 @@ step_kernel(const int* __restrict__ go_in, const int* __restrict__ gc_in,
   }
 }
 
-// A step's draws, lane l holding those of step k0 + l of its window.
-struct Draws {
-  int a0, a1;
-  float u0, u1, u2;
-};
-
-__device__ __forceinline__ Draws load_draws(const int* acts, const float* rnd, int k, int K,
-                                            int B, int b, int A) {
-  Draws d{0, 0, 0.f, 0.f, 0.f};
-  if (k < K) {
-    const size_t r = (size_t)k * B + b;
-    d.a0 = acts[r * A];
-    if (A == 2) d.a1 = acts[r * A + 1];
-    d.u0 = rnd[r * 3];
-    d.u1 = rnd[r * 3 + 1];
-    d.u2 = rnd[r * 3 + 2];
-  }
-  return d;
-}
-
-template <int NK, int A>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-steps_kernel(const int* __restrict__ go_in, const int* __restrict__ gc_in,
-             const int* __restrict__ gs_in, const int* __restrict__ pos_in,
-             const int* __restrict__ acts, const float* __restrict__ rnd,
-             const float* __restrict__ slot_rewards, const int* __restrict__ slot_info,
-             int* __restrict__ go_out, int* __restrict__ gc_out, int* __restrict__ gs_out,
-             int* __restrict__ pos_out, float* __restrict__ rew_out, int* __restrict__ cnt_out,
-             const Board bd, int B, int K, int n_slots, int n_types) {
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (b >= B) return;  // the same for every lane of the warp
-  const int C = bd.W * bd.H, n_cnt = A * n_types;
-  const size_t row = (size_t)b * C;
-  int* cnt_row = cnt_out + (size_t)b * n_cnt;
-
-  // The first window's draws go out before the board's loads.
-  Draws cur = load_draws(acts, rnd, lane, K, B, b, A);
-  int p[NK];
-  load_board<NK>(p, go_in, gc_in, gs_in, row, C, lane);
-  const int* q = pos_in + (size_t)b * 2 * A;
-  int x0 = q[0], y0 = q[1];
-  int x1 = A == 2 ? q[2] : 0, y1 = A == 2 ? q[3] : 0;
-  float rew0 = 0.f, rew1 = 0.f;
-  int cnt = 0;  // counter `lane`: agent lane / n_types, info slot lane % n_types
-  if (lane == 0)
-    for (int j = kMaxLaneCounters; j < n_cnt; ++j) cnt_row[j] = 0;
-
-  // A pickup of slot `picked` by agent i: its reward and info counter.
-  auto account = [&](int picked, int i) {
-    if (picked < 0) return;  // the same on every lane
-    const int ps = min(picked, n_slots - 1);
-    const float r = slot_rewards[ps];
-    if (i) rew1 = __fadd_rn(rew1, r); else rew0 = __fadd_rn(rew0, r);
-    const int type = slot_info[ps];
-    if (type < 0 || type >= n_types) return;
-    const int j = i * n_types + type;
-    if (j < kMaxLaneCounters) cnt += lane == j;
-    else if (lane == 0) cnt_row[j] += 1;
-  };
-
-  for (int k0 = 0; k0 < K; k0 += 32) {
-    const Draws next = load_draws(acts, rnd, k0 + 32 + lane, K, B, b, A);
-    const int n = min(32, K - k0);
-    for (int j = 0; j < n; ++j) {
-      const int a0 = __shfl_sync(kFull, cur.a0, j), a1 = __shfl_sync(kFull, cur.a1, j);
-      const float u0 = __shfl_sync(kFull, cur.u0, j), u1 = __shfl_sync(kFull, cur.u1, j),
-                  u2 = __shfl_sync(kFull, cur.u2, j);
-      int picked0 = -1, picked1 = -1;
-      transition<NK, A>(p, bd, lane, a0, a1, u0, u1, u2, x0, y0, x1, y1, picked0, picked1);
-      account(picked0, 0);
-      if (A == 2) account(picked1, 1);
-    }
-    cur = next;
-  }
-
-  store_board<NK>(p, go_out, gc_out, gs_out, row, C, lane);
-  if (lane < n_cnt && lane < kMaxLaneCounters) cnt_row[lane] = cnt;
-  if (lane == 0) {
-    int* o = pos_out + (size_t)b * 2 * A;
-    o[0] = x0;
-    o[1] = y0;
-    rew_out[(size_t)b * A] = rew0;
-    if (A == 2) {
-      o[2] = x1;
-      o[3] = y1;
-      rew_out[(size_t)b * A + 1] = rew1;
-    }
-  }
-}
-
 int blocks_for(int B) { return (B + kWarpsPerBlock - 1) / kWarpsPerBlock; }
 
 // The instance of a kernel template for a board of C cells and A agents.
@@ -345,34 +224,5 @@ extern "C" int collect_step(const void* go, const void* gc, const void* gs,
       (const int*)go, (const int*)gc, (const int*)gs, (const int*)pos, (const int*)acts,
       (const float*)rnd, (int*)go_out, (int*)gc_out, (int*)gs_out, (int*)pos_out,
       (int*)picked_out, bd, B);
-  return (int)cudaGetLastError();
-}
-
-// K steps of collect_step with the rewards and info counters summed (plain
-// version ms_spec).  Planes, pos and rects as for collect_step; acts (K, B,
-// A) int32, rnd (K, B, 3) float32; slot_rewards (n_slots,) float32 and
-// slot_info (n_slots,) int32, the reward and info counter of each reward
-// slot.  Outputs: the planes and pos after the K steps, rew (B, A) float32
-// (each agent's summed reward) and cnt (B, A * n_types) int32 (its pickups
-// by info slot).  Launches on `stream` and returns the launch's cudaError_t.
-extern "C" int collect_steps(const void* go, const void* gc, const void* gs,
-                             const void* pos, const void* acts, const void* rnd,
-                             const void* rects, const void* slot_rewards,
-                             const void* slot_info, void* go_out, void* gc_out,
-                             void* gs_out, void* pos_out, void* rew_out, void* cnt_out,
-                             int B, int K, int W, int H, int A, int respawn, int n_colors,
-                             int slot_base, int color0, int color1, int n_slots,
-                             int n_types, void* stream) {
-  using namespace collect;
-  if (!board_ok(B, W, H, A, n_colors) || K < 1 || n_slots < 1 || n_types < 1)
-    return (int)cudaErrorInvalidValue;
-  const Board bd{(const unsigned char*)rects, W, H, respawn, n_colors, slot_base, color0, color1};
-  auto kernel = pick(W * H, A, steps_kernel<4, 1>, steps_kernel<4, 2>, steps_kernel<8, 1>,
-                     steps_kernel<8, 2>);
-  kernel<<<blocks_for(B), kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
-      (const int*)go, (const int*)gc, (const int*)gs, (const int*)pos, (const int*)acts,
-      (const float*)rnd, (const float*)slot_rewards, (const int*)slot_info, (int*)go_out,
-      (int*)gc_out, (int*)gs_out, (int*)pos_out, (float*)rew_out, (int*)cnt_out, bd, B, K,
-      n_slots, n_types);
   return (int)cudaGetLastError();
 }

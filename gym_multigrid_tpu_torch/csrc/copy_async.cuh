@@ -1,7 +1,8 @@
 // 4-byte asynchronous copies from global to shared memory (cp.async), for
 // the K-step kernels of csrc/ctf_step.cu and csrc/maze_step.cu, which
 // stream each step's draws into a ring in shared memory ahead of the step
-// that reads them.  A 4-byte copy takes any
+// that reads them, and csrc/collect_steps.cu, which stages its block's
+// boards with them.  A 4-byte copy takes any
 // 4-byte aligned address, so rows of any length and batches of any size
 // can be streamed (16-byte copies would need 16-byte aligned rows).
 

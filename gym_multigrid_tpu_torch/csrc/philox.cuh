@@ -1,5 +1,6 @@
 // Philox4x32-10 (Salmon et al., SC 2011; the Random123 library) for the
-// in-kernel draws of csrc/wildfire_step.cu's wf_steps_philox.  The plain
+// in-kernel draws of csrc/wildfire_step.cu's wf_steps_philox and
+// csrc/collect_steps.cu's collect_steps_philox.  The plain
 // version, and the layout of the counters, is
 // gym_multigrid_tpu_torch/ops/philox.py; the two form the same words from
 // the same counters.  A CPU test checks these constants against that
@@ -14,6 +15,8 @@ constexpr unsigned kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
 constexpr int kRounds = 10;
 // Streams, the counter's last word (ops.philox).
 constexpr unsigned kActions = 0, kOrder = 1, kCells = 2, kTrees = 3, kPicks = 4;
+// The Collect streams, after Wildfire's seven.
+constexpr unsigned kCollectActions = 7, kCollectRnd = 8, kCollectFresh = 9, kCollectFirst = 10;
 
 struct Words {
   unsigned w[4];
@@ -45,5 +48,8 @@ __device__ __forceinline__ float uniform(unsigned x) {
 
 // An action id in 0..4: (x * 5) >> 32.
 __device__ __forceinline__ int action(unsigned x) { return (int)__umulhi(x, 5u); }
+
+// A Collect action id in 0..3: (x * 4) >> 32.
+__device__ __forceinline__ int collect_action(unsigned x) { return (int)(x >> 30); }
 
 }  // namespace philox

@@ -50,10 +50,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: stream are c_void_p, so ctypes does not cut them to 32 bits; a Python
 #: float passed as c_float is rounded to float32 once.
 ENTRY_POINTS = {
-    "collect_step.cu": {
-        "collect_step": [_P] * 12 + [_I] * 9 + [_P],
-        "collect_steps": [_P] * 15 + [_I] * 12 + [_P],
-    },
+    "collect_step.cu": {"collect_step": [_P] * 12 + [_I] * 9 + [_P]},
+    "collect_steps.cu": {"collect_steps_philox": [_P] * 10 + [_I] * 20 + [_P]},
     "collect_reset.cu": {"collect_reset": [_P] * 8 + [_I] * 10 + [_P]},
     "ctf_step.cu": {
         "ctf_step": [_P] * 21 + [_I] * 17 + [_F] * 7 + [_P],

@@ -29,12 +29,16 @@ The reset also takes a ``done`` mask, so the batch env resets finished
 rows in place without asking the host whether any row finished.
 
 * :func:`ms_spec` is ``_collect_ms_math``: K steps with the rewards and
-  info counters summed.  :func:`collect_ms_slab` runs it, or for CUDA
-  tensors the kernel entry ``collect_steps`` (the counterpart of the K-step
-  Collect kernel that JAX pruned on the TPU), one launch for all K steps.
-  :func:`make_collect_episode_rollout` runs whole lockstep episodes of
-  truncation-only configs with it and one all-rows reset per episode, the
-  counterpart of JAX's ``make_collect_episode_rollout``.
+  info counters summed.  :func:`ms_philox_spec` runs K steps of the
+  episode path on the draws of ``ops/philox.py``'s counters, with the
+  truncation reset at each episode's end, on a packed board
+  (:func:`pack_planes`); :func:`collect_philox_slab` runs it, or for CUDA
+  tensors the kernel entry ``collect_steps_philox`` of
+  ``csrc/collect_steps.cu`` (the counterpart of the K-step Collect kernel
+  that JAX pruned on the TPU), one launch for all K steps that makes its
+  own draws.  :func:`make_collect_episode_rollout` runs whole lockstep
+  episodes of truncation-only configs with it, the counterpart of JAX's
+  ``make_collect_episode_rollout``.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ from gym_multigrid_tpu_torch.envs.collect import (
     encode,
     reward_slot_tables,
 )
-from gym_multigrid_tpu_torch.ops import _build
+from gym_multigrid_tpu_torch.ops import _build, philox
 from gym_multigrid_tpu_torch.ops.sampling import masked_pick
 
 #: Largest board the kernels take: a lane holds 8 cells of each plane.
@@ -328,7 +332,7 @@ def kernel_route(cfg: CollectConfig, device_type: str) -> bool:
     """The route of a slab of ``cfg`` on a device of this type, decided
     once when the slab is built: True for the kernel wrappers
     (:func:`collect_step_slab`, :func:`collect_reset_slab`,
-    :func:`collect_ms_slab`), which launch
+    :func:`collect_philox_slab`), which launch
     the kernels on the card and run their plain versions on the CPU; False
     for the plain route on the device's tensors.  One or two
     agents take the kernels, on the CPU on any board (its "kernels" are the
@@ -345,7 +349,7 @@ def collect_step_slab(t: _Tables, go, gc, gs, pos, acts, rnd, rects):
     tensors; the inputs are not changed).  Same arguments and results as
     :func:`step_spec`, which moves one or two agents: more raise on every
     device (:func:`step_perm` moves any number).  The kernel takes the cell
-    values an env makes, as :func:`collect_ms_slab` does."""
+    values an env makes, as :func:`collect_philox_slab` does."""
     if go.device.type == "cpu":
         _check_envelope(None, acts.shape[-1])
         return step_spec(t, go, gc, gs, pos, acts, rnd, rects)
@@ -395,6 +399,15 @@ collect_step_slab.launches = 0
 # ---------------------------------------------------------------------------
 # Reset
 # ---------------------------------------------------------------------------
+
+
+def _agent_mode(rt: _ResetTables) -> int:
+    """How the kernels place the agents: fixed, from the pool or uniform."""
+    if rt.agent_fixed is not None:
+        return _AGENTS_FIXED
+    if rt.agent_choice is not None:
+        return _AGENTS_CHOICE
+    return _AGENTS_UNIFORM
 
 
 def reset_spec(rt: _ResetTables, wall, ball_rects, rnd):
@@ -505,19 +518,13 @@ def collect_reset_slab(rt: _ResetTables, rnd, ra: ResetArrays, done=None, out=No
         ("pos", out[3], torch.int32, (B, 2 * A)),
     ):
         _build.check_arg(name, x, dtype, shape, dev)
-    if rt.agent_fixed is not None:
-        mode = _AGENTS_FIXED
-    elif rt.agent_choice is not None:
-        mode = _AGENTS_CHOICE
-    else:
-        mode = _AGENTS_UNIFORM
     kernels = _build.load()
     with torch.cuda.device(dev):
         err = kernels.collect_reset(
             rnd.data_ptr(), ra.words.data_ptr(), ra.program.data_ptr(),
             None if done is None else done.data_ptr(),
             *(o.data_ptr() for o in out),
-            B, rt.width, C, nb, A, int(rt.balls_before_agents), mode,
+            B, rt.width, C, nb, A, int(rt.balls_before_agents), _agent_mode(rt),
             len(coords), rt.agent_colors[0],
             rt.agent_colors[1 % len(rt.agent_colors)],
             torch.cuda.current_stream(dev).cuda_stream,
@@ -546,16 +553,19 @@ class CollectSlab:
     t: _Tables
     rt: _ResetTables
     respawn_rects: torch.Tensor  # (n_colors, C) bool
+    #: (n_colors * ceil(C / 32),) int32: the rows of ``respawn_rects`` as
+    #: bit words (:func:`cell_words`), which ``collect_steps_philox`` reads
+    respawn_words: torch.Tensor
     reset_arrays: ResetArrays
     slot_rewards: torch.Tensor  # (n_slots,) float32
     slot_info: torch.Tensor  # (n_slots,) int32
     info_ids: torch.Tensor  # (num_ball_types,) int32: 0, 1, ...
     #: The route (:func:`kernel_route`): the kernels
     #: (:func:`collect_step_slab`, :func:`collect_reset_slab`,
-    #: :func:`collect_ms_slab`, their plain versions on the CPU) for the
-    #: configs they take, else :func:`reset_rows` and :func:`step_spec` /
-    #: :func:`ms_spec` (one or two agents) or :func:`step_perm` (any other
-    #: count) in plain PyTorch on the slab's device.
+    #: :func:`collect_philox_slab`, their plain versions on the CPU) for
+    #: the configs they take, else :func:`reset_rows` and :func:`step_spec`
+    #: / :func:`ms_philox_spec` (one or two agents) or :func:`step_perm`
+    #: (any other count) in plain PyTorch on the slab's device.
     kernel: bool
 
     @property
@@ -588,6 +598,8 @@ def make_collect_slab(cfg: CollectConfig, device) -> CollectSlab:
         t=t,
         rt=rt,
         respawn_rects=torch.as_tensor(plan.respawn_rects, device=device),
+        respawn_words=torch.as_tensor(
+            cell_words(np.asarray(plan.respawn_rects, dtype=bool)).reshape(-1), device=device),
         reset_arrays=make_reset_arrays(cfg, device),
         slot_rewards=torch.as_tensor(slot_rewards, device=device),
         slot_info=torch.as_tensor(slot_info, device=device),
@@ -731,19 +743,20 @@ def reset_batch(
 # ---------------------------------------------------------------------------
 
 
-def ms_spec(slab: CollectSlab, go, gc, gs, pos, acts, rnd):
+def ms_spec(slab: CollectSlab, go, gc, gs, pos, acts, rnd, rew=None):
     """K = ``acts.shape[0]`` Collect steps of :func:`step_spec` in plain
     PyTorch, with the rewards and the info counters summed step by step as
-    ``_collect_ms_math`` sums them: the plain version of
-    :func:`collect_ms_slab`.
+    ``_collect_ms_math`` sums them.
 
     go/gc/gs (B, C) int32 planes; pos (B, 2A) int32; acts (K, B, A) int32;
-    rnd (K, B, 3) float32.  Returns (go, gc, gs, pos, rew (B, A) float32,
-    cnt (B, A * num_ball_types) int32): each agent's summed reward and its
-    pickups by info slot."""
+    rnd (K, B, 3) float32; ``rew`` (B, A) float32 the sums to add to (zero
+    when None).  Returns (go, gc, gs, pos, rew (B, A) float32, cnt (B, A *
+    num_ball_types) int32): each agent's summed reward and its pickups by
+    info slot."""
     B, A = go.shape[0], acts.shape[2]
     n_types = slab.info_ids.shape[0]
-    rew = torch.zeros((B, A), dtype=torch.float32, device=go.device)
+    if rew is None:
+        rew = torch.zeros((B, A), dtype=torch.float32, device=go.device)
     cnt = torch.zeros((B, A, n_types), dtype=torch.int32, device=go.device)
     for k in range(acts.shape[0]):
         go, gc, gs, pos, picked = step_spec(slab.t, go, gc, gs, pos, acts[k], rnd[k], slab.respawn_rects)
@@ -754,87 +767,144 @@ def ms_spec(slab: CollectSlab, go, gc, gs, pos, acts, rnd):
     return go, gc, gs, pos, rew, cnt.reshape(B, A * n_types)
 
 
-def collect_ms_slab(slab: CollectSlab, go, gc, gs, pos, acts, rnd):
-    """K = ``acts.shape[0]`` steps with the rewards and info counters
-    summed: :func:`ms_spec` for CPU tensors, the CUDA kernel entry
-    ``collect_steps`` of ``csrc/collect_step.cu`` for CUDA tensors, one
-    launch for all K steps with the board kept on chip (new output
-    tensors; the inputs are not changed).  Same arguments and results as
-    :func:`ms_spec`.  The kernel packs a cell's three values into one word,
-    so it takes the values an env makes: object ids and colors in 0..255,
-    reward slots in -32768..32767.  Configs outside the kernel's envelope
-    take :func:`ms_spec` on their device by the slab's route
-    (:func:`kernel_route`); this wrapper refuses them."""
-    if go.device.type == "cpu":
-        return ms_spec(slab, go, gc, gs, pos, acts, rnd)
-    if go.device.type != "cuda":
-        raise ValueError(f"no Collect steps for tensors on {go.device}")
-    t = slab.t
-    B, C = go.shape
-    K, A = acts.shape[0], acts.shape[-1]
+def pack_planes(go, gc, gs):
+    """The (B, C) int32 packed board of three planes: a cell is ``obj |
+    color << 8 | slot << 16`` (object ids and colors in 0..255, reward
+    slots in -32768..32767, which holds every cell an env makes), formed
+    as ``obj + 256 color + 65536 slot``, equal for those values; JAX's
+    episode math packs the planes the same way (``pack_planes``,
+    ``pallas_collect.py:630``)."""
+    return torch.add(torch.add(go, gc, alpha=1 << 8), gs, alpha=1 << 16)
+
+
+def unpack_planes(p):
+    """The three (B, C) int32 planes of a packed board (:func:`pack_planes`)."""
+    return p & 0xFF, (p >> 8) & 0xFF, p >> 16
+
+
+def ms_philox_spec(slab: CollectSlab, K: int, p, pos, ret, key, step0: int, counts=None):
+    """K steps of the Collect episode path in plain PyTorch, on the draws
+    of ``ops/philox.py``'s counters: the global steps ``step0 .. step0 + K
+    - 1`` of the rollout keyed by ``key``.  The plain version of
+    :func:`collect_philox_slab`.
+
+    p (B, C) int32 packed board (:func:`pack_planes`); pos (B, 2A) int32;
+    ret (B, A) float32 each agent's running reward.  Forms each step's
+    actions and uniforms from the counters and runs :func:`ms_spec` on
+    them, the rewards added to ``ret`` one step at a time; after global
+    step s with ``(s + 1) % max_steps == 0`` every env takes a fresh board
+    from :func:`reset_spec` on that step's ``COLLECT_FRESH`` uniforms.
+    The episode path discards the info counters; ``counts`` (B, A *
+    num_ball_types) int32, when given, has :func:`ms_spec`'s added to it
+    in place.  Returns (p, pos, ret) after the K steps."""
+    B, dev, A = p.shape[0], p.device, pos.shape[1] // 2
+    max_steps = slab.cfg.max_steps
+    steps = torch.arange(step0, step0 + K, dtype=torch.int64, device=dev)
+    acts, rnd = philox.collect_step_draws(key, steps, B, A, dev)
+    go, gc, gs = unpack_planes(p)
+    ra = slab.reset_arrays
+    k = 0
+    while k < K:
+        # Up to and with the step that ends an episode.
+        n = min(K - k, max_steps - (step0 + k) % max_steps)
+        go, gc, gs, pos, ret, cnt = ms_spec(slab, go, gc, gs, pos, acts[k:k + n], rnd[k:k + n], ret)
+        if counts is not None:
+            counts += cnt
+        k += n
+        s = step0 + k - 1
+        if (s + 1) % max_steps == 0:
+            fresh = philox.collect_fresh_draws(key, steps[k - 1:k], B, slab.reset_draws, dev)[0]
+            go, gc, gs, pos = reset_spec(slab.rt, ra.wall, ra.ball_rects, fresh)
+    return pack_planes(go, gc, gs), pos, ret
+
+
+def collect_philox_slab(slab: CollectSlab, K: int, p, pos, ret, key, step0: int):
+    """K steps of the Collect episode path: :func:`ms_philox_spec` for CPU
+    tensors, the CUDA kernel entry ``collect_steps_philox`` of
+    ``csrc/collect_steps.cu`` for CUDA tensors, one launch for all K steps
+    that makes each draw where it is read, runs the truncation reset at
+    each episode's end and sums the rewards, reading no uniform from memory
+    (new output tensors; the inputs are not changed).  Same arguments and
+    results as :func:`ms_philox_spec`.  The kernel takes boards of at most
+    ``MAX_CELLS`` cells, one or two agents and the cell values an env
+    makes; configs outside that take :func:`ms_philox_spec` on their
+    device by the slab's route (:func:`kernel_route`), and this wrapper
+    refuses them."""
+    if p.device.type == "cpu":
+        return ms_philox_spec(slab, K, p, pos, ret, key, step0)
+    if p.device.type != "cuda":
+        raise ValueError(f"no Collect steps for tensors on {p.device}")
+    t, rt, cfg = slab.t, slab.rt, slab.cfg
+    B, C = p.shape
+    A = pos.shape[-1] // 2
     _check_envelope(C, A)
     if C != t.n_cells or B < 1 or K < 1:
-        raise ValueError(f"nothing to step: planes of shape {(B, C)} for a {t.n_cells}-cell "
+        raise ValueError(f"nothing to step: a board of shape {(B, C)} for a {t.n_cells}-cell "
                          f"board, {K} steps")
-    n_types = slab.info_ids.shape[0]
-    dev = go.device
+    dev = p.device
+    ra = slab.reset_arrays
+    nb, nw = len(rt.ball_colors), -(-C // 32)
+    coords = rt.agent_fixed or rt.agent_choice or ()
+    n_slots = slab.slot_rewards.shape[0]
     for name, x, dtype, shape in (
-        ("go", go, torch.int32, (B, C)),
-        ("gc", gc, torch.int32, (B, C)),
-        ("gs", gs, torch.int32, (B, C)),
+        ("p", p, torch.int32, (B, C)),
         ("pos", pos, torch.int32, (B, 2 * A)),
-        ("acts", acts, torch.int32, (K, B, A)),
-        ("rnd", rnd, torch.float32, (K, B, 3)),
-        ("rects", slab.respawn_rects, torch.bool, (len(t.respawn_rects), C)),
-        ("slot_rewards", slab.slot_rewards, torch.float32, slab.slot_rewards.shape),
-        ("slot_info", slab.slot_info, torch.int32, slab.slot_rewards.shape),
+        ("ret", ret, torch.float32, (B, A)),
+        ("respawn_words", slab.respawn_words, torch.int32, (len(t.respawn_rects) * nw,)),
+        ("words", ra.words, torch.int32, ((nb + 1) * nw,)),
+        ("program", ra.program, torch.int32, (nb + 2 * len(coords),)),
+        ("slot_rewards", slab.slot_rewards, torch.float32, (n_slots,)),
     ):
         _build.check_arg(name, x, dtype, shape, dev)
     kernels = _build.load()
-    go_o, gc_o, gs_o = (torch.empty_like(go) for _ in range(3))
-    pos_o = torch.empty_like(pos)
-    rew = torch.empty((B, A), dtype=torch.float32, device=dev)
-    cnt = torch.empty((B, A * n_types), dtype=torch.int32, device=dev)
+    p_o, pos_o, ret_o = torch.empty_like(p), torch.empty_like(pos), torch.empty_like(ret)
     with torch.cuda.device(dev):
-        err = kernels.collect_steps(
-            go.data_ptr(), gc.data_ptr(), gs.data_ptr(), pos.data_ptr(),
-            acts.data_ptr(), rnd.data_ptr(), slab.respawn_rects.data_ptr(),
-            slab.slot_rewards.data_ptr(), slab.slot_info.data_ptr(),
-            go_o.data_ptr(), gc_o.data_ptr(), gs_o.data_ptr(), pos_o.data_ptr(),
-            rew.data_ptr(), cnt.data_ptr(),
-            B, K, t.width, t.height, A, int(t.respawn), slab.respawn_rects.shape[0],
+        err = kernels.collect_steps_philox(
+            p.data_ptr(), pos.data_ptr(), ret.data_ptr(), slab.respawn_words.data_ptr(),
+            ra.words.data_ptr(), ra.program.data_ptr(), slab.slot_rewards.data_ptr(),
+            p_o.data_ptr(), pos_o.data_ptr(), ret_o.data_ptr(),
+            B, K, t.width, t.height, A, int(t.respawn), len(t.respawn_rects),
             t.respawn_slot_base, t.agent_colors[0], t.agent_colors[1 % len(t.agent_colors)],
-            slab.slot_rewards.shape[0], n_types,
+            n_slots, nb, int(rt.balls_before_agents), _agent_mode(rt), len(coords),
+            cfg.max_steps, step0 % cfg.max_steps,
+            *(philox.signed(w) for w in (*key, step0)),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err:
-        raise RuntimeError(f"collect_steps kernel launch failed: CUDA error {err}")
-    collect_ms_slab.launches += 1
-    return go_o, gc_o, gs_o, pos_o, rew, cnt
+        raise RuntimeError(f"collect_steps_philox kernel launch failed: CUDA error {err}")
+    collect_philox_slab.launches += 1
+    return p_o, pos_o, ret_o
 
 
 #: Launches of the K-step kernel since the count was last set to 0.
-collect_ms_slab.launches = 0
+collect_philox_slab.launches = 0
 
 
-@dataclass(frozen=True, eq=False)
+@dataclass(eq=False)
 class CollectEpisodeRollout:
     """``rollout(states, num_steps)`` of a batch of Collect envs in whole
-    lockstep episodes (:func:`make_collect_episode_rollout`)."""
+    lockstep episodes (:func:`make_collect_episode_rollout`).  Its draws
+    come from the counters of ``ops/philox.py``: ``key``, set by
+    :meth:`reset`, and ``step``, the running count of the steps taken
+    since then, kept on the host."""
 
     slab: CollectSlab
     num_envs: int
-    generator: torch.Generator
     chunk: int
+    key: tuple[int, int] = (0, 0)
+    step: int = 0
 
     @property
     def cfg(self) -> CollectConfig:
         return self.slab.cfg
 
     def reset(self, seed: int):
-        """Seed the generator and reset every env: (states, obs)."""
-        self.generator.manual_seed(seed)
-        states = reset_batch(self.slab, self.num_envs, generator=self.generator)
+        """Key the draws by ``seed``, set the step count to 0 and reset
+        every env from the first reset's counters: (states, obs)."""
+        self.key, self.step = philox.key_of(seed), 0
+        rnd = philox.collect_first_reset_draws(self.key, self.num_envs, self.slab.reset_draws,
+                                               self.slab.device)
+        states = reset_batch(self.slab, self.num_envs, rnd=rnd)
         return states, encode(self.cfg, states)
 
     def __call__(self, states: CollectState, num_steps: int):
@@ -845,50 +915,47 @@ class CollectEpisodeRollout:
         ``states`` must come fresh from :meth:`reset` or from this rollout:
         every env at step 0 of an episode, as lockstep truncation leaves
         them.  Nothing checks it, since that would wait for the device.
-        Each episode runs ``ceil(max_steps / chunk)`` chunks of
-        :func:`collect_ms_slab` (one ``collect_steps`` launch on the card;
-        on the plain route :func:`ms_spec`), each drawing its (K, B, A)
-        actions and (K, B, 3) uniforms in two calls, then one all-rows
-        :func:`collect_reset_slab` (on the plain route, :func:`reset_rows`).
-        Every env finishes every episode, so ``episodes`` is B times their
-        number, ``ep_return_sum`` is ``reward_sum``, ``run_return`` is 0,
-        and the counters the reset zeroes are not summed."""
-        cfg, B, dev = self.cfg, self.num_envs, self.slab.device
+        The board is packed once (:func:`pack_planes`), then each chunk of
+        K steps is one :func:`collect_philox_slab` (one
+        ``collect_steps_philox`` launch on the card; on the plain route
+        :func:`ms_philox_spec`) at the running step count, which then grows
+        by K; a chunk may span an episode's end, whose truncation reset
+        the chunk runs.  The rewards are summed once at the end and the
+        board unpacked once.  Every env finishes every episode, so
+        ``episodes`` is B times their number, ``ep_return_sum`` is
+        ``reward_sum``, ``run_return`` is 0, and the counters the reset
+        zeroes are not summed."""
+        cfg, B, dev, slab = self.cfg, self.num_envs, self.slab.device, self.slab
         if num_steps % cfg.max_steps:
             raise ValueError(
                 f"num_steps ({num_steps}) must be a multiple of max_steps ({cfg.max_steps})"
             )
-        A = cfg.num_agents
-        go, gc, gs = states.grid_obj, states.grid_color, states.grid_slot
+        A, nt = cfg.num_agents, cfg.num_ball_types
+        p = pack_planes(states.grid_obj, states.grid_color, states.grid_slot)
         pos = states.agent_pos.reshape(B, 2 * A)
-        reward_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        n_eps = num_steps // cfg.max_steps
-        steps = collect_ms_slab if self.slab.kernel else ms_spec
-        reset = collect_reset_slab if self.slab.kernel else reset_rows
-        for _ in range(n_eps):
-            for start in range(0, cfg.max_steps, self.chunk):
-                K = min(self.chunk, cfg.max_steps - start)
-                acts = torch.randint(0, len(COLLECT_ACTION_TO_VEC), (K, B, A),
-                                     generator=self.generator, device=dev, dtype=torch.int32)
-                rnd = torch.rand((K, B, 3), generator=self.generator, device=dev)
-                go, gc, gs, pos, rew, _ = steps(self.slab, go, gc, gs, pos, acts, rnd)
-                reward_sum = reward_sum + rew.sum()
-            rnd = torch.rand((B, self.slab.reset_draws), generator=self.generator, device=dev)
-            go, gc, gs, pos = reset(self.slab.rt, rnd, self.slab.reset_arrays)
-
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=torch.int32, device=dev)
-
+        # One fill for the running rewards and run_return, one for the
+        # counters the episode boundary leaves at 0.
+        floats = torch.zeros((B * (A + 1),), dtype=torch.float32, device=dev)
+        ret, run_return = floats[:B * A].view(B, A), floats[B * A:]
+        ints = torch.zeros((B * (2 + A * nt),), dtype=torch.int32, device=dev)
+        steps = collect_philox_slab if slab.kernel else ms_philox_spec
+        for start in range(0, num_steps, self.chunk):
+            K = min(self.chunk, num_steps - start)
+            p, pos, ret = steps(slab, K, p, pos, ret, self.key, self.step)
+            self.step += K
+        reward_sum = ret.sum()
+        go, gc, gs = unpack_planes(p)
         states = CollectState(
             grid_obj=go, grid_color=gc, grid_slot=gs, agent_pos=pos.reshape(B, A, 2),
-            collected=zeros(B), step_count=zeros(B),
-            info_counts=zeros(B, A, cfg.num_ball_types),
+            collected=ints[:B], step_count=ints[B:2 * B],
+            info_counts=ints[2 * B:].view(B, A, nt),
         )
         return states, {
             "reward_sum": reward_sum,
-            "episodes": torch.full((), B * n_eps, dtype=torch.int32, device=dev),
+            "episodes": torch.full((), B * (num_steps // cfg.max_steps), dtype=torch.int32,
+                                   device=dev),
             "ep_return_sum": reward_sum,
-            "run_return": torch.zeros((B,), dtype=torch.float32, device=dev),
+            "run_return": run_return,
         }
 
 
@@ -898,8 +965,11 @@ def make_collect_episode_rollout(
     """The Collect episode rollout of a truncation-only config (``respawn``
     or ``fixed_horizon``, so that lockstep envs truncate together): the
     counterpart of JAX's ``make_collect_episode_rollout``
-    (``ops/pallas_collect.py``), with one all-rows reset per episode where
-    ``BatchedEnv`` runs a masked reset every step.
+    (``ops/pallas_collect.py``), one kernel launch a chunk of steps, which
+    makes its own draws and runs the truncation reset, where
+    ``BatchedEnv`` runs a step and a masked reset launch every step.  The
+    draws are counter-based (``ops/philox.py``), so a seed gives the same
+    trajectory on the CPU and on the card.
 
     ``reset(seed)`` gives fresh states; ``rollout(states, num_steps)`` (the
     object is callable) steps them.  Device as for ``make_collect_batch``:
@@ -916,6 +986,4 @@ def make_collect_episode_rollout(
     if cfg.num_agents not in AGENT_COUNTS:
         return None
     device = _build.default_device(device, "make_collect_episode_rollout")
-    return CollectEpisodeRollout(
-        make_collect_slab(cfg, device), num_envs, torch.Generator(device=device), chunk
-    )
+    return CollectEpisodeRollout(make_collect_slab(cfg, device), num_envs, chunk)

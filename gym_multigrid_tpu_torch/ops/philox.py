@@ -1,15 +1,18 @@
-"""Philox4x32-10, the counter-based generator of the Wildfire episode path,
-in plain PyTorch integer ops on any device, and the layout of its counters.
+"""Philox4x32-10, the counter-based generator of the Wildfire and Collect
+episode paths, in plain PyTorch integer ops on any device, and the layout
+of its counters.
 
 Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
 3", SC 2011; the Random123 library) maps a 128-bit counter and a 64-bit key
-to four 32-bit words.  The CUDA entry ``wf_steps_philox`` of
-``csrc/wildfire_step.cu`` forms the same words from the same counters, so
-the plain version and the kernel draw the same numbers without either
+to four 32-bit words.  The CUDA entries ``wf_steps_philox`` of
+``csrc/wildfire_step.cu`` and ``collect_steps_philox`` of
+``csrc/collect_steps.cu`` form the same words from the same counters, so
+the plain versions and the kernels draw the same numbers without either
 storing them, and a seed fixes a trajectory on every device.
 
 A word ``x`` becomes the uniform ``(x >> 8) * 2**-24``, exact in float32,
-and the action id ``(x * 5) >> 32``, uniform over 0..4 up to 5 / 2**32.
+the Wildfire action id ``(x * 5) >> 32``, uniform over 0..4 up to
+5 / 2**32, and the Collect action id ``(x * 4) >> 32``, uniform over 0..3.
 
 Counter layout, (c0, c1, c2, c3) = (index, env b, global step s, stream):
 
@@ -24,6 +27,17 @@ Counter layout, (c0, c1, c2, c3) = (index, env b, global step s, stream):
   of index ``i // 4``;
 * ``FIRST_TREES``, ``FIRST_PICKS``: the same for the boards of the first
   reset, at step 0.
+
+The Collect streams follow, so that no stream is shared:
+
+* ``COLLECT_ACTIONS``: index 0, word i the action of agent i (one or two);
+* ``COLLECT_RND``: index 0, words 0..2 the step's three uniforms as
+  ``step_spec`` takes them: the fair-coin move order, then the respawn
+  uniforms of the first and the second mover;
+* ``COLLECT_FRESH``: the fresh board's reset uniforms (one a ball, then
+  one an agent, or the agents first, as the plan places them), uniform i
+  word ``i % 4`` of index ``i // 4``;
+* ``COLLECT_FIRST``: the same for the boards of the first reset, at step 0.
 
 ``s`` is the rollout's running step count (modulo 2**32), so how the steps
 are cut into chunks changes no draw; the fresh board an env takes after
@@ -41,8 +55,11 @@ ROUNDS = 10
 MASK32 = 0xFFFFFFFF
 
 ACTIONS, ORDER, CELLS, TREES, PICKS, FIRST_TREES, FIRST_PICKS = range(7)
-#: Action ids the words map to, 0..NUM_ACTIONS - 1.
+COLLECT_ACTIONS, COLLECT_RND, COLLECT_FRESH, COLLECT_FIRST = range(7, 11)
+#: Wildfire action ids the words map to, 0..NUM_ACTIONS - 1.
 NUM_ACTIONS = 5
+#: Collect action ids the words map to, 0..NUM_COLLECT_ACTIONS - 1.
+NUM_COLLECT_ACTIONS = 4
 
 
 def key_of(seed: int) -> tuple[int, int]:
@@ -95,6 +112,11 @@ def action(x):
     return ((x * NUM_ACTIONS) >> 32).to(torch.int32)
 
 
+def collect_action(x):
+    """Int32 Collect action ids in 0..3 from words: ``(x * 4) >> 32``."""
+    return ((x * NUM_COLLECT_ACTIONS) >> 32).to(torch.int32)
+
+
 def _counters(steps, envs, device):
     """int64 (S, 1, 1) step and (1, B, 1) env counters."""
     s = torch.as_tensor(steps, dtype=torch.int64, device=device) & MASK32
@@ -143,3 +165,23 @@ def first_reset_draws(key, envs: int, n_cells: int, n_picks: int, device):
     trees = cell_uniforms(key, steps, envs, n_cells, FIRST_TREES, device)
     picks = uniform(scalar_words(key, steps, envs, n_picks, FIRST_PICKS, device))
     return torch.cat([trees, picks], dim=2)[0]
+
+
+def collect_step_draws(key, steps, envs: int, n_agents: int, device):
+    """The draws of the Collect episode steps ``steps`` (S,) in the form
+    ``ms_spec`` takes: actions (S, B, A) int32 ids 0..3 and the step's
+    uniforms (S, B, 3) float32."""
+    acts = collect_action(scalar_words(key, steps, envs, n_agents, COLLECT_ACTIONS, device))
+    return acts, uniform(scalar_words(key, steps, envs, 3, COLLECT_RND, device))
+
+
+def collect_fresh_draws(key, steps, envs: int, n: int, device, stream: int = COLLECT_FRESH):
+    """(S, B, n) float32: the ``n`` reset uniforms of the fresh board an env
+    takes after each of the steps ``steps`` (S,)."""
+    return uniform(scalar_words(key, steps, envs, n, stream, device))
+
+
+def collect_first_reset_draws(key, envs: int, n: int, device):
+    """(B, n) float32: the first reset's uniforms."""
+    steps = torch.zeros((1,), dtype=torch.int64, device=device)
+    return collect_fresh_draws(key, steps, envs, n, device, COLLECT_FIRST)[0]

@@ -21,9 +21,9 @@ default configs.
 The episode rollouts ``make_collect_episode_rollout``,
 ``make_maze_episode_rollout``, ``make_ctf_episode_rollout`` and
 ``make_wildfire_episode_rollout`` (``ops/*_slab.py``) are the fewer-launch
-path for the same metrics: Collect with one all-rows reset an episode
-instead of a masked one a step, Maze, CtF and Wildfire with one kernel
-launch a chunk of steps, the auto-reset inside the kernel.
+path for the same metrics: one kernel launch a chunk of steps, the reset
+inside the kernel (Collect's the lockstep truncation reset, the others'
+the per-env auto-reset).
 """
 
 from __future__ import annotations

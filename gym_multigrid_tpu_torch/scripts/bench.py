@@ -9,7 +9,8 @@ The config of the JAX package's ``bench.py``: Collect
 ``CollectConfig(layout="quadrants_respawn", respawn=True, max_steps=50)``
 (2 agents, 50-step truncation), B = 8192 lockstep envs with auto-reset,
 500 steps a call.  On the card it runs the episode rollout at chunk 25
-(the hand kernels ``collect_steps`` and ``collect_reset``); with ``--cpu``
+(the hand kernel ``collect_steps_philox``, 20 launches a call, which makes
+its draws and runs the truncation reset); with ``--cpu``
 the ``step`` path (``BatchedEnv.rollout`` on the plain versions), as JAX
 picks its per-step path on the CPU.  The warm-up and the three timed
 windows are ``bench_all``'s (``bench_all.measure``).

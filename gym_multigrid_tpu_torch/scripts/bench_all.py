@@ -11,8 +11,8 @@ Paths, each on the family's benchmark config (:func:`family_cfg`):
 
 - ``episode``: the family's episode rollout, ``make_*_episode_rollout(cfg,
   B, chunk=CHUNKS[family])``: one K-step kernel launch a chunk on the
-  card (Collect also one ``collect_reset`` an episode).  The headline on
-  the card, in place of JAX's ``xla-ms``.
+  card (Collect's ``collect_steps_philox`` runs the truncation reset
+  too).  The headline on the card, in place of JAX's ``xla-ms``.
 - ``step``: its ``BatchedEnv.rollout``: one step-kernel launch a step
   (Collect also its masked reset).  The headline on the CPU, as JAX's
   ``xla-step`` is there.  ``--partial-obs V`` runs only this path, on a
@@ -121,7 +121,7 @@ def kernel_wrappers() -> dict:
 
     return {"collect_step": collect_slab.collect_step_slab,
             "collect_reset": collect_slab.collect_reset_slab,
-            "collect_steps": collect_slab.collect_ms_slab,
+            "collect_steps_philox": collect_slab.collect_philox_slab,
             "ctf_step": ctf_slab.ctf_step_slab, "ctf_steps": ctf_slab.ctf_ms_slab,
             "maze_step": maze_slab.maze_step_slab, "maze_steps": maze_slab.maze_ms_slab,
             "wildfire_step": wildfire_slab.wildfire_step_slab,

@@ -30,8 +30,26 @@ From the root of a checkout, with a CUDA device and ``nvcc``.  It
    interface) at K in (1, 25, 100) and B in (64, 8192), and the one-step
    ``maze_step``, so the launch floor and the per-step latency of one
    env's chain can be read apart;
-6. does the same for ``collect_steps`` at the Collect main config (K in
-   (1, 25, 50)), ``ctf_steps`` at ``CTF_MAIN`` and at ``CTF_PATROL`` (K in
+6. checks ``collect_steps_philox`` at each of its lanes an env (G = 4,
+   the checkout's build, and G = 1 and 8, the checkout's source built with
+   ``-DCOLLECT_STEPS_GROUP=1`` or ``8``) bit-equal to ``ms_philox_spec``
+   on the Collect main config (K in (1, 25, 50) from 25 steps before an
+   episode's end, B in (64, 8192)),
+   times each G there, then times every G and each ``--collect-variant``
+   (a source with the pre-drawn entry ``collect_steps``, such as an older
+   checkout's ``collect_step.cu``: checked against ``ms_spec`` on
+   pre-drawn uniforms) in turns at K = 25 and B = 8192 (checkout G in
+   order, variants, then reversed, twice; a timed call is two launches,
+   the new entry's second ending an episode, and a launch is half of it),
+   and prints the per-phase ``clock64()`` cycles of thread 0 of each block
+   of a copy of the checkout's ``collect_steps.cu`` with stamps put in
+   (staging, the boards and empty words, the step loop, the fresh boards
+   inside it, the write-back), summed over blocks, at each G, and times
+   copies that do one cost twice with the trajectory unchanged (the
+   draws, the respawn pick, the read of the entered cell; the copy's
+   result folded into a value never written), in turns with the
+   checkout's build: the extra time is that cost;
+   then does the same for ``ctf_steps`` at ``CTF_MAIN`` and at ``CTF_PATROL`` (K in
    (1, 50)) and ``wf_steps_philox`` at ``WF_MAIN`` (K in (1, 24)), each
    build checked bit-equal to its plain version (``ms_spec``;
    ``ms_philox_spec``, the same steps on ``ops/philox.py``'s draws), beside
@@ -261,8 +279,8 @@ def sass_loop(lib: Path, kernel: str, out: Path) -> int | None:
 
 
 def collect_runner(fn, slab):
-    """``collect_steps`` through ``fn`` with ``collect_ms_slab``'s
-    arguments."""
+    """The pre-drawn entry ``collect_steps`` of an older ``collect_step.cu``
+    through ``fn``, with ``ms_spec``'s arguments and results."""
     t = slab.t
 
     def run(go, gc, gs, pos, acts, rnd):
@@ -375,26 +393,7 @@ def main():
     if "reset" in sections:
         record.update(probe_resets(args.reset_variant, probe_dir, gen, smi))
     if "collect" in sections:
-        slab = collect_slab.make_collect_slab(MAIN, DEV)
-        runners = [("checkout", collect_runner(kernels.collect_steps, slab))]
-        for i, path in enumerate(args.collect_variant):
-            lib = nvcc_build(path, probe_dir / f"collect_{i}.so")
-            runners.append((path.stem, collect_runner(entry(lib, path, "collect_steps"), slab)))
-
-        def collect_args(n, K):
-            st = collect_slab.reset_batch(slab, n, generator=gen)
-            return (st.grid_obj, st.grid_color, st.grid_slot, st.agent_pos.reshape(n, -1),
-                    torch.randint(0, 4, (K, n, 2), generator=gen, device=DEV, dtype=torch.int32),
-                    torch.rand((K, n, 3), generator=gen, device=DEV))
-
-        def collect_one(n):
-            a = collect_args(n, 1)
-            one = (slab.t, *a[:4], a[4][0], a[5][0], slab.respawn_rects)
-            return lambda: collect_slab.collect_step_slab(*one)
-
-        record.update(probe_steps(
-            "collect", runners, collect_args, lambda K, a: collect_slab.ms_spec(slab, *a),
-            collect_one, (1, 25, 50), smi))
+        record.update(probe_collect(args.collect_variant, probe_dir, gen, smi))
     if "maze" in sections:
         record.update(probe_maze(args.maze_variant, kernels, probe_dir, gen, smi))
     if "ctf" in sections:
@@ -425,6 +424,204 @@ def main():
             "wildfire philox", runners, philox_args,
             lambda K, a: wildfire_slab.ms_philox_spec(wslab.t, K, *a[:7]), wf_one, (1, 24), smi))
     log(json.dumps(record))
+
+
+#: Lanes an env of ``collect_steps_philox``'s builds: the port's
+#: (``COLLECT_STEPS_GROUP`` unset in ``collect_steps.cu``), then the others.
+COLLECT_LANES = 4
+COLLECT_GROUPS = (1, COLLECT_LANES, 8)
+#: Phases of the stamped ``collect_steps.cu`` (:func:`stamped_collect_steps`).
+COLLECT_PHASES = ("staging", "boards and empty words", "step loop", "fresh boards in it",
+                  "write-back")
+
+
+def stamped_collect_steps(text: str) -> str:
+    """``collect_steps.cu`` with ``clock64()`` stamps of thread 0 of each
+    block summed into a device array (COLLECT_PHASES, then the blocks),
+    read and cleared by the added entry ``collect_steps_stamps(out)``.
+    Raises where the source no longer has the marks the stamps go at."""
+    def put(text, mark, new):
+        if text.count(mark) != 1:
+            raise ValueError(f"collect_steps.cu: no single {mark[:40]!r} to stamp at")
+        return text.replace(mark, new)
+
+    text = put(text, "template <int NK, int A>\n__global__",
+               "__device__ unsigned long long g_st[6];\n\ntemplate <int NK, int A>\n__global__")
+    text = put(text, "  extern __shared__ int smem[];\n",
+               "  extern __shared__ int smem[];\n  long long st_s[5] = {0, 0, 0, 0, 0};\n"
+               "  long long st_t = clock64();\n")
+    text = put(text, "  copy_async::wait<0>();\n  __syncthreads();\n",
+               "  copy_async::wait<0>();\n  __syncthreads();\n"
+               "  st_s[0] = clock64() - st_t; st_t = clock64();\n")
+    text = put(text, "  const int W = q.W, H = q.H;\n",
+               "  st_s[1] = clock64() - st_t; st_t = clock64();\n  const int W = q.W, H = q.H;\n")
+    call = "        fresh_board<NK, A>(sm, q, C, e, g, b, q.step0 + (unsigned)(k0 + j), empty, x, y);\n"
+    text = put(text, call, "        const long long st_a = clock64();\n" + call
+               + "        st_s[3] += clock64() - st_a;\n")
+    text = put(text, "  if (live && g == 0) {\n    int* qp = q.pos_out",
+               "  st_s[2] = clock64() - st_t; st_t = clock64();\n"
+               "  if (live && g == 0) {\n    int* qp = q.pos_out")
+    text = put(text, "    dst[i] = sm.stage[r * R + c];\n  }\n}\n",
+               "    dst[i] = sm.stage[r * R + c];\n  }\n  __syncthreads();\n"
+               "  st_s[4] = clock64() - st_t;\n  if (threadIdx.x == 0) {\n"
+               "    for (int i = 0; i < 5; ++i) atomicAdd(&g_st[i], (unsigned long long)st_s[i]);\n"
+               "    atomicAdd(&g_st[5], 1ull);\n  }\n}\n")
+    return text + (
+        '\nextern "C" int collect_steps_stamps(void* out) {\n'
+        "  cudaError_t err = cudaMemcpyFromSymbol(out, collect::g_st, sizeof(collect::g_st));\n"
+        "  if (err == cudaSuccess) {\n    const unsigned long long zero[6] = {0, 0, 0, 0, 0, 0};\n"
+        "    err = cudaMemcpyToSymbol(collect::g_st, zero, sizeof(zero));\n  }\n"
+        "  return (int)err;\n}\n")
+
+
+def twice_collect_steps(text: str) -> dict:
+    """Copies of ``collect_steps.cu`` that do one cost twice, the second
+    result folded into a value that is never written, so the trajectory
+    and every output stay the checkout's: {name: source}."""
+    def put(text, mark, new):
+        if text.count(mark) != 1:
+            raise ValueError(f"collect_steps.cu: no single {mark[:40]!r} to double")
+        return text.replace(mark, new)
+
+    text = put(text, "  int phase = q.phase0;  // the episode's step count before each step\n",
+               "  int phase = q.phase0;  // the episode's step count before each step\n"
+               "  unsigned sink = 0u;\n")
+    text = put(text, "  if (live && g == 0) {\n    int* qp = q.pos_out",
+               "  if (sink == 0x1234567u && threadIdx.x == 100000) q.ret_out[0] = 1.f;\n"
+               "  if (live && g == 0) {\n    int* qp = q.pos_out")
+    draw = "    const Draws next = draw(b, q.step0 + (unsigned)(k0 + kLanes + g), q);\n"
+    pick = "            const int at = pick<NK>(m, s == 0 ? d.u1 : d.u2);\n"
+    read = "        const int cell = *to;\n"
+    return {
+        "draws": put(text, draw, draw + (
+            "    {\n      Params q2 = q;\n      q2.key0 ^= 0x5bd1e995u;\n"
+            "      const Draws extra = draw(b, q.step0 + (unsigned)(k0 + kLanes + g), q2);\n"
+            "      sink ^= (unsigned)extra.a0 ^ (unsigned)extra.a1 ^ __float_as_uint(extra.u0) ^\n"
+            "              __float_as_uint(extra.u1) ^ __float_as_uint(extra.u2);\n    }\n")),
+        "respawn pick": put(text, pick, pick + (
+            "            sink ^= (unsigned)pick<NK>(m, 1.0f - (s == 0 ? d.u1 : d.u2) * 0.5f);\n")),
+        "entered cell's read": put(text, read, read + (
+            "        sink ^= (unsigned)sm.board[((nidx + 1) % (W * H)) * kEnvs + e];\n")),
+    }
+
+
+def collect_philox_call(fn, slab):
+    """``collect_steps_philox`` of another build through ``fn``, with
+    ``collect_philox_slab``'s arguments and results."""
+    t, rt, ra, cfg = slab.t, slab.rt, slab.reset_arrays, slab.cfg
+    coords = rt.agent_fixed or rt.agent_choice or ()
+
+    def run(K, p, pos, ret, key, step0):
+        outs = torch.empty_like(p), torch.empty_like(pos), torch.empty_like(ret)
+        err = fn(p.data_ptr(), pos.data_ptr(), ret.data_ptr(), slab.respawn_words.data_ptr(),
+                 ra.words.data_ptr(), ra.program.data_ptr(), slab.slot_rewards.data_ptr(),
+                 *(o.data_ptr() for o in outs), p.shape[0], K, t.width, t.height,
+                 pos.shape[1] // 2, int(t.respawn), len(t.respawn_rects), t.respawn_slot_base,
+                 t.agent_colors[0], t.agent_colors[-1], slab.slot_rewards.shape[0],
+                 len(rt.ball_colors), int(rt.balls_before_agents), collect_slab._agent_mode(rt),
+                 len(coords), cfg.max_steps, step0 % cfg.max_steps,
+                 *(philox.signed(w) for w in (*key, step0)),
+                 torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"collect_steps_philox: CUDA error {err}"
+        return outs
+    return run
+
+
+def probe_collect(variants, probe_dir, gen, smi):
+    """Section 6 for the Collect K steps: ``collect_steps_philox`` at each
+    G against ``ms_philox_spec``, each G timed at K in (1, 25, 50) and B in
+    (64, 8192); then every G and each pre-drawn variant in turns at K = 25,
+    B = 8192, two launches a timed call."""
+    slab = collect_slab.make_collect_slab(MAIN, DEV)
+    lead = 25  # steps before an episode's end at the first step
+
+    def start(n):
+        key = philox.key_of(n)
+        st = collect_slab.reset_batch(slab, n, rnd=philox.collect_first_reset_draws(
+            key, n, slab.reset_draws, DEV))
+        p = collect_slab.pack_planes(st.grid_obj, st.grid_color, st.grid_slot)
+        return key, (p, st.agent_pos.reshape(n, -1), torch.zeros((n, 2), device=DEV)), st
+
+    step0 = MAIN.max_steps - lead
+    checkout = _build.CSRC / "collect_steps.cu"
+    builds = {g: collect_philox_call(
+        _build.load().collect_steps_philox if g == COLLECT_LANES else
+        entry(nvcc_build(checkout, probe_dir / f"collect_steps_g{g}.so",
+                         f"-DCOLLECT_STEPS_GROUP={g}"), checkout, "collect_steps_philox"), slab)
+        for g in COLLECT_GROUPS}
+    out, cycles = {}, {}
+    for n in (64, B):
+        key, state, _ = start(n)
+        for K in (1, 25, 50):
+            want = collect_slab.ms_philox_spec(slab, K, *state, key, step0)
+            for g, run in builds.items():
+                got = run(K, *state, key, step0)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), (g, K, n)
+                out[f"collect_steps_philox G={g} K={K} B={n} from {lead} before an end"] = (
+                    time_ms(lambda: run(K, *state, key, step0), 100)[0] * 1e3)
+    log(f"collect_steps_philox at every G == ms_philox_spec at K in (1, 25, 50), B in "
+        f"(64, {B}): bit-equal")
+    source = probe_dir / "collect_steps_stamped.cu"
+    source.parent.mkdir(parents=True, exist_ok=True)
+    source.write_text(stamped_collect_steps(checkout.read_text()))
+    key, state, _ = start(B)
+    for g in COLLECT_GROUPS:
+        lib = nvcc_build(source, probe_dir / f"collect_steps_stamped_g{g}.so",
+                         f"-DCOLLECT_STEPS_GROUP={g}")
+        run = collect_philox_call(entry(lib, source, "collect_steps_philox"), slab)
+        get = lib.collect_steps_stamps
+        get.argtypes = [ctypes.c_void_p]
+        for s0 in (0, lead):
+            want = collect_slab.ms_philox_spec(slab, 25, *state, key, s0)
+            assert all(torch.equal(a, b) for a, b in zip(run(25, *state, key, s0), want))
+            sums = (ctypes.c_ulonglong * 6)()
+            assert get(ctypes.addressof(sums)) == 0
+            for _ in range(20):
+                run(25, *state, key, s0)
+            torch.cuda.synchronize()
+            assert get(ctypes.addressof(sums)) == 0
+            at = {ph: sums[i] / sums[5] for i, ph in enumerate(COLLECT_PHASES)}
+            cycles[f"G={g} K=25 step0={s0}"] = at
+            log(f"collect_steps_philox G={g}, K=25 from step {s0} "
+                f"({'a fresh board at its end' if s0 else 'inside an episode'}), B={B}: "
+                "thread 0's cycles per block: " + ", ".join(f"{ph} {c:.0f}" for ph, c in at.items()))
+    key, state, st = start(B)
+    runners = []
+    for g, run in builds.items():
+        def pair(run=run):
+            for k0 in (0, 25):
+                run(25, *state, key, k0)
+        runners.append((f"collect_steps_philox G={g}", pair))
+    want = collect_slab.ms_philox_spec(slab, 25, *state, key, lead)
+    for i, (cost, body) in enumerate(twice_collect_steps(checkout.read_text()).items()):
+        source = probe_dir / f"collect_steps_twice_{i}.cu"
+        source.write_text(body)
+        run = collect_philox_call(entry(nvcc_build(source, probe_dir / f"{source.stem}.so"),
+                                        source, "collect_steps_philox"), slab)
+        assert all(torch.equal(a, b) for a, b in zip(run(25, *state, key, lead), want)), cost
+        runners.append((f"collect_steps_philox G={COLLECT_LANES}, {cost} twice",
+                        lambda run=run: [run(25, *state, key, k0) for k0 in (0, 25)]))
+    acts = torch.randint(0, 4, (25, B, 2), generator=gen, device=DEV, dtype=torch.int32)
+    rnd = torch.rand((25, B, 3), generator=gen, device=DEV)
+    planes = (st.grid_obj, st.grid_color, st.grid_slot, st.agent_pos.reshape(B, -1), acts, rnd)
+    for i, path in enumerate(variants):
+        lib = nvcc_build(path, probe_dir / f"collect_{i}.so")
+        run = collect_runner(entry(lib, path, "collect_steps"), slab)
+        assert all(torch.equal(a, b) for a, b in zip(
+            run(*planes), collect_slab.ms_spec(slab, *planes))), path
+        runners.append((f"{path.stem} collect_steps (pre-drawn)",
+                        lambda run=run: (run(*planes), run(*planes))))
+    turns = {name: [] for name, _ in runners}
+    for order in (runners, runners[::-1]) * 2:
+        for name, run in order:
+            turns[name].append(time_ms(run, 100)[0] * 1e3 / 2)
+    for key_, t in out.items():
+        log(f"{key_}: {t:.2f} us/launch ({smi})")
+    for name, t in turns.items():
+        log(f"{name}, K=25, B={B}, in turns: us a launch {[round(x, 2) for x in t]} ({smi})")
+        out[f"collect {name} K=25 B={B} turns"] = t
+    out["collect_steps_philox phase cycles"] = cycles
+    return out
 
 
 def probe_ctf(variants, kernels, probe_dir, gen, smi):

@@ -1,7 +1,7 @@
 """The port's Collect episode path on the CPU: ``ms_spec`` against the JAX
 package's K-step episode math bit for bit, the boundary reset against its
 packed-plane reset, and ``make_collect_episode_rollout``'s invariants, its
-generator stream and the configs it refuses."""
+counter-based draws and the configs it refuses."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -131,27 +131,31 @@ def test_episode_rollout_invariants():
     assert 0.02 < total / (n * 150 * 2) < 0.2
 
 
-def test_episode_rollout_draws_chunks_and_a_reset_from_the_generator():
-    """One episode of chunks 20, 20 and 10 equals ``ms_spec`` and the
-    all-rows reset on the generator's draws, in the rollout's order."""
+def test_episode_rollout_draws_chunks_and_resets_from_the_counters():
+    """A 100-step call at chunk 20 equals the first reset on the
+    ``COLLECT_FIRST`` uniforms of the seed's key, then ``ms_philox_spec``
+    chunks of 20 at the running step count on the packed board (whose
+    resets take the ``COLLECT_FRESH`` uniforms), the rewards summed once at
+    the end."""
     n = 8
     roll = _rollout(n, chunk=20)
     start, _ = roll.reset(seed=3)
-    states, m = roll(start, 50)
-    roll.generator.manual_seed(3)
-    tslab.reset_batch(roll.slab, n, generator=roll.generator)
-    go, gc, gs, pos = start.grid_obj, start.grid_color, start.grid_slot, start.agent_pos.reshape(n, 4)
-    reward = torch.zeros(())
-    for K in (20, 20, 10):
-        acts = torch.randint(0, 4, (K, n, 2), generator=roll.generator, dtype=torch.int32)
-        rnd = torch.rand((K, n, 3), generator=roll.generator)
-        go, gc, gs, pos, rew, _ = tslab.ms_spec(roll.slab, go, gc, gs, pos, acts, rnd)
-        reward = reward + rew.sum()
-    fresh = tslab.collect_reset_slab(roll.slab.rt, torch.rand((n, 17), generator=roll.generator),
-                                     roll.slab.reset_arrays)
-    assert torch.equal(m["reward_sum"], reward)
+    key = tslab.philox.key_of(3)
+    assert roll.key == key and roll.step == 0
+    fresh = tslab.collect_reset_slab(
+        roll.slab.rt, tslab.philox.collect_first_reset_draws(key, n, 17, "cpu"),
+        roll.slab.reset_arrays)
+    for g, w in zip((start.grid_obj, start.grid_color, start.grid_slot,
+                     start.agent_pos.reshape(n, 4)), fresh):
+        assert torch.equal(g, w)
+    states, m = roll(start, 100)
+    assert roll.step == 100
+    state = (tslab.pack_planes(*fresh[:3]), fresh[3], torch.zeros((n, 2)))
+    for step in range(0, 100, 20):
+        state = tslab.ms_philox_spec(roll.slab, 20, *state, key, step)
+    assert torch.equal(m["reward_sum"], state[2].sum())
     for g, w in zip((states.grid_obj, states.grid_color, states.grid_slot,
-                     states.agent_pos.reshape(n, 4)), fresh):
+                     states.agent_pos.reshape(n, 4)), (*tslab.unpack_planes(state[0]), state[1])):
         assert torch.equal(g, w)
 
 

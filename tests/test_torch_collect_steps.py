@@ -1,11 +1,13 @@
-"""The Collect K-step entry on the CPU: ``collect_ms_slab`` runs its plain
-version ``ms_spec`` there and launches nothing, ``ms_spec`` equals K single
-``step_spec`` steps with the rewards and counters summed, a chunking of the
-steps changes nothing, the episode rollout goes through the wrapper once a
-chunk (and through ``ms_spec`` on the plain route of a config outside the
-kernel's envelope), and the kernel's packed cell holds every value an env
-makes.  ``ms_spec`` against JAX's ``_collect_ms_math`` is in
-``tests/test_torch_collect_episode.py``."""
+"""The Collect K steps on the CPU: the K-step wrapper
+``collect_philox_slab`` runs its plain version ``ms_philox_spec`` there
+and launches nothing, ``ms_spec`` equals K single ``step_spec`` steps with
+the rewards and counters summed, a chunking of the steps changes nothing,
+the episode rollout goes through the wrapper once a chunk (and through
+``ms_philox_spec`` on the plain route of a config outside the kernel's
+envelope), and the kernels' packed cell holds every value an env makes.
+``ms_spec`` against JAX's ``_collect_ms_math`` is in
+``tests/test_torch_collect_episode.py``; ``ms_philox_spec`` against
+``ms_spec`` and ``reset_spec`` in ``tests/test_torch_collect_philox.py``."""
 
 import dataclasses
 import re
@@ -15,7 +17,8 @@ import pytest
 import torch
 
 from gym_multigrid_tpu_torch.envs.collect import CollectConfig
-from gym_multigrid_tpu_torch.ops import _build, collect_slab as tslab
+from gym_multigrid_tpu_torch.ops import _build, philox
+from gym_multigrid_tpu_torch.ops import collect_slab as tslab
 
 torch.set_num_threads(1)
 
@@ -50,16 +53,19 @@ def _inputs(cfg, B, K, seed):
     return slab, state, acts, rnd
 
 
-def test_collect_ms_slab_runs_ms_spec_on_the_cpu():
-    slab, state, acts, rnd = _inputs(MAIN, 6, 9, seed=1)
-    before = tslab.collect_ms_slab.launches
-    got = tslab.collect_ms_slab(slab, *state, acts, rnd)
-    assert tslab.collect_ms_slab.launches == before  # the plain version launches nothing
-    for g, w in zip(got, tslab.ms_spec(slab, *state, acts, rnd)):
+def test_collect_philox_slab_runs_ms_philox_spec_on_the_cpu():
+    """The K-step wrapper on CPU tensors is its plain version and launches
+    nothing; it refuses "meta" tensors."""
+    slab, state, _, _ = _inputs(MAIN, 6, 1, seed=1)
+    key = philox.key_of(1)
+    packed = (tslab.pack_planes(*state[:3]), state[3], torch.zeros((6, 2)))
+    before = tslab.collect_philox_slab.launches
+    got = tslab.collect_philox_slab(slab, 9, *packed, key, 45)
+    assert tslab.collect_philox_slab.launches == before  # the plain version launches nothing
+    for g, w in zip(got, tslab.ms_philox_spec(slab, 9, *packed, key, 45)):
         assert torch.equal(g, w)
     with pytest.raises(ValueError, match="no Collect steps"):
-        tslab.collect_ms_slab(slab, *(x.to("meta") for x in state), acts.to("meta"),
-                              rnd.to("meta"))
+        tslab.collect_philox_slab(slab, 9, *(x.to("meta") for x in packed), key, 45)
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -96,9 +102,9 @@ def test_chunking_changes_nothing(name):
     cfg = CONFIGS[name]
     slab, state, acts, rnd = _inputs(cfg, 12, 50, seed=3)
     assert bool((slab.slot_rewards == slab.slot_rewards.round()).all())
-    whole = tslab.collect_ms_slab(slab, *state, acts, rnd)
-    first = tslab.collect_ms_slab(slab, *state, acts[:25], rnd[:25])
-    second = tslab.collect_ms_slab(slab, *first[:4], acts[25:], rnd[25:])
+    whole = tslab.ms_spec(slab, *state, acts, rnd)
+    first = tslab.ms_spec(slab, *state, acts[:25], rnd[:25])
+    second = tslab.ms_spec(slab, *first[:4], acts[25:], rnd[25:])
     for g, w in zip(second[:4], whole[:4]):
         assert torch.equal(g, w)
     assert torch.equal(first[4] + second[4], whole[4])
@@ -123,34 +129,37 @@ def _counted(monkeypatch, *names):
 
 def test_episode_rollout_calls_the_k_step_wrapper_once_a_chunk(monkeypatch):
     """On the kernel route a 100-step call of 50-step episodes at chunk 20
-    runs three ``collect_ms_slab`` chunks an episode (20, 20, 10) and one
-    all-rows reset, and never the one-step wrapper."""
-    calls = _counted(monkeypatch, "collect_ms_slab", "collect_step_slab", "collect_reset_slab")
+    runs five ``collect_philox_slab`` chunks (the third spans the first
+    episode's end, whose reset it runs), and neither the one-step wrapper
+    nor the reset's."""
+    calls = _counted(monkeypatch, "collect_philox_slab", "collect_step_slab",
+                     "collect_reset_slab")
     roll = tslab.make_collect_episode_rollout(MAIN, 4, device="cpu", chunk=20)
     assert roll.slab.kernel
     states, _ = roll.reset(seed=0)
     calls.update(dict.fromkeys(calls, 0))
     roll(states, 100)
-    assert calls == {"collect_ms_slab": 6, "collect_step_slab": 0, "collect_reset_slab": 2}
+    assert calls == {"collect_philox_slab": 5, "collect_step_slab": 0, "collect_reset_slab": 0}
 
 
 def test_out_of_envelope_rollout_takes_the_plain_route(monkeypatch):
     """The 20x20 respawn config is outside the kernels' 256 cells: off the
     CPU its slab takes the plain route, and a rollout on that route runs
-    ``ms_spec`` and ``reset_rows``, calling no kernel wrapper, with the
-    same result as the CPU's kernel route (whose wrappers run the same
-    plain versions)."""
+    ``ms_philox_spec``, calling no kernel wrapper, with the same result as
+    the CPU's kernel route (whose wrapper runs the same plain version)."""
     assert not tslab.kernel_route(LARGE_RESPAWN, "cuda")
     assert not tslab.make_collect_slab(LARGE_RESPAWN, "meta").kernel
-    roll = tslab.make_collect_episode_rollout(LARGE_RESPAWN, 3, device="cpu", chunk=20)
+    # 8 envs over two episodes: pickups are sparse on this board.
+    roll = tslab.make_collect_episode_rollout(LARGE_RESPAWN, 8, device="cpu", chunk=20)
     assert roll.slab.kernel  # the CPU takes any board
     start, _ = roll.reset(seed=4)
-    want, want_m = roll(start, 50)
+    want, want_m = roll(start, 100)
     plain = dataclasses.replace(roll, slab=dataclasses.replace(roll.slab, kernel=False))
     plain.reset(seed=4)
-    calls = _counted(monkeypatch, "collect_ms_slab", "collect_step_slab", "collect_reset_slab")
-    got, got_m = plain(start, 50)
-    assert calls == {"collect_ms_slab": 0, "collect_step_slab": 0, "collect_reset_slab": 0}
+    calls = _counted(monkeypatch, "collect_philox_slab", "collect_step_slab",
+                     "collect_reset_slab")
+    got, got_m = plain(start, 100)
+    assert calls == {"collect_philox_slab": 0, "collect_step_slab": 0, "collect_reset_slab": 0}
     for f in ("grid_obj", "grid_color", "grid_slot", "agent_pos"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert torch.equal(got_m["reward_sum"], want_m["reward_sum"])

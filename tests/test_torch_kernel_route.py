@@ -188,7 +188,7 @@ def test_the_plain_route_calls_no_kernel_wrapper(monkeypatch):
     s0, _ = roll.reset(6)
     want_roll = roll(s0, 12)
     _refuse(monkeypatch, collect_slab, "collect_step_slab", "collect_reset_slab",
-            "collect_ms_slab")
+            "collect_philox_slab")
     roll_plain = dataclasses.replace(roll, slab=dataclasses.replace(roll.slab, kernel=False))
     roll_plain.reset(6)
     got_roll = roll_plain(s0, 12)
