@@ -23,10 +23,15 @@ without them.  Phases, each of which fails the run on any fault:
    burns out, plus one call on random boards with stacked agents.  Both
    CtF and Wildfire also run on the ragged batches B = 8189 and B = 5,
    neither a multiple of the Wildfire tile nor of the CtF lane group, and
-   the Collect reset on them too.  The Maze K-step entry ``maze_steps`` is
-   held to ``ms_spec`` over 100 steps with the auto-reset, as four chunks
-   of 25 and as one of 100, on both Maze configs at B = 8192 and on the
-   ragged batches.  The Collect K-step entry ``collect_steps_philox``,
+   the Collect reset on them too.  The Maze K-step entry
+   ``maze_steps_philox``, which makes its draws and keeps each env's sums
+   in the kernel, is held to ``ms_philox_spec`` (``ms_spec`` on the draws
+   of ``ops/philox.py``'s ``MAZE`` counters, the sums carried) over 100
+   steps from the first reset with the auto-reset, as four chunks of 25,
+   as one of 100 and as chunks of 33, 33 and 34 (odd starting steps),
+   every launch compared, on both Maze configs at B = 8192, 8189 and 5;
+   the Maze episode rollout at B = 64 on the card equals the same seed's
+   rollout on the CPU bit for bit.  The Collect K-step entry ``collect_steps_philox``,
    which makes its draws and runs the truncation reset in the kernel, is
    held to ``ms_philox_spec`` (``ms_spec`` and ``reset_spec`` on the draws
    of ``ops/philox.py``'s counters) over 60 steps from the first reset's
@@ -52,8 +57,9 @@ without them.  Phases, each of which fails the run on any fault:
    card against ``make_collect_slab(cfg, "cpu")``), CtF 5 v 5 on
    ``board_large.txt`` and a 40x40 Wildfire board (batch envs at
    max_steps 10; their per-env functions), the 40x40 Wildfire episode
-   rollout from one seed, and the episode step of a Maze map whose K-step
-   table does not fit (6 x 6 copies of ``board_maze.txt``); the Collect
+   rollout from one seed, and the episode rollout of a Maze map whose
+   K-step table does not fit (6 x 6 copies of ``board_maze.txt``) from one
+   seed; the Collect
    20x20 respawn and Wildfire 40x40 episode rollouts are driven on the
    card, and the per-env functions of the Collect 20x20, CtF 5 v 5 and
    Wildfire 40x40 configs are held to the CPU.  Finished envs are respawned
@@ -96,8 +102,9 @@ without them.  Phases, each of which fails the run on any fault:
    and 500 steps: twenty 25-step ``collect_steps_philox`` launches, the
    one all-rows ``collect_reset`` of ``reset`` and no ``collect_step``) and
    the Maze one (``make_maze_episode_rollout(MAZE_MAIN, 8192,
-   chunk=100)``, ``reset(seed=0)`` and 1000 steps: ten ``maze_steps``
-   launches), the CtF one (``make_ctf_episode_rollout(CTF_MAIN, 8192,
+   chunk=100)``, ``reset(seed=0)`` and 1000 steps: ten
+   ``maze_steps_philox`` launches, no ``maze_step``, at most 16 kernels in
+   its profile and no draw kernel), the CtF one (``make_ctf_episode_rollout(CTF_MAIN, 8192,
    chunk=50)``, ``reset(seed=0)`` and 400 steps: eight ``ctf_steps``
    launches) and the Wildfire one (``make_wildfire_episode_rollout(WF_MAIN,
    8192, chunk=24)``, ``reset(seed=0)`` and 400 steps: seventeen
@@ -201,7 +208,7 @@ without them.  Phases, each of which fails the run on any fault:
    its value, ``vs_baseline`` from the value, the card's name and power
    limit as ``device``, and the launches a call that its path must make
    (a 500-step Collect episode call 20 ``collect_steps_philox``; CtF 8
-   ``ctf_steps``, Maze 10 ``maze_steps``,
+   ``ctf_steps``, Maze 10 ``maze_steps_philox``,
    Wildfire 17 ``wf_steps_philox``; a step-path call its step kernel once
    a step, and Collect's masked reset once a step).
 8. The learner's roofline: ``scripts/profile_ppo.py`` at ``sol_record``'s
@@ -312,7 +319,7 @@ from gym_multigrid_tpu_torch.ops.ctf_slab import (  # noqa: E402
 )
 from gym_multigrid_tpu_torch.ops.maze_slab import (  # noqa: E402
     make_maze_episode_rollout,
-    maze_ms_slab,
+    maze_philox_slab,
     maze_step_slab,
 )
 from gym_multigrid_tpu_torch.ops.wildfire_slab import (  # noqa: E402
@@ -542,8 +549,15 @@ MAZE_OPS = 36
 # running return's select 1, and the spawn (multiply, convert, clip, read
 # and three selects) 7: 25.
 MAZE_MS_OPS = 25
-# Steps a Maze episode-path launch runs (bench_all.py's chunk).
+# Steps a Maze episode-path launch runs (bench_all.py's chunk), and the
+# kernels a whole 1000-step call may make: its ten maze_steps_philox
+# launches, the fill of the sums, the packing of the positions, their
+# unpacking and the three sums.
 MAZE_CHUNK = 100
+MAZE_CALL_LAUNCHES = 16
+# Name fragments of PyTorch's random-number kernels, which the Maze episode
+# call must not launch (its draws are made in the kernel).
+DRAW_KERNELS = ("distribution", "random", "philox_engine")
 # The Wildfire step: per cell, the extinguish test (1 compare per agent
 # and the fire test), the neighbour count (4 edge tests, 4 bit reads, 3
 # adds), the threshold's select 4, the ignite and burnout compares 4, the
@@ -1193,8 +1207,9 @@ def maze_actions(gen):
 
 
 def check_maze_step_kernel(cfg, name, steps, seed):
-    """``maze_step_slab`` against ``step_spec`` over chained steps from the
-    batch reset; finished envs respawn under the done mask.  Counts the
+    """``maze_step_slab`` (the kernel reads the move from the slab's
+    ``ms_table``) against ``step_spec`` over chained steps from the batch
+    reset; finished envs respawn under the done mask.  Counts the
     steps that end on a flag and on an obstacle."""
     slab = maze_slab.make_maze_slab(cfg, DEV)
     gen = torch.Generator(device=DEV).manual_seed(seed)
@@ -1203,7 +1218,7 @@ def check_maze_step_kernel(cfg, name, steps, seed):
     err, flags, obstacles, episodes = 0.0, 0, 0, 0
     for _ in range(steps):
         args = (slab.t, states.pos, states.dir.reshape(B, 1), maze_actions(gen), slab.cells)
-        got = maze_step_slab(*args)
+        got = maze_step_slab(*args, slab.ms_table)
         err = max(err, max_abs_err(got, maze_slab.step_spec(*args)))
         pos, dirs, _, term = got
         on = fm[pos[:, 0].long(), pos[:, 1].long()]
@@ -1247,22 +1262,81 @@ def check_steps_kernel(run, spec, state, draws, chunks, what):
     return err, eps
 
 
-def check_maze_steps_kernel(cfg, name, seed, n=B, steps=100, chunks=(25, 100)):
-    """``maze_ms_slab`` (the kernel entry ``maze_steps``) against ``ms_spec``
-    over ``steps`` steps with the auto-reset from the batch reset.  Action
-    ids -1..9 (the invalid ones clip); random running returns."""
+#: The chunkings of the Maze K-step check: whole chunks of the episode
+#: path's 25 and 100, and launches that start at odd steps.
+MAZE_MS_CHUNKINGS = ((25, 25, 25, 25), (100,), (33, 33, 34))
+
+
+def check_maze_philox_kernel(cfg, name, seed, n=B, chunkings=MAZE_MS_CHUNKINGS):
+    """``maze_philox_slab`` (the kernel entry ``maze_steps_philox``, its
+    draws made and its sums kept in the kernel) against ``ms_philox_spec``
+    over ``sum(chunking)`` steps with the auto-reset from the first reset
+    of a rollout keyed by ``seed``, random running returns and sums, each
+    chunking's launches at their running step, every launch compared.
+    All chunkings must end in the same state and sums.  Fails unless every
+    env finished an episode (``cfg.max_steps`` at most the steps run).
+    Returns max_abs_err."""
     slab = maze_slab.make_maze_slab(cfg, DEV)
+    check(slab.kernel, f"{name}: not on the kernel route")
+    key = philox.key_of(seed)
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    start = maze_slab.reset_batch(slab, n, generator=gen)
-    run0 = torch.rand((n,), generator=gen, device=DEV) - 0.5
-    acts = torch.randint(-1, 10, (steps, n), generator=gen, device=DEV, dtype=torch.int32)
-    rnd = torch.rand((steps, n), generator=gen, device=DEV)
-    err, eps = check_steps_kernel(
-        lambda *a: maze_ms_slab(slab, *a),
-        lambda K, *a: maze_slab.ms_spec(slab.t, K, *a, slab.cells, slab.bg),
-        (start.pos, start.dir, start.step_count, run0), (acts, rnd), chunks,
-        f"maze_steps kernel == ms_spec: {name}")
-    check(n < 64 or int(eps.sum()) >= n, f"{name}: {int(eps.sum())} episodes ended")
+    start = maze_slab.reset_batch(slab, n, rnd=philox.maze_first_reset_draws(key, n, DEV))
+    state0 = (start.pos[:, 0] * cfg.field_map.shape[1] + start.pos[:, 1], start.dir,
+              start.step_count, torch.rand((n,), generator=gen, device=DEV) - 0.5,
+              torch.rand((n,), generator=gen, device=DEV) * 4 - 2,
+              torch.rand((n,), generator=gen, device=DEV) * 4 - 2,
+              torch.randint(0, 5, (n,), generator=gen, device=DEV, dtype=torch.int32))
+    err, ends = 0.0, []
+    for chunking in chunkings:
+        state, step = state0, 0
+        for K in chunking:
+            got = maze_philox_slab(slab, K, *state, key, step)
+            err = max(err, max_abs_err(got, maze_slab.ms_philox_spec(slab, K, *state, key, step)))
+            state, step = got, step + K
+        ends.append(state)
+    for end in ends[1:]:
+        check(max_abs_err(end, ends[0]) == 0, f"{name}: the chunkings end apart")
+    episodes = ends[0][6] - state0[6]
+    check(bool((episodes >= 1).all()), f"{name}: an env finished no episode")
+    log(f"maze_steps_philox kernel == ms_philox_spec: {name}, {sum(chunkings[0])} steps at "
+        f"B={n} as launches of {' / '.join(map(str, chunkings))}: {int(episodes.sum())} "
+        f"episodes ended, max_abs_err {err}")
+    return err
+
+
+def check_maze_rollout_card_equals_cpu(seed, n=ROLLOUT_CHECK_ROWS, steps=100, chunk=33):
+    """``make_maze_episode_rollout(MAZE_PENALTY, n)`` on the card against
+    the same on the CPU, both reset with ``seed``: the counter-based draws
+    give the same trajectory, the states, each env's running return and the
+    episode count bit for bit after two calls (chunks of 33, the second
+    call continuing the step count from an even step, its chunks from odd
+    ones), one ``maze_steps_philox`` launch a chunk on the card and no
+    other kernel.  The metrics' two float sums over the batch are torch
+    reductions, whose order differs between the devices: they agree to
+    1e-5 of the summed magnitudes."""
+    card = make_maze_episode_rollout(MAZE_PENALTY, n, chunk=chunk)
+    cpu = make_maze_episode_rollout(MAZE_PENALTY, n, device="cpu", chunk=chunk)
+    exact = ("run_return", "episodes")
+
+    def run():
+        (s, _), (sc, _) = card.reset(seed), cpu.reset(seed)
+        err, m, mc = card_equals_cpu(state_fields(s), state_fields(sc)), None, None
+        for _ in range(2):
+            s, m = card(s, steps, run_return=m and m["run_return"])
+            sc, mc = cpu(sc, steps, run_return=mc and mc["run_return"])
+            err = max(err, card_equals_cpu(state_fields(s) + [m[k] for k in exact],
+                                           state_fields(sc) + [mc[k] for k in exact]))
+            for k in ("reward_sum", "ep_return_sum"):
+                check(abs(float(m[k]) - float(mc[k])) <= 1e-5 * n * steps,
+                      f"Maze episode {k}: card {float(m[k])}, CPU {float(mc[k])}")
+        return err, int(m["episodes"])
+
+    counts, (err, episodes) = run_counted(run)
+    check_launches(counts, {"maze_steps_philox": 2 * -(-steps // chunk)},
+                   "Maze episode card against CPU")
+    check(episodes > 0, "no episode ended")
+    log(f"Maze episode rollout, card == CPU from the same seed: 2 x {steps} steps at B={n} "
+        f"(chunks of {chunk}), {episodes} episodes in the second call, max_abs_err {err}")
     return err
 
 
@@ -1426,10 +1500,10 @@ def check_out_of_envelope(seed):
     Collect above 256 cells (``step_spec`` and ``reset_rows``), ten CtF
     agents and a Wildfire board above 1024 cells (their batch envs), the
     Wildfire one's episode rollout from the same seed, the per-env
-    functions of all three, and the Maze episode path of a map whose
-    K-step table does not fit (``ms_spec`` on the card against the CPU on
-    the same draws); then the Collect, Wildfire and Maze episode rollouts
-    driven on the card.  Returns the largest max_abs_err."""
+    functions of all three, and the episode rollout of a Maze map whose
+    K-step table does not fit (``ms_philox_spec`` on the card) against the
+    CPU's from the same seed; then the Collect and Wildfire episode
+    rollouts driven on the card.  Returns the largest max_abs_err."""
     err = max(
         check_any_agent_route(COLLECT_LARGE, OUT_STEPS, seed, n=OUT_ROWS,
                               what="Collect above 256 cells"),
@@ -1459,27 +1533,16 @@ def check_out_of_envelope(seed):
     check_launches(counts, {}, "Wildfire 40x40 episode rollout")
     err = max(err, wf_err)
 
-    mslab, mcpu = maze_slab.make_maze_slab(MAZE_LARGE, DEV), maze_slab.make_maze_slab(MAZE_LARGE, "cpu")
-    check(not mslab.kernel, "the large Maze map on the kernel route")
-    gen = torch.Generator(device=DEV).manual_seed(seed + 4)
+    card = make_maze_episode_rollout(MAZE_LARGE, OUT_ROWS, chunk=MAZE_CHUNK)
+    cpu = make_maze_episode_rollout(MAZE_LARGE, OUT_ROWS, device="cpu", chunk=MAZE_CHUNK)
+    check(not card.slab.kernel, "the large Maze map on the kernel route")
 
     def maze_episode():
-        start = maze_slab.reset_batch(mslab, OUT_ROWS, generator=gen)
-        state = (start.pos, start.dir, start.step_count, torch.zeros((OUT_ROWS,), device=DEV))
-        e = 0.0
-        for _ in range(2):
-            acts = torch.randint(0, 5, (MAZE_CHUNK, OUT_ROWS), generator=gen, device=DEV,
-                                 dtype=torch.int32)
-            rnd = torch.rand((MAZE_CHUNK, OUT_ROWS), generator=gen, device=DEV)
-            got = maze_slab.ms_spec(mslab.t, MAZE_CHUNK, *state, acts, rnd, mslab.cells, mslab.bg)
-            want = maze_slab.ms_spec(mcpu.t, MAZE_CHUNK, *(x.cpu() for x in (*state, acts, rnd)),
-                                     mcpu.cells, mcpu.bg)
-            e = max(e, card_equals_cpu(got, want))
-            state = got[:4]
-        roll = make_maze_episode_rollout(MAZE_LARGE, OUT_ROWS, chunk=MAZE_CHUNK)
-        states, m = roll(roll.reset(seed)[0], 2 * MAZE_CHUNK)
+        (s, _), (sc, _) = card.reset(seed + 4), cpu.reset(seed + 4)
+        (s, m), (sc, mc) = card(s, 2 * MAZE_CHUNK), cpu(sc, 2 * MAZE_CHUNK)
         check(int(m["episodes"]) > 0, "no Maze episode ended")
-        return e
+        return card_equals_cpu(state_fields(s) + [m["run_return"], m["episodes"]],
+                               state_fields(sc) + [mc["run_return"], mc["episodes"]])
 
     counts, maze_err = run_counted(maze_episode)
     check_launches(counts, {}, "the large Maze map's episode path")
@@ -2441,27 +2504,28 @@ def check_gif_frames():
     return launches
 
 
-def profile_rollout(rollout, states, name, steps=50, max_launches=None):
+def profile_rollout(rollout, states, name, steps=50, max_launches=None, forbid=()):
     """Device time by kernel and the idle share over ``steps`` steps of
     ``rollout(states, steps)`` under ``torch.profiler``."""
     profile_call(lambda: rollout(states, steps), f"{steps} {name} rollout steps", steps, "step",
-                 max_launches=max_launches)
+                 max_launches=max_launches, forbid=forbid)
 
 
-def profile_call(call, what, per, unit, tries=2, max_launches=None):
+def profile_call(call, what, per, unit, tries=2, max_launches=None, forbid=()):
     """Device time by kernel and the idle share of one ``call()`` under
     ``torch.profiler`` (``utils/profiling.py`` ``trace`` and
     ``summarize_profile``): the twelve longest kernels, and the port's own
     kernels wherever they rank; launches counted per ``per`` ``unit``s,
     and, where the trace has device time, at most ``max_launches`` in all
-    when that is given.  A short window right after a long one has come
-    back with no device record at all: the call is then profiled again, up
-    to ``tries`` times."""
+    when that is given, and no kernel whose name holds a fragment of
+    ``forbid`` (every kernel of the trace is read).  A short window right
+    after a long one has come back with no device record at all: the call
+    is then profiled again, up to ``tries`` times."""
     for attempt in range(tries):
         torch.cuda.synchronize()
         with profiling.trace() as prof:
             call()
-        summary = profiling.summarize_profile(prof, top=12)
+        summary = profiling.summarize_profile(prof, top=1000 if forbid else 12)
         if summary["device"] == "cuda":
             break
         log(f"profile of {what}, try {attempt + 1}: no device time recorded")
@@ -2474,7 +2538,9 @@ def profile_call(call, what, per, unit, tries=2, max_launches=None):
         if max_launches is not None:
             check(summary["launches"] <= max_launches,
                   f"profile of {what}: {summary['launches']} launches, more than {max_launches}")
-        rows = {(i + 1, *r) for i, r in enumerate(summary["kernels"])}
+        for key, _, _ in summary["kernels"]:
+            check(not any(f in key for f in forbid), f"profile of {what}: a kernel {key}")
+        rows = {(i + 1, *r) for i, r in enumerate(summary["kernels"][:12])}
         for rank, key, dev_us, count in sorted(rows | set(summary["port_kernels"])):
             log(f"  #{rank:<3d} {dev_us:9.1f} us  {count:5d}x  {key[:90]}")
     else:
@@ -2704,8 +2770,8 @@ SOAK_WINDOWS = 4
 #: holds the kernels of those paths to their plain versions there.
 PPO_ROWS, SWEEP_ROWS = 1 << 20, 65536
 #: The episode rollouts' K-step kernel of each family.
-EPISODE_KERNEL = {"collect": "collect_steps_philox", "ctf": "ctf_steps", "maze": "maze_steps",
-                  "wildfire": "wf_steps_philox"}
+EPISODE_KERNEL = {"collect": "collect_steps_philox", "ctf": "ctf_steps",
+                  "maze": "maze_steps_philox", "wildfire": "wf_steps_philox"}
 
 
 def episode_call_launches(family, steps):
@@ -3008,8 +3074,8 @@ def check_large_batches():
         ("collect_reset", n): check_reset_kernel(cfgs["collect"], 613, n=n),
         ("ctf_steps", n): check_ctf_steps_kernel(ms_cut["ctf"], "sweep config", 614, n=n,
                                                  chunks=(CHUNKS["ctf"],)),
-        ("maze_steps", n): check_maze_steps_kernel(cfgs["maze"], "sweep config", 615, n=n,
-                                                   chunks=(CHUNKS["maze"],)),
+        ("maze_steps_philox", n): check_maze_philox_kernel(
+            cfgs["maze"], "sweep config", 615, n=n, chunkings=((CHUNKS["maze"],),)),
         ("wf_steps_philox", n): check_wf_philox_kernel(ms_cut["wildfire"], "sweep config", 616,
                                                        n=n, chunks=(CHUNKS["wildfire"],)),
     }
@@ -3325,13 +3391,17 @@ def main():
         check_maze_step_kernel(MAZE_MAIN, "MAZE_MAIN", 100, seed=40),
         check_maze_step_kernel(MAZE_PENALTY, "MAZE_MAIN map, obstacle penalty 0.5", 100, seed=41),
     )
+    # The Maze K-step entry, its draws made and its sums kept in the
+    # kernel, against ms_philox_spec: both configs at B = 8192, 8189 and 5
+    # (no multiple of a block's 64 envs); then the episode rollout, card
+    # against CPU.
     maze_ms_err = max(
-        check_maze_steps_kernel(MAZE_MAIN, "MAZE_MAIN", seed=42),
-        check_maze_steps_kernel(MAZE_PENALTY, "MAZE_MAIN map, obstacle penalty 0.5", seed=43),
-        # Ragged batches: 8189 and 5 are no multiple of a block's 64 envs.
-        check_maze_steps_kernel(MAZE_MAIN, "MAZE_MAIN, ragged", seed=44, n=RAGGED[0]),
-        check_maze_steps_kernel(MAZE_PENALTY, "obstacle penalty, ragged", seed=45, n=RAGGED[1]),
+        check_maze_philox_kernel(cfg, name, seed=42 + 3 * i + j, n=n)
+        for i, (cfg, name) in enumerate((
+            (MAZE_MAIN, "MAZE_MAIN"), (MAZE_PENALTY, "MAZE_MAIN map, obstacle penalty 0.5")))
+        for j, n in enumerate((B, *RAGGED))
     )
+    maze_ms_err = max(maze_ms_err, check_maze_rollout_card_equals_cpu(seed=48))
     wf_err = max(
         check_wildfire_step_kernel(WF_MAIN, "WF_MAIN", 100, seed=50),
         check_wildfire_step_kernel(WF_FOUR, "10x10, 4 agents, step penalty", 100, seed=51),
@@ -3487,10 +3557,12 @@ def main():
     gen = torch.Generator(device=DEV).manual_seed(60)
     maze_args = (mslab.t, maze_states.pos, maze_states.dir.reshape(B, 1), maze_actions(gen),
                  mslab.cells)
-    maze_ms, maze_all = time_ms(lambda: maze_step_slab(*maze_args), 200)
+    maze_ms, maze_all = time_ms(lambda: maze_step_slab(*maze_args, mslab.ms_table), 200)
     maze_plain_ms, maze_plain_all = time_ms(lambda: maze_slab.step_spec(*maze_args), 20)
+    # The plain version's inputs and the outputs (the kernel reads two
+    # table entries an env in place of the cell rows).
     maze_bytes = sum(x.numel() * x.element_size() for x in maze_args[1:]) + sum(
-        x.numel() * x.element_size() for x in maze_step_slab(*maze_args))
+        x.numel() * x.element_size() for x in maze_step_slab(*maze_args, mslab.ms_table))
     maze_bound, maze_by, *maze_parts = bound(maze_bytes, B * MAZE_OPS)
     maze_reset_ms, maze_reset_all = time_ms(
         lambda: maze_slab.reset_batch(mslab, B, generator=gen, done=none_done,
@@ -3583,28 +3655,39 @@ def main():
         f"({cst_picks / 2:.0f} pickups a launch) {cst_parts[1] * 1e3:.2f} us), ms_philox_spec "
         f"{cst_plain_ms * 1e3:.1f} us {us(cst_plain_all)}")
 
-    # The Maze episode path: MAZE_CHUNK steps a launch.
+    # The Maze episode path: MAZE_CHUNK steps a launch, no maze_step.
     me_launches, (me_roll, *me_result) = run_counted(maze_episode_path)
-    check_launches(me_launches, {"maze_steps": MAZE_STEPS_PER_CALL // MAZE_CHUNK}, "Maze episode")
+    check_launches(me_launches, {"maze_steps_philox": MAZE_STEPS_PER_CALL // MAZE_CHUNK},
+                   "Maze episode")
     check_maze_path(me_roll, *me_result)
     me_states = time_rollout(me_roll, "Maze episode", me_result[2], MAZE_STEPS_PER_CALL, 1,
                              MAZE_WARMUP_MAX)
-    ms_args = (me_states.pos, me_states.dir, me_states.step_count,
-               torch.zeros((B,), device=DEV),
-               torch.randint(0, 5, (MAZE_CHUNK, B), generator=gen, device=DEV, dtype=torch.int32),
-               torch.rand((MAZE_CHUNK, B), generator=gen, device=DEV))
-    ms_ms, ms_all = time_ms(lambda: maze_ms_slab(mslab, *ms_args), 200)
-    ms_plain_ms, ms_plain_all = time_ms(
-        lambda: maze_slab.ms_spec(mslab.t, MAZE_CHUNK, *ms_args, mslab.cells, mslab.bg), 2, windows=3)
-    ms_bytes = sum(x.numel() * x.element_size() for x in (*ms_args, mslab.ms_table)) + sum(
-        x.numel() * x.element_size() for x in maze_ms_slab(mslab, *ms_args))
-    ms_ops = B * MAZE_CHUNK * MAZE_MS_OPS
-    ms_bound, ms_by, *ms_parts = bound(ms_bytes, ms_ops)
-    log(f"maze_steps: {ms_ms * 1e3:.2f} us/launch of {MAZE_CHUNK} steps (median of windows "
-        f"{us(ms_all)}), {ms_ms * 1e3 / MAZE_CHUNK:.4f} us a transition against maze_step's "
-        f"{maze_ms * 1e3:.2f}; bound {ms_bound * 1e3:.2f} us ({ms_by}; {ms_bytes} bytes take "
-        f"{ms_parts[0] * 1e3:.2f} us, {ms_ops} operations {ms_parts[1] * 1e3:.2f} us), "
-        f"ms_spec {ms_plain_ms * 1e3:.1f} us {us(ms_plain_all)}")
+    # maze_steps_philox on the episode path's states at its next step, from
+    # zero sums, as the path launches it.
+    t_m = mslab.t
+    mpx_args = (torch.add(me_states.pos[:, 1], me_states.pos[:, 0], alpha=t_m.s1),
+                me_states.dir, me_states.step_count,
+                *torch.zeros((3, B), device=DEV), torch.zeros((B,), dtype=torch.int32, device=DEV))
+    mpx_key, mpx_step = me_roll.key, me_roll.step
+    mpx_ms, mpx_all = time_ms(
+        lambda: maze_philox_slab(mslab, MAZE_CHUNK, *mpx_args, mpx_key, mpx_step), 200)
+    mpx_plain_ms, mpx_plain_all = time_ms(
+        lambda: maze_slab.ms_philox_spec(mslab, MAZE_CHUNK, *mpx_args, mpx_key, mpx_step), 2,
+        windows=3)
+    mpx_out = maze_philox_slab(mslab, MAZE_CHUNK, *mpx_args, mpx_key, mpx_step)
+    mpx_bytes = sum(x.numel() * x.element_size() for x in (*mpx_args, mslab.ms_table, *mpx_out))
+    # Per env: one Philox call a pair of steps, the two words each step
+    # reads, and the step itself.
+    mpx_calls = (mpx_step % 2 + MAZE_CHUNK + 1) // 2
+    mpx_ops = B * (mpx_calls * PHILOX_CALL_OPS
+                   + MAZE_CHUNK * (2 * PHILOX_WORD_OPS + MAZE_MS_OPS))
+    mpx_bound, mpx_by, *mpx_parts = bound(mpx_bytes, mpx_ops)
+    log(f"maze_steps_philox: {mpx_ms * 1e3:.2f} us/launch of {MAZE_CHUNK} steps (median of "
+        f"windows {us(mpx_all)}), {mpx_ms * 1e3 / MAZE_CHUNK:.4f} us a transition against "
+        f"maze_step's {maze_ms * 1e3:.2f}; bound {mpx_bound * 1e3:.2f} us ({mpx_by}; "
+        f"{mpx_bytes} bytes take {mpx_parts[0] * 1e3:.2f} us, {mpx_ops} operations "
+        f"({mpx_calls} Philox calls an env) {mpx_parts[1] * 1e3:.2f} us), ms_philox_spec "
+        f"{mpx_plain_ms * 1e3:.1f} us {us(mpx_plain_all)}")
 
     # The CtF episode path: CTF_CHUNK steps a launch.
     cte_launches, (cte_roll, *cte_result) = run_counted(ctf_episode_path)
@@ -3728,7 +3811,9 @@ def main():
     # A whole 500-step call: at most COLLECT_CALL_LAUNCHES kernels in all.
     profile_rollout(ce_roll, ce_states, "Collect episode", steps=STEPS_PER_CALL,
                     max_launches=COLLECT_CALL_LAUNCHES)
-    profile_rollout(me_roll, me_states, "Maze episode", steps=MAZE_CHUNK)
+    # A whole 1000-step call: at most MAZE_CALL_LAUNCHES kernels, no draw.
+    profile_rollout(me_roll, me_states, "Maze episode", steps=MAZE_STEPS_PER_CALL,
+                    max_launches=MAZE_CALL_LAUNCHES, forbid=DRAW_KERNELS)
     profile_rollout(cte_roll, cte_states, "CtF episode", steps=2 * CTF_CHUNK)
     profile_rollout(wfe_roll, wfe_states, "Wildfire episode", steps=4 * WF_CHUNK + 4)
     profile_call(lambda: tc_step(tc_carry, tc_gen), "one Collect training iteration",
@@ -3784,15 +3869,16 @@ def main():
          "launches": maze_launches["maze_step"], "max_abs_err": maze_err,
          "ms": maze_ms, "plain_ms": maze_plain_ms, "bound_ms": maze_bound,
          "bound_by": maze_by, "library_ms": None},
-        # The K-step entry of the same source: maze_step_slab's transition
-        # with _maze_ms_math's auto-reset (pallas_maze.py:86), 100 steps a
-        # launch on the Maze episode path.
-        {"name": "maze_steps", "route": "cuda",
+        # The K-step entry of the same source, its draws made and its sums
+        # kept in the kernel (ops/philox.py's counters): maze_step_slab's
+        # transition with _maze_ms_math's auto-reset (pallas_maze.py:86),
+        # 100 steps a launch on the Maze episode path.
+        {"name": "maze_steps_philox", "route": "cuda",
          "source": "gym_multigrid_tpu_torch/csrc/maze_step.cu",
          "replaces": "gym_multigrid_tpu/ops/pallas_maze.py:41",
-         "launches": me_launches["maze_steps"], "max_abs_err": maze_ms_err,
-         "ms": ms_ms, "plain_ms": ms_plain_ms, "bound_ms": ms_bound,
-         "bound_by": ms_by, "library_ms": None},
+         "launches": me_launches["maze_steps_philox"], "max_abs_err": maze_ms_err,
+         "ms": mpx_ms, "plain_ms": mpx_plain_ms, "bound_ms": mpx_bound,
+         "bound_by": mpx_by, "library_ms": None},
         {"name": "wildfire_step", "route": "cuda",
          "source": "gym_multigrid_tpu_torch/csrc/wildfire_step.cu",
          "replaces": "gym_multigrid_tpu/ops/pallas_wildfire.py:50",

@@ -1,6 +1,7 @@
 // Philox4x32-10 (Salmon et al., SC 2011; the Random123 library) for the
-// in-kernel draws of csrc/wildfire_step.cu's wf_steps_philox and
-// csrc/collect_steps.cu's collect_steps_philox.  The plain
+// in-kernel draws of csrc/wildfire_step.cu's wf_steps_philox,
+// csrc/collect_steps.cu's collect_steps_philox and csrc/maze_step.cu's
+// maze_steps_philox.  The plain
 // version, and the layout of the counters, is
 // gym_multigrid_tpu_torch/ops/philox.py; the two form the same words from
 // the same counters.  A CPU test checks these constants against that
@@ -17,6 +18,8 @@ constexpr int kRounds = 10;
 constexpr unsigned kActions = 0, kOrder = 1, kCells = 2, kTrees = 3, kPicks = 4;
 // The Collect streams, after Wildfire's seven.
 constexpr unsigned kCollectActions = 7, kCollectRnd = 8, kCollectFresh = 9, kCollectFirst = 10;
+// The Maze streams, after Collect's four.
+constexpr unsigned kMaze = 11, kMazeFirst = 12;
 
 struct Words {
   unsigned w[4];
@@ -46,7 +49,7 @@ __device__ __forceinline__ float uniform(unsigned x) {
   return __fmul_rn(__uint2float_rz(x >> 8), 0x1p-24f);
 }
 
-// An action id in 0..4: (x * 5) >> 32.
+// A Wildfire or Maze action id in 0..4: (x * 5) >> 32.
 __device__ __forceinline__ int action(unsigned x) { return (int)__umulhi(x, 5u); }
 
 // A Collect action id in 0..3: (x * 4) >> 32.

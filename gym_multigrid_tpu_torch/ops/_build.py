@@ -58,8 +58,8 @@ ENTRY_POINTS = {
         "ctf_steps": [_P] * 21 + [_I] * 20 + [_F] * 7 + [_P],
     },
     "maze_step.cu": {
-        "maze_step": [_P] * 8 + [_I] * 4 + [_F] * 3 + [_P],
-        "maze_steps": [_P] * 14 + [_I] * 6 + [_P],
+        "maze_step": [_P] * 9 + [_I] * 4 + [_F] * 3 + [_P],
+        "maze_steps_philox": [_P] * 15 + [_I] * 8 + [_P],
     },
     "wildfire_step.cu": {
         "wildfire_step": [_P] * 9 + [_I] * 5 + [_F] * 8 + [_P],

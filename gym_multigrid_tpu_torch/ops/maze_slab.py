@@ -9,9 +9,10 @@ and of ``gym_multigrid_tpu/ops/pallas_maze.py``: the Pallas kernel
 :func:`reset_spec`.
 
 * :func:`maze_step_slab` takes the plain version for tensors on the CPU and
-  launches the kernel for CUDA tensors; it takes every map.  The K-step
-  entry holds a table of the map in shared memory, and a slab whose table
-  does not fit takes the plain route on the episode path instead
+  launches the kernel for CUDA tensors, which reads the move from the
+  step tabulated by :func:`ms_table`; it takes every map.  The K-step
+  entry holds that table in shared memory, and a slab whose table does
+  not fit takes the plain route on the episode path instead
   (:func:`kernel_route`, decided when the slab is built): never a
   fallback.
 * The reset has no kernel, here as in the JAX package: :func:`reset_spec`
@@ -24,10 +25,14 @@ and of ``gym_multigrid_tpu/ops/pallas_maze.py``: the Pallas kernel
   ``torch.Generator``, or from an ``rnd`` tensor used as is (which is how
   the tests hold it to JAX bit for bit).
 * :func:`ms_spec` is ``_maze_ms_math``: K steps with the per-env auto-reset
-  and the return accounting.  :func:`maze_ms_slab` runs it, or for CUDA
-  tensors the kernel entry ``maze_steps`` of ``csrc/maze_step.cu``, which
-  runs all K steps in one launch; :func:`make_maze_episode_rollout` drives
-  it chunk by chunk, the counterpart of JAX's ``make_maze_episode_rollout``.
+  and the return accounting, on pre-drawn actions and uniforms.
+  :func:`ms_philox_spec` is the same on the draws of ``ops/philox.py``'s
+  ``MAZE`` counters, with the per-env sums carried in and the position
+  packed as one cell index; :func:`maze_philox_slab` runs it, or for CUDA
+  tensors the kernel entry ``maze_steps_philox`` of ``csrc/maze_step.cu``,
+  which makes its draws and runs all K steps in one launch.
+  :func:`make_maze_episode_rollout` drives it chunk by chunk, the
+  counterpart of JAX's ``make_maze_episode_rollout``.
 
 Every float constant of the step is a double rounded to float32 once,
 where the JAX package's weakly typed Python floats meet a float32 array.
@@ -53,15 +58,16 @@ from gym_multigrid_tpu_torch.envs.maze import (
     encode,
     info,
 )
-from gym_multigrid_tpu_torch.ops import _build
+from gym_multigrid_tpu_torch.ops import _build, philox
 
 # The render direction of each action: stay/left/down/right/up.
 _A2DIR = (3, 3, 2, 1, 0)
 # A direction no action gives: in the K-step table it means "unchanged".
 _KEEP_DIR = 4
 #: Shared memory a block of the K-step kernel can hold its table in: the
-#: card's 232,448 bytes a block less its two 16 KB tiles of draws.
-MS_MAX_TABLE_BYTES = 232_448 - 32_768
+#: card's 232,448 bytes a block less its ring of draws, two windows of 16
+#: steps of 64 envs' packed draws (8,192 bytes).
+MS_MAX_TABLE_BYTES = 232_448 - 2 * 16 * 64 * 4
 
 
 class MazeTables(NamedTuple):
@@ -157,11 +163,13 @@ def step_spec(t: MazeTables, pos, dirs, acts, cells):
     return torch.cat([p0, p1], dim=1), dirs, reward, terminated.to(torch.int32)
 
 
-def maze_step_slab(t: MazeTables, pos, dirs, acts, cells):
+def maze_step_slab(t: MazeTables, pos, dirs, acts, cells, table=None):
     """One transition of the batch: :func:`step_spec` for CPU tensors, the
     CUDA kernel ``csrc/maze_step.cu`` for CUDA tensors (new output tensors;
     the inputs are not changed).  Same arguments and results as
-    :func:`step_spec`."""
+    :func:`step_spec`; the kernel also reads ``table``, the map's
+    :func:`ms_table` on the same device (``MazeSlab.ms_table``), which the
+    plain version does not need."""
     if pos.device.type == "cpu":
         return step_spec(t, pos, dirs, acts, cells)
     if pos.device.type != "cuda":
@@ -169,14 +177,20 @@ def maze_step_slab(t: MazeTables, pos, dirs, acts, cells):
     B = pos.shape[0]
     if B < 1:
         raise ValueError("an empty batch has nothing to step")
+    if table is None:
+        raise ValueError("the Maze step kernel reads the map's ms_table: pass table")
     dev = pos.device
     for name, x, dtype, shape in (
         ("pos", pos, torch.int32, (B, 2)),
         ("dirs", dirs, torch.int32, (B, 1)),
         ("acts", acts, torch.int32, (B, 1)),
         ("cells", cells, torch.int32, (3, t.n_cells)),
+        ("table", table, torch.int32, (table.numel(),)),
     ):
         _build.check_arg(name, x, dtype, shape, dev)
+    if table.numel() < 2 * NUM_ACTIONS * t.n_cells:
+        raise ValueError(f"table: {table.numel()} entries, fewer than the map's "
+                         f"{2 * NUM_ACTIONS * t.n_cells} moves and rewards")
     outs = (
         torch.empty_like(pos), torch.empty_like(dirs),
         torch.empty((B, 1), dtype=torch.float32, device=dev),
@@ -188,7 +202,7 @@ def maze_step_slab(t: MazeTables, pos, dirs, acts, cells):
     with torch.cuda.device(dev):
         err = kernels.maze_step(
             pos.data_ptr(), dirs.data_ptr(), acts.data_ptr(), cells.data_ptr(),
-            *(o.data_ptr() for o in outs),
+            table.data_ptr(), *(o.data_ptr() for o in outs),
             B, t.s0, t.s1, int(t.obstacle_penalty != 0),
             t.flag_reward, t.obstacle_penalty, t.step_penalty,
             torch.cuda.current_stream(dev).cuda_stream,
@@ -237,10 +251,16 @@ def ms_spec(t: MazeTables, K: int, pos, dirs, sc, run_ret, acts, rnd, cells, bg)
     env, the sum of its rewards, the summed returns of the episodes it
     finished (float32) and how many it finished (int32), all (B,).  Every
     sum is taken one step at a time in JAX's order."""
-    B = pos.shape[0]
-    rew_sum = torch.zeros((B,), dtype=torch.float32, device=pos.device)
-    ep_sum = torch.zeros_like(rew_sum)
-    eps = torch.zeros((B,), dtype=torch.int32, device=pos.device)
+    zeros = torch.zeros((pos.shape[0],), dtype=torch.float32, device=pos.device)
+    return _ms_steps(t, K, pos, dirs, sc, run_ret, zeros, zeros,
+                     torch.zeros_like(zeros, dtype=torch.int32), acts, rnd, cells, bg)
+
+
+def _ms_steps(t: MazeTables, K: int, pos, dirs, sc, run_ret, rew_sum, ep_sum, eps, acts, rnd,
+              cells, bg):
+    """:func:`ms_spec` with its three sums started at ``rew_sum``,
+    ``ep_sum`` and ``eps`` (B,) instead of at 0: each step's terms are
+    added to them one step at a time."""
     for k in range(K):
         pos2, dirs2, reward, term = step_spec(t, pos, dirs[:, None], acts[k][:, None], cells)
         reward, sc2 = reward[:, 0], sc + 1
@@ -292,28 +312,54 @@ def ms_table_bytes(t: MazeTables, n_bg: int) -> int:
 def kernel_route(t: MazeTables, n_bg: int, device_type: str) -> bool:
     """The route of the episode path of a slab of ``t`` (``n_bg``
     background cells) on a device of this type, decided once when the slab
-    is built: True for :func:`maze_ms_slab`, which launches the K-step
-    kernel on the card and runs :func:`ms_spec` on the CPU; False for
-    :func:`ms_spec` on the device's tensors directly.  The CPU takes every
+    is built: True for :func:`maze_philox_slab`, which launches the K-step
+    kernel on the card and runs :func:`ms_philox_spec` on the CPU; False
+    for :func:`ms_philox_spec` on the device's tensors directly.  The CPU takes every
     map on the first route; off the CPU only a map whose table fits the
     kernel's shared memory (``MS_MAX_TABLE_BYTES``) does.  The one-step
     kernel takes every map, so the batch path always launches it."""
     return device_type == "cpu" or ms_table_bytes(t, n_bg) <= MS_MAX_TABLE_BYTES
 
 
-def maze_ms_slab(slab: "MazeSlab", pos, dirs, sc, run_ret, acts, rnd):
-    """K = ``acts.shape[0]`` steps of the batch with the auto-reset:
-    :func:`ms_spec` for CPU tensors, the CUDA kernel entry ``maze_steps``
-    of ``csrc/maze_step.cu`` for CUDA tensors, one launch for all K steps
-    (new output tensors; the inputs are not changed).  Same arguments and
-    results as :func:`ms_spec`, the tables taken from ``slab``.  Positions
-    must lie on the board, as every reset and step leaves them."""
-    K = acts.shape[0]
-    if pos.device.type == "cpu":
-        return ms_spec(slab.t, K, pos, dirs, sc, run_ret, acts, rnd, slab.cells, slab.bg)
-    if pos.device.type != "cuda":
-        raise ValueError(f"no Maze steps for tensors on {pos.device}")
-    B = pos.shape[0]
+def ms_philox_spec(slab: "MazeSlab", K: int, cell, dirs, sc, run_ret, rew_sum, ep_sum, eps,
+                   key, step0: int):
+    """K Maze steps of the episode path in plain PyTorch, on the draws of
+    ``ops/philox.py``'s ``MAZE`` counters: the global steps ``step0 ..
+    step0 + K - 1`` of the rollout keyed by ``key``.  The plain version of
+    :func:`maze_philox_slab`.
+
+    cell (B,) int32, each position packed as ``row * S1 + col``; dirs, sc
+    (B,) int32; run_ret (B,) float32; rew_sum, ep_sum (B,) float32 and eps
+    (B,) int32, the sums so far, to which each step's terms are added one
+    step at a time in ``_maze_ms_math``'s order.  Forms the actions and the
+    spawn uniforms from the counters (``philox.maze_draws``) and runs
+    :func:`ms_spec`'s steps on them.  Returns (cell, dirs, sc, run_ret,
+    rew_sum, ep_sum, eps) after the K steps."""
+    t, s1 = slab.t, slab.t.s1
+    acts, rnd = philox.maze_draws(key, step0, K, cell.shape[0], cell.device)
+    pos = torch.stack([cell // s1, cell % s1], dim=1)
+    pos, *rest = _ms_steps(t, K, pos, dirs, sc, run_ret, rew_sum, ep_sum, eps, acts, rnd,
+                           slab.cells, slab.bg)
+    return (pos[:, 0] * s1 + pos[:, 1], *rest)
+
+
+def maze_philox_slab(slab: "MazeSlab", K: int, cell, dirs, sc, run_ret, rew_sum, ep_sum, eps,
+                     key, step0: int):
+    """K steps of the Maze episode path: :func:`ms_philox_spec` for CPU
+    tensors, the CUDA kernel entry ``maze_steps_philox`` of
+    ``csrc/maze_step.cu`` for CUDA tensors, one launch for all K steps that
+    makes each draw where it is read and reads no action or uniform from
+    memory (new output tensors; the inputs are not changed).  Same
+    arguments and results as :func:`ms_philox_spec`.  The kernel holds
+    ``slab.ms_table`` in shared memory: a map whose table does not fit
+    takes :func:`ms_philox_spec` on its device by the slab's route
+    (:func:`kernel_route`), and this wrapper refuses it.  Cells must lie
+    on the board, as every reset and step leaves them."""
+    if cell.device.type == "cpu":
+        return ms_philox_spec(slab, K, cell, dirs, sc, run_ret, rew_sum, ep_sum, eps, key, step0)
+    if cell.device.type != "cuda":
+        raise ValueError(f"no Maze steps for tensors on {cell.device}")
+    B = cell.shape[0]
     if B < 1 or K < 1:
         raise ValueError(f"nothing to step: {B} envs, {K} steps")
     table = slab.ms_table
@@ -322,39 +368,34 @@ def maze_ms_slab(slab: "MazeSlab", pos, dirs, sc, run_ret, acts, rnd):
             f"the Maze K-step kernel holds its table in at most {MS_MAX_TABLE_BYTES} "
             f"bytes of shared memory; this map needs {table.numel() * 4}"
         )
-    dev = pos.device
-    for name, x, dtype, shape in (
-        ("pos", pos, torch.int32, (B, 2)),
-        ("dirs", dirs, torch.int32, (B,)),
-        ("sc", sc, torch.int32, (B,)),
-        ("run_ret", run_ret, torch.float32, (B,)),
-        ("acts", acts, torch.int32, (K, B)),
-        ("rnd", rnd, torch.float32, (K, B)),
-        ("table", table, torch.int32, (table.numel(),)),
-    ):
-        _build.check_arg(name, x, dtype, shape, dev)
-    outs = (
-        torch.empty_like(pos), torch.empty_like(dirs), torch.empty_like(sc),
-        torch.empty_like(run_ret), torch.empty_like(run_ret), torch.empty_like(run_ret),
-        torch.empty_like(sc),
-    )
+    dev = cell.device
+    ints, floats = (cell, dirs, sc, eps), (run_ret, rew_sum, ep_sum)
+    for name, x in zip(("cell", "dirs", "sc", "eps"), ints):
+        _build.check_arg(name, x, torch.int32, (B,), dev)
+    for name, x in zip(("run_ret", "rew_sum", "ep_sum"), floats):
+        _build.check_arg(name, x, torch.float32, (B,), dev)
+    _build.check_arg("table", table, torch.int32, (table.numel(),), dev)
+    # One allocation for the seven outputs, the float rows viewed as such.
+    out = torch.empty((7, B), dtype=torch.int32, device=dev)
     kernels = _build.load()
     with torch.cuda.device(dev):
-        err = kernels.maze_steps(
-            pos.data_ptr(), dirs.data_ptr(), sc.data_ptr(), run_ret.data_ptr(),
-            acts.data_ptr(), rnd.data_ptr(), table.data_ptr(),
-            *(o.data_ptr() for o in outs),
-            B, K, slab.t.s1, slab.t.n_cells * NUM_ACTIONS, slab.bg.shape[1],
-            slab.t.max_steps, torch.cuda.current_stream(dev).cuda_stream,
+        err = kernels.maze_steps_philox(
+            cell.data_ptr(), dirs.data_ptr(), sc.data_ptr(), run_ret.data_ptr(),
+            rew_sum.data_ptr(), ep_sum.data_ptr(), eps.data_ptr(), table.data_ptr(),
+            *(row.data_ptr() for row in out),
+            B, K, slab.t.n_cells * NUM_ACTIONS, slab.bg.shape[1], slab.t.max_steps,
+            *(philox.signed(w) for w in (*key, step0)),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if err:
-        raise RuntimeError(f"maze_steps kernel launch failed: CUDA error {err}")
-    maze_ms_slab.launches += 1
-    return outs
+        raise RuntimeError(f"maze_steps_philox kernel launch failed: CUDA error {err}")
+    maze_philox_slab.launches += 1
+    as_float = out[3:6].view(torch.float32)
+    return out[0], out[1], out[2], as_float[0], as_float[1], as_float[2], out[6]
 
 
 #: Launches of the K-step kernel since the count was last set to 0.
-maze_ms_slab.launches = 0
+maze_philox_slab.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -371,10 +412,13 @@ class MazeSlab:
     t: MazeTables
     cells: torch.Tensor  # (3, N) int32
     bg: torch.Tensor  # (2, n_bg) int32
-    ms_table: torch.Tensor  # the K-step kernel's table (:func:`ms_table`)
+    ms_table: torch.Tensor  # the kernels' table (:func:`ms_table`)
     #: The episode path's route (:func:`kernel_route`): the K-step kernel
-    #: wrapper, or :func:`ms_spec` on the slab's device.
+    #: wrapper, or :func:`ms_philox_spec` on the slab's device.
     kernel: bool
+    #: (N, 2) int32: the (row, col) of each cell index, one gather to
+    #: unpack the episode path's packed positions.
+    cell_pos: torch.Tensor
 
     #: Uniforms one env's reset takes; the step takes none.
     reset_draws = 1
@@ -382,17 +426,19 @@ class MazeSlab:
 
 def make_maze_slab(cfg: MazeConfig, device) -> MazeSlab:
     """The slab of ``cfg`` on ``device``.  The one-step kernel takes any
-    map: it reads the cell rows through the read-only cache.  The K-step
-    kernel holds :func:`ms_table` in shared memory, and the episode path of
-    a map whose table does not fit runs :func:`ms_spec` on the card
+    map: it reads :func:`ms_table` through the read-only cache.  The K-step
+    kernel holds that table in shared memory, and the episode path of a
+    map whose table does not fit runs :func:`ms_philox_spec` on the card
     (:func:`kernel_route`)."""
     device = torch.device(device)
     cells, bg = maze_static_inputs(cfg, device)
     if bg.shape[1] == 0:
         raise ValueError("the map has no background cell to spawn on")
     t = maze_tables(cfg)
+    cell = torch.arange(t.n_cells, dtype=torch.int32, device=device)
     return MazeSlab(cfg, device, t, cells, bg, ms_table(t, cells, bg),
-                    kernel_route(t, bg.shape[1], device.type))
+                    kernel_route(t, bg.shape[1], device.type),
+                    torch.stack([cell // t.s1, cell % t.s1], dim=1))
 
 
 def step_batch(
@@ -418,6 +464,7 @@ def step_batch(
         states.dir.reshape(B, 1),
         actions.reshape(B, 1).to(torch.int32).contiguous(),
         slab.cells,
+        slab.ms_table,
     )
     step_count = states.step_count + 1
     new_states = MazeState(pos=pos, dir=dirs.reshape(B), step_count=step_count)
@@ -465,58 +512,64 @@ def reset_batch(
 # ---------------------------------------------------------------------------
 
 
-@dataclass(frozen=True, eq=False)
+@dataclass(eq=False)
 class MazeEpisodeRollout:
     """``rollout(states, num_steps)`` of a batch of Maze envs, ``chunk``
-    steps a kernel launch (:func:`make_maze_episode_rollout`)."""
+    steps a kernel launch (:func:`make_maze_episode_rollout`).  Its draws
+    come from the counters of ``ops/philox.py``: ``key``, set by
+    :meth:`reset`, and ``step``, the running count of the steps taken since
+    then, kept on the host."""
 
     slab: MazeSlab
     num_envs: int
-    generator: torch.Generator
     chunk: int
+    key: tuple[int, int] = (0, 0)
+    step: int = 0
 
     @property
     def cfg(self) -> MazeConfig:
         return self.slab.cfg
 
     def reset(self, seed: int):
-        """Seed the generator and reset every env: (states, obs)."""
-        self.generator.manual_seed(seed)
-        states = reset_batch(self.slab, self.num_envs, generator=self.generator)
+        """Key the draws by ``seed``, set the step count to 0 and reset
+        every env from the first reset's counters (``MAZE_FIRST``):
+        (states, obs)."""
+        self.key, self.step = philox.key_of(seed), 0
+        rnd = philox.maze_first_reset_draws(self.key, self.num_envs, self.slab.device)
+        states = reset_batch(self.slab, self.num_envs, rnd=rnd)
         return states, encode(self.cfg, states)
 
     def __call__(self, states: MazeState, num_steps: int, run_return=None):
         """``num_steps`` steps with uniform random actions and the auto-reset;
         returns (states, metrics) with ``BatchedEnv.rollout``'s metrics.
-        Each chunk of K steps draws its (K, B) actions and spawn uniforms
-        in two calls and runs as one :func:`maze_ms_slab` (on the plain
-        route, :func:`ms_spec`); a last chunk covers ``num_steps % chunk``.
-        Nothing in the loop waits for the device."""
-        B, dev = self.num_envs, self.slab.device
-        run_ret = (torch.zeros((B,), dtype=torch.float32, device=dev)
-                   if run_return is None else run_return)
-        reward_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        ep_ret_sum = torch.zeros_like(reward_sum)
-        episodes = torch.zeros((), dtype=torch.int32, device=dev)
-        pos, dirs, sc = states.pos, states.dir, states.step_count
+
+        The sums start at 0 in one fill and the positions are packed once
+        (``row * S1 + col``); each chunk of K steps is then one
+        :func:`maze_philox_slab` (one ``maze_steps_philox`` launch on the
+        card; on the plain route :func:`ms_philox_spec`) at the running
+        step count, which then grows by K, carrying each env's sums; a
+        last chunk covers ``num_steps % chunk``.  The sums are reduced and
+        the positions unpacked once at the end.  How the steps are cut into
+        chunks changes nothing, and nothing in the loop waits for the
+        device."""
+        slab, B, dev, t = self.slab, self.num_envs, self.slab.device, self.slab.t
+        # One fill: run_return, the reward and episode-return sums, and the
+        # episode counts (zero bits are 0.0).
+        zeros = torch.zeros((4, B), dtype=torch.int32, device=dev)
+        floats = zeros[:3].view(torch.float32)
+        run_ret = floats[0] if run_return is None else run_return
+        cell = torch.add(states.pos[:, 1], states.pos[:, 0], alpha=t.s1)
+        state = (cell, states.dir, states.step_count, run_ret, floats[1], floats[2], zeros[3])
+        steps = maze_philox_slab if slab.kernel else ms_philox_spec
         for start in range(0, num_steps, self.chunk):
             K = min(self.chunk, num_steps - start)
-            acts = torch.randint(0, NUM_ACTIONS, (K, B), generator=self.generator,
-                                 device=dev, dtype=torch.int32)
-            rnd = torch.rand((K, B), generator=self.generator, device=dev)
-            if self.slab.kernel:
-                out = maze_ms_slab(self.slab, pos, dirs, sc, run_ret, acts, rnd)
-            else:
-                out = ms_spec(self.slab.t, K, pos, dirs, sc, run_ret, acts, rnd,
-                              self.slab.cells, self.slab.bg)
-            pos, dirs, sc, run_ret, rew, ep, eps = out
-            reward_sum = reward_sum + rew.sum()
-            ep_ret_sum = ep_ret_sum + ep.sum()
-            episodes = episodes + eps.sum(dtype=torch.int32)
-        return MazeState(pos=pos, dir=dirs, step_count=sc), {
-            "reward_sum": reward_sum,
-            "episodes": episodes,
-            "ep_return_sum": ep_ret_sum,
+            state = steps(slab, K, *state, self.key, self.step)
+            self.step += K
+        cell, dirs, sc, run_ret, rew, ep, eps = state
+        return MazeState(pos=slab.cell_pos.index_select(0, cell), dir=dirs, step_count=sc), {
+            "reward_sum": rew.sum(),
+            "episodes": eps.sum(dtype=torch.int32),
+            "ep_return_sum": ep.sum(),
             "run_return": run_ret,
         }
 
@@ -526,15 +579,16 @@ def make_maze_episode_rollout(
 ) -> MazeEpisodeRollout:
     """The Maze episode rollout: the counterpart of JAX's
     ``make_maze_episode_rollout`` (``ops/pallas_maze.py``), one kernel
-    launch a chunk of steps instead of ``BatchedEnv``'s one a step.
+    launch a chunk of steps, which makes its own draws and keeps the sums,
+    instead of ``BatchedEnv``'s one a step.  The draws are counter-based
+    (``ops/philox.py``), so a seed gives the same trajectory on the CPU and
+    on the card.
 
     ``reset(seed)`` gives fresh states; ``rollout(states, num_steps)`` (the
     object is callable) steps them.  The default device is the current
     CUDA device; with no CUDA device and no explicit ``device`` this
-    raises, and ``device="cpu"`` runs :func:`ms_spec`."""
+    raises, and ``device="cpu"`` runs :func:`ms_philox_spec`."""
     device = _build.default_device(device, "make_maze_episode_rollout")
     if chunk < 1:
         raise ValueError(f"chunk must be at least 1, got {chunk}")
-    return MazeEpisodeRollout(
-        make_maze_slab(cfg, device), num_envs, torch.Generator(device=device), chunk
-    )
+    return MazeEpisodeRollout(make_maze_slab(cfg, device), num_envs, chunk)

@@ -1,18 +1,20 @@
-"""Philox4x32-10, the counter-based generator of the Wildfire and Collect
-episode paths, in plain PyTorch integer ops on any device, and the layout
+"""Philox4x32-10, the counter-based generator of the Wildfire, Collect and
+Maze episode paths, in plain PyTorch integer ops on any device, and the layout
 of its counters.
 
 Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
 3", SC 2011; the Random123 library) maps a 128-bit counter and a 64-bit key
 to four 32-bit words.  The CUDA entries ``wf_steps_philox`` of
-``csrc/wildfire_step.cu`` and ``collect_steps_philox`` of
-``csrc/collect_steps.cu`` form the same words from the same counters, so
+``csrc/wildfire_step.cu``, ``collect_steps_philox`` of
+``csrc/collect_steps.cu`` and ``maze_steps_philox`` of
+``csrc/maze_step.cu`` form the same words from the same counters, so
 the plain versions and the kernels draw the same numbers without either
 storing them, and a seed fixes a trajectory on every device.
 
 A word ``x`` becomes the uniform ``(x >> 8) * 2**-24``, exact in float32,
-the Wildfire action id ``(x * 5) >> 32``, uniform over 0..4 up to
-5 / 2**32, and the Collect action id ``(x * 4) >> 32``, uniform over 0..3.
+the Wildfire and Maze action id ``(x * 5) >> 32``, uniform over 0..4 up
+to 5 / 2**32, and the Collect action id ``(x * 4) >> 32``, uniform over
+0..3.
 
 Counter layout, (c0, c1, c2, c3) = (index, env b, global step s, stream):
 
@@ -39,8 +41,18 @@ The Collect streams follow, so that no stream is shared:
   word ``i % 4`` of index ``i // 4``;
 * ``COLLECT_FIRST``: the same for the boards of the first reset, at step 0.
 
+The Maze streams follow Collect's:
+
+* ``MAZE``: two words a step, one call for two steps: step s takes words
+  ``2 (s & 1)`` (the action id) and ``2 (s & 1) + 1`` (the spawn uniform)
+  of index 0 at step counter ``s >> 1``, so the steps 2c and 2c + 1 share
+  the call (0, b, c, MAZE);
+* ``MAZE_FIRST``: word 0 of index 0 at step 0, the spawn uniform of the
+  first reset.
+
 ``s`` is the rollout's running step count (modulo 2**32), so how the steps
-are cut into chunks changes no draw; the fresh board an env takes after
+are cut into chunks changes no draw (a Maze chunk may start at an odd
+step); the fresh board an env takes after
 step ``s`` uses step ``s``'s ``TREES`` and ``PICKS``.  The key is the seed's
 low and high 32 bits.
 """
@@ -56,7 +68,8 @@ MASK32 = 0xFFFFFFFF
 
 ACTIONS, ORDER, CELLS, TREES, PICKS, FIRST_TREES, FIRST_PICKS = range(7)
 COLLECT_ACTIONS, COLLECT_RND, COLLECT_FRESH, COLLECT_FIRST = range(7, 11)
-#: Wildfire action ids the words map to, 0..NUM_ACTIONS - 1.
+MAZE, MAZE_FIRST = range(11, 13)
+#: Wildfire and Maze action ids the words map to, 0..NUM_ACTIONS - 1.
 NUM_ACTIONS = 5
 #: Collect action ids the words map to, 0..NUM_COLLECT_ACTIONS - 1.
 NUM_COLLECT_ACTIONS = 4
@@ -185,3 +198,23 @@ def collect_first_reset_draws(key, envs: int, n: int, device):
     """(B, n) float32: the first reset's uniforms."""
     steps = torch.zeros((1,), dtype=torch.int64, device=device)
     return collect_fresh_draws(key, steps, envs, n, device, COLLECT_FIRST)[0]
+
+
+def maze_draws(key, step0: int, K: int, envs: int, device):
+    """The draws of the Maze episode steps ``step0 .. step0 + K - 1`` in
+    the form ``ms_spec`` takes: action ids (K, B) int32 in 0..4 and spawn
+    uniforms (K, B) float32.  Step s reads words ``2 (s & 1)`` and
+    ``2 (s & 1) + 1`` of the ``MAZE`` call at step counter ``s >> 1``."""
+    s = (step0 + torch.arange(K, dtype=torch.int64, device=device)) & MASK32
+    b = torch.arange(envs, dtype=torch.int64, device=device)
+    words = torch.stack(philox(0, b[None, :], (s >> 1)[:, None], MAZE, key), dim=2)  # (K, B, 4)
+    first = (2 * (s & 1))[:, None, None].expand(K, envs, 1)
+    return (action(words.gather(2, first)[..., 0]),
+            uniform(words.gather(2, first + 1)[..., 0]))
+
+
+def maze_first_reset_draws(key, envs: int, device):
+    """(B, 1) float32: the first reset's spawn uniforms, word 0 of the
+    ``MAZE_FIRST`` call at step 0."""
+    b = torch.arange(envs, dtype=torch.int64, device=device)
+    return uniform(philox(0, b, 0, MAZE_FIRST, key)[0])[:, None]

@@ -22,6 +22,7 @@ Not ported on purpose (``README.md`` lists them):
 from __future__ import annotations
 
 import os
+import weakref
 from dataclasses import dataclass
 from typing import Any
 
@@ -46,9 +47,13 @@ class Mesh:
     device: torch.device
 
 
-#: The group :func:`distributed_initialize` made and the device it chose
-#: for this rank.
-_joined: tuple[Any, torch.device] | None = None
+#: A weak reference to the group :func:`distributed_initialize` made, and
+#: the device it chose for this rank.  Weak, so that
+#: ``destroy_process_group`` frees the group there and then: a gloo group
+#: still held when the interpreter exits is torn down during its
+#: finalization, where it aborted a rank now and then ("terminate called
+#: without an active exception").
+_joined: tuple[weakref.ref, torch.device] | None = None
 
 
 def distributed_initialize(backend: str | None = None, init_method: str | None = None,
@@ -84,7 +89,7 @@ def distributed_initialize(backend: str | None = None, init_method: str | None =
         backend, init_method=init_method,
         rank=-1 if rank is None else rank, world_size=-1 if world_size is None else world_size,
     )
-    _joined = (dist.group.WORLD, device)
+    _joined = (weakref.ref(dist.group.WORLD), device)
 
 
 def make_mesh(n_devices: int | None = None, model_parallel: int = 1) -> Mesh:
@@ -105,11 +110,13 @@ def make_mesh(n_devices: int | None = None, model_parallel: int = 1) -> Mesh:
     world_size, rank = dist.get_world_size(), dist.get_rank()
     if n_devices is not None and n_devices != world_size:
         raise ValueError(f"n_devices={n_devices}, but the process group has {world_size} ranks")
-    if _joined is not None and _joined[0] is dist.group.WORLD:
+    if _joined is not None and _joined[0]() is dist.group.WORLD:
         device = _joined[1]
     else:
         device = _build.default_device(None, "make_mesh")
-    return Mesh(group=dist.group.WORLD, world_size=world_size, rank=rank, device=device)
+    # The default group as None: a mesh holds no reference that would keep
+    # the group alive past destroy_process_group.
+    return Mesh(group=None, world_size=world_size, rank=rank, device=device)
 
 
 def shard_batch_tree(tree: Any, mesh: Mesh) -> Any:

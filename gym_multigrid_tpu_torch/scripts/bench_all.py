@@ -123,7 +123,8 @@ def kernel_wrappers() -> dict:
             "collect_reset": collect_slab.collect_reset_slab,
             "collect_steps_philox": collect_slab.collect_philox_slab,
             "ctf_step": ctf_slab.ctf_step_slab, "ctf_steps": ctf_slab.ctf_ms_slab,
-            "maze_step": maze_slab.maze_step_slab, "maze_steps": maze_slab.maze_ms_slab,
+            "maze_step": maze_slab.maze_step_slab,
+            "maze_steps_philox": maze_slab.maze_philox_slab,
             "wildfire_step": wildfire_slab.wildfire_step_slab,
             "wf_steps_philox": wildfire_slab.wf_philox_slab}
 

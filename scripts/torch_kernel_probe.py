@@ -3,6 +3,7 @@
     python3 scripts/torch_kernel_probe.py [--reset-variant FILE.cu ...]
                                           [--collect-variant FILE.cu ...]
                                           [--maze-variant FILE.cu ...]
+                                          [--maze-philox-variant FILE.cu ...]
                                           [--ctf-variant FILE.cu ...]
                                           [--wf-variant FILE.cu ...]
                                           [--only reset|collect|maze|ctf|wildfire ...]
@@ -26,10 +27,28 @@ From the root of a checkout, with a CUDA device and ``nvcc``.  It
    all rows, and masked with no row done.  A variant may have the
    checkout's C interface or the one before ``ResetArrays.words`` (the
    wall and rects as bool rows);
-5. times ``maze_steps`` (the checkout's and each variant with its C
-   interface) at K in (1, 25, 100) and B in (64, 8192), and the one-step
-   ``maze_step``, so the launch floor and the per-step latency of one
-   env's chain can be read apart;
+5. checks ``maze_steps_philox`` at each of its builds (Q = 1, 2 and 4
+   draw threads an env at a window of W = 16 steps, and W = 8 and 32 at
+   Q = 2: the checkout's source built with ``-DMAZE_STEPS_PRODUCERS=Q``
+   and ``-DMAZE_STEPS_WINDOW=W``, the port's build where both are its
+   defaults) bit-equal to ``ms_philox_spec`` on ``MAZE_MAIN`` (K in (1,
+   25, 100) from an even and an odd step, B in (64, 8192)), times each
+   there, then every build in turns at K = 100 and B = 8192 (in order,
+   then reversed, twice) with each ``--maze-philox-variant`` (a source
+   with the checkout's ``maze_steps_philox`` interface, checked the same
+   way) and each
+   ``--maze-variant`` (a source with the pre-drawn entry ``maze_steps``,
+   such as an older checkout's ``maze_step.cu``: checked against
+   ``ms_spec`` on pre-drawn draws and timed alone and with the chunk's two
+   draws, ``torch.randint`` and ``torch.rand``, as its episode path made
+   them); and checks the one-step ``maze_step`` at blocks of 64, 128 (the
+   port's build) and 256 threads (``-DMAZE_STEP_THREADS``) and each
+   variant's (its C interface without the table) bit-equal to
+   ``step_spec`` with invalid ids mixed in, and times them in turns at
+   B = 8192 beside the launch floor, so that the floor and the per-step
+   latency of one env's chain can be read apart; and writes the SASS of
+   ``maze_steps_philox``'s kernel in the port's build to ``chiprun_out/``
+   with the static instructions of its largest loop (the chain's window);
 6. checks ``collect_steps_philox`` at each of its lanes an env (G = 4,
    the checkout's build, and G = 1 and 8, the checkout's source built with
    ``-DCOLLECT_STEPS_GROUP=1`` or ``8``) bit-equal to ``ms_philox_spec``
@@ -188,7 +207,8 @@ class Reset:
 
 
 def maze_runner(fn, slab):
-    """``maze_steps`` through ``fn`` with ``maze_ms_slab``'s arguments."""
+    """The pre-drawn entry ``maze_steps`` of an older ``maze_step.cu``
+    through ``fn``, with ``ms_spec``'s arguments and results."""
     def run(pos, dirs, sc, run_ret, acts, rnd):
         n, K = pos.shape[0], acts.shape[0]
         outs = (torch.empty_like(pos), torch.empty_like(dirs), torch.empty_like(sc),
@@ -358,6 +378,7 @@ def main():
     parser.add_argument("--reset-variant", type=Path, action="append", default=[])
     parser.add_argument("--collect-variant", type=Path, action="append", default=[])
     parser.add_argument("--maze-variant", type=Path, action="append", default=[])
+    parser.add_argument("--maze-philox-variant", type=Path, action="append", default=[])
     parser.add_argument("--ctf-variant", type=Path, action="append", default=[])
     parser.add_argument("--wf-variant", type=Path, action="append", default=[])
     parser.add_argument("--only", action="append", default=[],
@@ -395,7 +416,8 @@ def main():
     if "collect" in sections:
         record.update(probe_collect(args.collect_variant, probe_dir, gen, smi))
     if "maze" in sections:
-        record.update(probe_maze(args.maze_variant, kernels, probe_dir, gen, smi))
+        record.update(probe_maze(args.maze_variant, args.maze_philox_variant, kernels,
+                                 probe_dir, gen, smi))
     if "ctf" in sections:
         record.update(probe_ctf(args.ctf_variant, kernels, probe_dir, gen, smi))
     if "wildfire" in sections:
@@ -825,31 +847,149 @@ def probe_resets(variants, probe_dir, gen, smi):
     return record
 
 
-def probe_maze(variants, kernels, probe_dir, gen, smi):
-    """Section 5: maze_steps against the launch floor and the chain."""
+#: ``maze_steps_philox``'s builds as (draw threads an env, window steps),
+#: and the thread counts of ``maze_step``'s blocks.
+MAZE_BUILDS = ((1, 16), (2, 16), (4, 16), (2, 8), (2, 32))
+MAZE_STEP_THREADS = (64, 128, 256)
+
+
+def maze_philox_runner(fn, slab):
+    """``maze_steps_philox`` of a build through ``fn``, with
+    ``maze_philox_slab``'s arguments and results."""
+    def run(K, cell, dirs, sc, run_ret, rew, ep, eps, key, step0):
+        n = cell.shape[0]
+        out = torch.empty((7, n), dtype=torch.int32, device=DEV)
+        err = fn(*(x.data_ptr() for x in (cell, dirs, sc, run_ret, rew, ep, eps,
+                                           slab.ms_table)),
+                 *(row.data_ptr() for row in out), n, K, slab.t.n_cells * 5, slab.bg.shape[1],
+                 slab.t.max_steps, *(philox.signed(w) for w in (*key, step0)),
+                 torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"maze_steps_philox: CUDA error {err}"
+        floats = out[3:6].view(torch.float32)
+        return out[0], out[1], out[2], floats[0], floats[1], floats[2], out[6]
+    return run
+
+
+def maze_step_runner(fn, slab, with_table):
+    """``maze_step`` of a build through ``fn``: ``maze_step_slab``'s
+    arguments and results; ``with_table`` False for the C interface from
+    before the table (the cell rows only)."""
+    t = slab.t
+
+    def run(pos, dirs, acts):
+        n = pos.shape[0]
+        outs = (torch.empty_like(pos), torch.empty_like(dirs),
+                torch.empty((n, 1), device=DEV), torch.empty_like(dirs))
+        tables = (slab.cells, slab.ms_table) if with_table else (slab.cells,)
+        err = fn(pos.data_ptr(), dirs.data_ptr(), acts.data_ptr(),
+                 *(x.data_ptr() for x in tables), *(o.data_ptr() for o in outs), n, t.s0, t.s1,
+                 int(t.obstacle_penalty != 0), t.flag_reward, t.obstacle_penalty,
+                 t.step_penalty, torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"maze_step: CUDA error {err}"
+        return outs
+    return run
+
+
+def probe_maze(variants, philox_variants, kernels, probe_dir, gen, smi):
+    """Section 5: ``maze_steps_philox`` at each build against the pre-drawn
+    variants, and ``maze_step`` at each block size against the variants'
+    one-step entry, each checked bit-equal to its plain version."""
     mslab = maze_slab.make_maze_slab(MAZE_MAIN, DEV)
-    mazes = [("checkout", maze_runner(kernels.maze_steps, mslab))]
+    source = _build.CSRC / "maze_step.cu"
+    text = source.read_text()
+    default = tuple(int(re.search(rf"#define MAZE_STEPS_{k} (\d+)", text).group(1))
+                    for k in ("PRODUCERS", "WINDOW"))
+    builds = {f"Q={qn} W={w}": maze_philox_runner(
+        kernels.maze_steps_philox if (qn, w) == default else
+        entry(nvcc_build(source, probe_dir / f"maze_steps_q{qn}_w{w}.so",
+                         f"-DMAZE_STEPS_PRODUCERS={qn}", f"-DMAZE_STEPS_WINDOW={w}"),
+              source, "maze_steps_philox"), mslab)
+        for qn, w in MAZE_BUILDS}
+    for i, path in enumerate(philox_variants):
+        lib = nvcc_build(path, probe_dir / f"maze_philox_{i}.so")
+        builds[path.stem] = maze_philox_runner(entry(lib, path, "maze_steps_philox"), mslab)
+    out_dir = ROOT / "chiprun_out"
+    n_sass = sass_loop(_build.library_path("maze_step.cu"), "philox_steps_kernel",
+                       out_dir / "maze_steps_philox.sass")
+    log(f"maze_steps_philox (port's build): {n_sass} static SASS instructions in its largest loop")
+    default_threads = int(re.search(r"#define MAZE_STEP_THREADS (\d+)", text).group(1))
+    steps = {n_threads: maze_step_runner(
+        kernels.maze_step if n_threads == default_threads else
+        entry(nvcc_build(source, probe_dir / f"maze_step_t{n_threads}.so",
+                         f"-DMAZE_STEP_THREADS={n_threads}"), source, "maze_step"), mslab, True)
+        for n_threads in MAZE_STEP_THREADS}
+    olds = []
     for i, path in enumerate(variants):
         lib = nvcc_build(path, probe_dir / f"maze_{i}.so")
-        mazes.append((path.stem, maze_runner(entry(lib, path, "maze_steps"), mslab)))
-    maze = {}
+        one = entry(lib, path, "maze_step")
+        olds.append((path.stem, maze_runner(entry(lib, path, "maze_steps"), mslab),
+                     maze_step_runner(one, mslab, len(one.argtypes) == 17)))
+
+    def start(n, seed):
+        key = philox.key_of(seed)
+        st = maze_slab.reset_batch(mslab, n, rnd=philox.maze_first_reset_draws(key, n, DEV))
+        zeros = torch.zeros((3, n), device=DEV)
+        return key, (st.pos[:, 0] * mslab.t.s1 + st.pos[:, 1], st.dir, st.step_count, *zeros,
+                     torch.zeros((n,), dtype=torch.int32, device=DEV)), st
+
+    out = {}
     for n in (64, B):
-        st = maze_slab.reset_batch(mslab, n, generator=gen)
-        one = (mslab.t, st.pos, st.dir.reshape(n, 1),
-               torch.zeros((n, 1), dtype=torch.int32, device=DEV), mslab.cells)
-        maze[f"maze_step B={n}"] = time_ms(lambda: maze_slab.maze_step_slab(*one), 200)[0] * 1e3
+        key, state, st = start(n, n)
         for K in (1, 25, 100):
-            a = torch.randint(-1, 7, (K, n), generator=gen, device=DEV, dtype=torch.int32)
-            r = torch.rand((K, n), generator=gen, device=DEV)
+            for step0 in (0, 37):
+                want = maze_slab.ms_philox_spec(mslab, K, *state, key, step0)
+                for g, run in builds.items():
+                    assert all(torch.equal(a, b) for a, b in
+                               zip(run(K, *state, key, step0), want)), (g, K, n, step0)
+            for g, run in builds.items():
+                out[f"maze_steps_philox {g} K={K} B={n}"] = (
+                    time_ms(lambda: run(K, *state, key, 0), 200)[0] * 1e3)
+        acts = torch.randint(-1, 10, (n, 1), generator=gen, device=DEV, dtype=torch.int32)
+        one = (st.pos, st.dir.reshape(n, 1), acts)
+        want = maze_slab.step_spec(mslab.t, *one, mslab.cells)
+        for name, run in [(f"{t} threads", r) for t, r in steps.items()] + [
+                (name, r) for name, _, r in olds]:
+            assert all(torch.equal(a, b) for a, b in zip(run(*one), want)), (name, n)
+        for name, ms_run, _ in olds:
+            a = torch.randint(-1, 7, (100, n), generator=gen, device=DEV, dtype=torch.int32)
+            r = torch.rand((100, n), generator=gen, device=DEV)
             ms = (st.pos, st.dir, st.step_count, torch.rand(n, generator=gen, device=DEV), a, r)
-            ms_want = maze_slab.ms_spec(mslab.t, K, *ms, mslab.cells, mslab.bg)
-            for name, run in mazes:
-                assert all(torch.equal(g, w) for g, w in zip(run(*ms), ms_want)), name
-                maze[f"maze_steps {name} K={K} B={n}"] = time_ms(lambda: run(*ms), 200)[0] * 1e3
-    log(f"every maze_steps build == ms_spec at K in (1, 25, 100), B in (64, {B}): bit-equal")
-    for key, t in maze.items():
-        log(f"{key}: {t:.2f} us/launch ({smi})")
-    return {"maze_us": maze}
+            want = maze_slab.ms_spec(mslab.t, 100, *ms, mslab.cells, mslab.bg)
+            assert all(torch.equal(g, w) for g, w in zip(ms_run(*ms), want)), name
+    log(f"maze_steps_philox at every build == ms_philox_spec at K in (1, 25, 100) from steps 0 "
+        f"and 37, B in (64, {B}); maze_step at every block size and each variant's == "
+        f"step_spec: bit-equal")
+
+    # In turns at B = 8192: the K-step builds at K = 100, then maze_step.
+    key, state, st = start(B, 5)
+    runners = [(f"maze_steps_philox {g}", lambda run=run: run(100, *state, key, 0))
+               for g, run in builds.items()]
+    a = torch.randint(0, 5, (100, B), generator=gen, device=DEV, dtype=torch.int32)
+    r = torch.rand((100, B), generator=gen, device=DEV)
+    ms = (st.pos, st.dir, st.step_count, torch.zeros(B, device=DEV), a, r)
+    for name, ms_run, _ in olds:
+        runners.append((f"{name} maze_steps (pre-drawn)", lambda ms_run=ms_run: ms_run(*ms)))
+        runners.append((f"{name} maze_steps with its two draws", lambda ms_run=ms_run: ms_run(
+            *ms[:4], torch.randint(0, 5, (100, B), generator=gen, device=DEV, dtype=torch.int32),
+            torch.rand((100, B), generator=gen, device=DEV))))
+    one = (st.pos, st.dir.reshape(B, 1),
+           torch.randint(0, 5, (B, 1), generator=gen, device=DEV, dtype=torch.int32))
+    step_runners = [(f"maze_step {t} threads", lambda run=run: run(*one))
+                    for t, run in steps.items()]
+    step_runners += [(f"{name} maze_step", lambda run=run: run(*one)) for name, _, run in olds]
+    step_runners.append(("launch floor (an empty kernel)", lambda: torch.cuda._sleep(0)))
+    for group in (runners, step_runners):
+        turns = {name: [] for name, _ in group}
+        for order in (group, group[::-1]) * 2:
+            for name, run in order:
+                turns[name].append(time_ms(run, 200)[0] * 1e3)
+        for name, t in turns.items():
+            log(f"{name}, B={B}, in turns: us a launch {[round(x, 2) for x in t]} ({smi})")
+            out[f"{name} B={B} turns"] = t
+    for key_, t in out.items():
+        if not key_.endswith("turns"):
+            log(f"{key_}: {t:.2f} us/launch ({smi})")
+    return {"maze_us": out}
 
 
 if __name__ == "__main__":

@@ -178,7 +178,7 @@ def test_the_plain_route_calls_no_kernel_wrapper(monkeypatch):
     roll = maze_slab.make_maze_episode_rollout(MAZE_MAIN, n, device="cpu", chunk=5)
     s0, _ = roll.reset(5)
     want_roll = roll(s0, 12)
-    _refuse(monkeypatch, maze_slab, "maze_ms_slab")
+    _refuse(monkeypatch, maze_slab, "maze_philox_slab")
     roll_plain = dataclasses.replace(roll, slab=dataclasses.replace(mslab, kernel=False))
     roll_plain.reset(5)
     assert torch.equal(roll_plain(s0, 12)[0].pos, want_roll[0].pos)

@@ -1,8 +1,8 @@
 """The port's Maze episode path on the CPU: ``ms_spec`` (K steps with the
 auto-reset) against the eager JAX episode math bit for bit, chained chunks
 against one long run, the kernel's table walked as the kernel walks it,
-``maze_ms_slab``'s CPU rule, and ``make_maze_episode_rollout``'s invariants
-and episode lengths against the JAX episode rollout."""
+``maze_philox_slab``'s CPU rule, and ``make_maze_episode_rollout``'s
+invariants, draws and episode lengths against the JAX episode rollout."""
 
 import re
 
@@ -16,7 +16,7 @@ from gym_multigrid_tpu.envs import maze as jmaze
 from gym_multigrid_tpu.ops import pallas_maze as jpm
 from gym_multigrid_tpu.parallel.vector import make_maze_batch as jax_make_maze_batch
 from gym_multigrid_tpu_torch.envs import maze as tmaze
-from gym_multigrid_tpu_torch.ops import _build
+from gym_multigrid_tpu_torch.ops import _build, philox
 from gym_multigrid_tpu_torch.ops import maze_slab as tslab
 
 torch.set_num_threads(1)
@@ -162,22 +162,32 @@ def test_kernel_constants_equal_python_tables():
     assert int(consts["kKeepDir"]) == tslab._KEEP_DIR
     assert int(consts["kSpawnDir"]) == tmaze.SPAWN_DIR
     assert tslab._KEEP_DIR not in tslab._A2DIR
-    assert "maze_steps" in _build.ENTRY_POINTS["maze_step.cu"]
+    assert "maze_steps_philox" in _build.ENTRY_POINTS["maze_step.cu"]
 
 
 def test_maze_ms_slab_runs_ms_spec_on_the_cpu():
+    """The K-step wrapper ``maze_philox_slab`` runs ``ms_spec``'s steps on
+    the CPU, on the counters' draws from the sums it is given, and launches
+    nothing; it refuses "meta" tensors."""
     _, tcfg = _cfgs(max_steps=4)
     slab = tslab.make_maze_slab(tcfg, "cpu")
-    K, B = 9, 16
-    args = [torch.from_numpy(x.copy()) for x in _inputs(slab, B, K, seed=1)]
-    before = tslab.maze_ms_slab.launches
-    got = tslab.maze_ms_slab(slab, *args)
-    want = tslab.ms_spec(slab.t, K, *args, slab.cells, slab.bg)
-    assert tslab.maze_ms_slab.launches == before  # the plain version launches nothing
-    for g, w in zip(got, want):
+    K, B, key, step0 = 9, 16, philox.key_of(1), 3
+    pos, dirs, sc, run, _, _ = (torch.from_numpy(x.copy()) for x in _inputs(slab, B, K, seed=1))
+    rew, ep = torch.rand(B), torch.rand(B)
+    eps = torch.randint(0, 3, (B,), dtype=torch.int32)
+    cell = pos[:, 0] * slab.t.s1 + pos[:, 1]
+    before = tslab.maze_philox_slab.launches
+    got = tslab.maze_philox_slab(slab, K, cell, dirs, sc, run, rew, ep, eps, key, step0)
+    assert tslab.maze_philox_slab.launches == before  # the plain version launches nothing
+    acts, rnd = philox.maze_draws(key, step0, K, B, "cpu")
+    want = tslab._ms_steps(slab.t, K, pos, dirs, sc, run, rew, ep, eps, acts, rnd,
+                           slab.cells, slab.bg)
+    assert torch.equal(got[0], want[0][:, 0] * slab.t.s1 + want[0][:, 1])
+    for g, w in zip(got[1:], want[1:]):
         assert torch.equal(g, w)
     with pytest.raises(ValueError, match="no Maze steps"):
-        tslab.maze_ms_slab(slab, *(x.to("meta") for x in args))
+        tslab.maze_philox_slab(slab, K, *(x.to("meta") for x in (cell, dirs, sc, run, rew, ep,
+                                                                   eps)), key, step0)
 
 
 def _rollout(n, chunk=25, **kw):
@@ -215,25 +225,32 @@ def test_episode_rollout_invariants(penalty):
 
 
 def test_episode_rollout_draws_one_chunk_at_a_time_from_the_generator():
-    """The rollout equals ``ms_spec`` on the generator's (K, B) draws, in
-    the rollout's order: actions, then uniforms, chunk by chunk."""
+    """The rollout equals ``ms_spec`` on the counters' (K, B) draws
+    (``philox.maze_draws``) chunk by chunk at the running step count, each
+    env's sums carried from chunk to chunk and reduced once at the end;
+    ``reset(seed)`` spawns on the ``MAZE_FIRST`` uniforms."""
     n, steps, chunk = 16, 23, 10
     roll = _rollout(n, chunk=chunk, max_steps=6)
     states, _ = roll.reset(seed=5)
-    start = states
-    _, m = roll(states, steps)
-    roll.generator.manual_seed(5)
-    tslab.reset_batch(roll.slab, n, generator=roll.generator)
-    state = (start.pos, start.dir, start.step_count, torch.zeros(n))
-    rew = torch.zeros(())
+    key = philox.key_of(5)
+    first = tslab.reset_batch(roll.slab, n, rnd=philox.maze_first_reset_draws(key, n, "cpu"))
+    assert torch.equal(states.pos, first.pos) and torch.equal(states.dir, first.dir)
+    got, m = roll(states, steps)
+    assert roll.step == steps
+    state = (states.pos, states.dir, states.step_count, torch.zeros(n), torch.zeros(n),
+             torch.zeros(n), torch.zeros(n, dtype=torch.int32))
     for k0 in range(0, steps, chunk):
         K = min(chunk, steps - k0)
-        acts = torch.randint(0, 5, (K, n), generator=roll.generator, dtype=torch.int32)
-        rnd = torch.rand((K, n), generator=roll.generator)
-        out = tslab.ms_spec(roll.slab.t, K, *state, acts, rnd, roll.slab.cells, roll.slab.bg)
-        state, rew = out[:4], rew + out[4].sum()
-    assert torch.equal(m["run_return"], state[3])
-    assert torch.equal(m["reward_sum"], rew)
+        acts, rnd = philox.maze_draws(key, k0, K, n, "cpu")
+        state = tslab._ms_steps(roll.slab.t, K, *state, acts, rnd, roll.slab.cells,
+                                roll.slab.bg)
+    pos, dirs, sc, run, rew, ep, eps = state
+    assert torch.equal(got.pos, pos) and torch.equal(got.dir, dirs)
+    assert torch.equal(got.step_count, sc)
+    assert torch.equal(m["run_return"], run)
+    assert torch.equal(m["reward_sum"], rew.sum())
+    assert torch.equal(m["ep_return_sum"], ep.sum())
+    assert int(m["episodes"]) == int(eps.sum())
 
 
 def _mean_length(final_sc, episodes, steps):
