@@ -1,0 +1,5 @@
+"""``launches_per_call`` of the per-step cell, which moves ``agent_steps_per_s.step``."""
+
+from benchmark.harness import metric_reader
+
+read = metric_reader("launches_per_call")
