@@ -64,6 +64,7 @@ from gym_multigrid_tpu_torch.envs.collect import (
 )
 from gym_multigrid_tpu_torch.ops import _build, philox
 from gym_multigrid_tpu_torch.ops.sampling import masked_pick
+from gym_multigrid_tpu_torch.utils.profiling import annotate
 
 #: Largest board the kernels take: a lane holds 8 cells of each plane.
 MAX_CELLS = 256
@@ -925,38 +926,40 @@ class CollectEpisodeRollout:
         ``episodes`` is B times their number, ``ep_return_sum`` is
         ``reward_sum``, ``run_return`` is 0, and the counters the reset
         zeroes are not summed."""
-        cfg, B, dev, slab = self.cfg, self.num_envs, self.slab.device, self.slab
-        if num_steps % cfg.max_steps:
-            raise ValueError(
-                f"num_steps ({num_steps}) must be a multiple of max_steps ({cfg.max_steps})"
+        with annotate("rollout.call"):
+            cfg, B, dev, slab = self.cfg, self.num_envs, self.slab.device, self.slab
+            if num_steps % cfg.max_steps:
+                raise ValueError(
+                    f"num_steps ({num_steps}) must be a multiple of max_steps ({cfg.max_steps})"
+                )
+            A, nt = cfg.num_agents, cfg.num_ball_types
+            p = pack_planes(states.grid_obj, states.grid_color, states.grid_slot)
+            pos = states.agent_pos.reshape(B, 2 * A)
+            # One fill for the running rewards and run_return, one for the
+            # counters the episode boundary leaves at 0.
+            floats = torch.zeros((B * (A + 1),), dtype=torch.float32, device=dev)
+            ret, run_return = floats[:B * A].view(B, A), floats[B * A:]
+            ints = torch.zeros((B * (2 + A * nt),), dtype=torch.int32, device=dev)
+            steps = collect_philox_slab if slab.kernel else ms_philox_spec
+            for start in range(0, num_steps, self.chunk):
+                with annotate("rollout.chunk"):
+                    K = min(self.chunk, num_steps - start)
+                    p, pos, ret = steps(slab, K, p, pos, ret, self.key, self.step)
+                    self.step += K
+            reward_sum = ret.sum()
+            go, gc, gs = unpack_planes(p)
+            states = CollectState(
+                grid_obj=go, grid_color=gc, grid_slot=gs, agent_pos=pos.reshape(B, A, 2),
+                collected=ints[:B], step_count=ints[B:2 * B],
+                info_counts=ints[2 * B:].view(B, A, nt),
             )
-        A, nt = cfg.num_agents, cfg.num_ball_types
-        p = pack_planes(states.grid_obj, states.grid_color, states.grid_slot)
-        pos = states.agent_pos.reshape(B, 2 * A)
-        # One fill for the running rewards and run_return, one for the
-        # counters the episode boundary leaves at 0.
-        floats = torch.zeros((B * (A + 1),), dtype=torch.float32, device=dev)
-        ret, run_return = floats[:B * A].view(B, A), floats[B * A:]
-        ints = torch.zeros((B * (2 + A * nt),), dtype=torch.int32, device=dev)
-        steps = collect_philox_slab if slab.kernel else ms_philox_spec
-        for start in range(0, num_steps, self.chunk):
-            K = min(self.chunk, num_steps - start)
-            p, pos, ret = steps(slab, K, p, pos, ret, self.key, self.step)
-            self.step += K
-        reward_sum = ret.sum()
-        go, gc, gs = unpack_planes(p)
-        states = CollectState(
-            grid_obj=go, grid_color=gc, grid_slot=gs, agent_pos=pos.reshape(B, A, 2),
-            collected=ints[:B], step_count=ints[B:2 * B],
-            info_counts=ints[2 * B:].view(B, A, nt),
-        )
-        return states, {
-            "reward_sum": reward_sum,
-            "episodes": torch.full((), B * (num_steps // cfg.max_steps), dtype=torch.int32,
-                                   device=dev),
-            "ep_return_sum": reward_sum,
-            "run_return": run_return,
-        }
+            return states, {
+                "reward_sum": reward_sum,
+                "episodes": torch.full((), B * (num_steps // cfg.max_steps), dtype=torch.int32,
+                                       device=dev),
+                "ep_return_sum": reward_sum,
+                "run_return": run_return,
+            }
 
 
 def make_collect_episode_rollout(

@@ -71,6 +71,7 @@ from gym_multigrid_tpu_torch.envs.ctf import (
 from gym_multigrid_tpu_torch.ops import _build
 from gym_multigrid_tpu_torch.ops.sampling import PickState
 from gym_multigrid_tpu_torch.policy.ctf.heuristic import locate_border, patrol_targets
+from gym_multigrid_tpu_torch.utils.profiling import annotate
 
 #: Agent counts the step kernel takes (the JAX kernel's envelope).
 MAX_AGENTS = 8
@@ -1051,37 +1052,39 @@ class CtfEpisodeRollout:
         :func:`ctf_ms_slab` (on the plain route, :func:`ms_spec`); a last
         chunk covers ``num_steps % chunk``.
         Nothing in the loop waits for the device."""
-        slab, B, dev, gen = self.slab, self.num_envs, self.slab.device, self.generator
-        A, nb = self.cfg.num_agents, self.cfg.num_blue_agents
-        run_ret = (torch.zeros((B,), dtype=torch.float32, device=dev)
-                   if run_return is None else run_return)
-        reward_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        ep_ret_sum = torch.zeros_like(reward_sum)
-        episodes = torch.zeros((), dtype=torch.int32, device=dev)
-        state = (states.pos.reshape(B, 2 * A), states.dir, states.terminated,
-                 states.collided, states.step_count)
-        for start in range(0, num_steps, self.chunk):
-            K = min(self.chunk, num_steps - start)
-            acts = torch.randint(0, NUM_ACTIONS, (K, B, nb), generator=gen, device=dev,
-                                 dtype=torch.int32)
-            rnd_step = torch.rand((K, B, slab.step_draws), generator=gen, device=dev)
-            rnd_reset = torch.rand((K, B, slab.reset_draws), generator=gen, device=dev)
-            if slab.kernel:
-                out = ctf_ms_slab(slab, *state, run_ret, acts, rnd_step, rnd_reset)
-            else:
-                out = ms_spec(slab.t, K, *state, run_ret, acts, rnd_step, rnd_reset, slab.flags,
-                              slab.border, slab.pool, slab.bterr, slab.rterr)
-            *state, run_ret, rew, ep, eps = out
-            reward_sum = reward_sum + rew.sum()
-            ep_ret_sum = ep_ret_sum + ep.sum()
-            episodes = episodes + eps.sum(dtype=torch.int32)
-        pos, dirs, term, coll, sc = state
-        return CtfState(pos.reshape(B, A, 2), dirs, term, coll, sc), {
-            "reward_sum": reward_sum,
-            "episodes": episodes,
-            "ep_return_sum": ep_ret_sum,
-            "run_return": run_ret,
-        }
+        with annotate("rollout.call"):
+            slab, B, dev, gen = self.slab, self.num_envs, self.slab.device, self.generator
+            A, nb = self.cfg.num_agents, self.cfg.num_blue_agents
+            run_ret = (torch.zeros((B,), dtype=torch.float32, device=dev)
+                       if run_return is None else run_return)
+            reward_sum = torch.zeros((), dtype=torch.float32, device=dev)
+            ep_ret_sum = torch.zeros_like(reward_sum)
+            episodes = torch.zeros((), dtype=torch.int32, device=dev)
+            state = (states.pos.reshape(B, 2 * A), states.dir, states.terminated,
+                     states.collided, states.step_count)
+            for start in range(0, num_steps, self.chunk):
+                with annotate("rollout.chunk"):
+                    K = min(self.chunk, num_steps - start)
+                    acts = torch.randint(0, NUM_ACTIONS, (K, B, nb), generator=gen, device=dev,
+                                         dtype=torch.int32)
+                    rnd_step = torch.rand((K, B, slab.step_draws), generator=gen, device=dev)
+                    rnd_reset = torch.rand((K, B, slab.reset_draws), generator=gen, device=dev)
+                    if slab.kernel:
+                        out = ctf_ms_slab(slab, *state, run_ret, acts, rnd_step, rnd_reset)
+                    else:
+                        out = ms_spec(slab.t, K, *state, run_ret, acts, rnd_step, rnd_reset,
+                                      slab.flags, slab.border, slab.pool, slab.bterr, slab.rterr)
+                    *state, run_ret, rew, ep, eps = out
+                    reward_sum = reward_sum + rew.sum()
+                    ep_ret_sum = ep_ret_sum + ep.sum()
+                    episodes = episodes + eps.sum(dtype=torch.int32)
+            pos, dirs, term, coll, sc = state
+            return CtfState(pos.reshape(B, A, 2), dirs, term, coll, sc), {
+                "reward_sum": reward_sum,
+                "episodes": episodes,
+                "ep_return_sum": ep_ret_sum,
+                "run_return": run_ret,
+            }
 
 
 def make_ctf_episode_rollout(

@@ -59,6 +59,7 @@ from gym_multigrid_tpu_torch.envs.maze import (
     info,
 )
 from gym_multigrid_tpu_torch.ops import _build, philox
+from gym_multigrid_tpu_torch.utils.profiling import annotate
 
 # The render direction of each action: stay/left/down/right/up.
 _A2DIR = (3, 3, 2, 1, 0)
@@ -552,26 +553,28 @@ class MazeEpisodeRollout:
         the positions unpacked once at the end.  How the steps are cut into
         chunks changes nothing, and nothing in the loop waits for the
         device."""
-        slab, B, dev, t = self.slab, self.num_envs, self.slab.device, self.slab.t
-        # One fill: run_return, the reward and episode-return sums, and the
-        # episode counts (zero bits are 0.0).
-        zeros = torch.zeros((4, B), dtype=torch.int32, device=dev)
-        floats = zeros[:3].view(torch.float32)
-        run_ret = floats[0] if run_return is None else run_return
-        cell = torch.add(states.pos[:, 1], states.pos[:, 0], alpha=t.s1)
-        state = (cell, states.dir, states.step_count, run_ret, floats[1], floats[2], zeros[3])
-        steps = maze_philox_slab if slab.kernel else ms_philox_spec
-        for start in range(0, num_steps, self.chunk):
-            K = min(self.chunk, num_steps - start)
-            state = steps(slab, K, *state, self.key, self.step)
-            self.step += K
-        cell, dirs, sc, run_ret, rew, ep, eps = state
-        return MazeState(pos=slab.cell_pos.index_select(0, cell), dir=dirs, step_count=sc), {
-            "reward_sum": rew.sum(),
-            "episodes": eps.sum(dtype=torch.int32),
-            "ep_return_sum": ep.sum(),
-            "run_return": run_ret,
-        }
+        with annotate("rollout.call"):
+            slab, B, dev, t = self.slab, self.num_envs, self.slab.device, self.slab.t
+            # One fill: run_return, the reward and episode-return sums, and the
+            # episode counts (zero bits are 0.0).
+            zeros = torch.zeros((4, B), dtype=torch.int32, device=dev)
+            floats = zeros[:3].view(torch.float32)
+            run_ret = floats[0] if run_return is None else run_return
+            cell = torch.add(states.pos[:, 1], states.pos[:, 0], alpha=t.s1)
+            state = (cell, states.dir, states.step_count, run_ret, floats[1], floats[2], zeros[3])
+            steps = maze_philox_slab if slab.kernel else ms_philox_spec
+            for start in range(0, num_steps, self.chunk):
+                with annotate("rollout.chunk"):
+                    K = min(self.chunk, num_steps - start)
+                    state = steps(slab, K, *state, self.key, self.step)
+                    self.step += K
+            cell, dirs, sc, run_ret, rew, ep, eps = state
+            return MazeState(pos=slab.cell_pos.index_select(0, cell), dir=dirs, step_count=sc), {
+                "reward_sum": rew.sum(),
+                "episodes": eps.sum(dtype=torch.int32),
+                "ep_return_sum": ep.sum(),
+                "run_return": run_ret,
+            }
 
 
 def make_maze_episode_rollout(

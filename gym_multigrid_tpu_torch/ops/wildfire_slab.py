@@ -76,6 +76,7 @@ from gym_multigrid_tpu_torch.envs.wildfire import (
 )
 from gym_multigrid_tpu_torch.ops import _build, philox
 from gym_multigrid_tpu_torch.ops.sampling import PickState
+from gym_multigrid_tpu_torch.utils.profiling import annotate
 
 #: Largest board the step kernel takes: a lane of the env's warp holds 32
 #: cells.  32x32 is 1024 cells.
@@ -598,34 +599,37 @@ class WildfireEpisodeRollout:
         at the running step count, which then grows by K; a last chunk
         covers ``num_steps % chunk``.  How the steps are cut into chunks
         changes nothing, and nothing in the loop waits for the device."""
-        slab, B, dev = self.slab, self.num_envs, self.slab.device
-        cfg, t = self.cfg, slab.t
-        run_ret = (torch.zeros((B,), dtype=torch.float32, device=dev)
-                   if run_return is None else run_return)
-        reward_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        ep_ret_sum = torch.zeros_like(reward_sum)
-        episodes = torch.zeros((), dtype=torch.int32, device=dev)
-        state = (states.cells.reshape(B, t.n_cells), states.agent_pos.reshape(B, 2 * t.n_agents),
-                 states.step_count, states.extinguished)
-        for start in range(0, num_steps, self.chunk):
-            K = min(self.chunk, num_steps - start)
-            if slab.kernel:
-                out = wf_philox_slab(slab, *state, run_ret, self.key, self.step, K)
-            else:
-                out = ms_philox_spec(t, K, *state, run_ret, self.key, self.step)
-            *state, run_ret, rew, ep, eps = out
-            self.step += K
-            reward_sum = reward_sum + rew.sum()
-            ep_ret_sum = ep_ret_sum + ep.sum()
-            episodes = episodes + eps.sum(dtype=torch.int32)
-        cells, pos, sc, ext = state
-        return WildfireState(cells.reshape(B, cfg.height, cfg.width),
-                             pos.reshape(B, t.n_agents, 2), sc, ext), {
-            "reward_sum": reward_sum,
-            "episodes": episodes,
-            "ep_return_sum": ep_ret_sum,
-            "run_return": run_ret,
-        }
+        with annotate("rollout.call"):
+            slab, B, dev = self.slab, self.num_envs, self.slab.device
+            cfg, t = self.cfg, slab.t
+            run_ret = (torch.zeros((B,), dtype=torch.float32, device=dev)
+                       if run_return is None else run_return)
+            reward_sum = torch.zeros((), dtype=torch.float32, device=dev)
+            ep_ret_sum = torch.zeros_like(reward_sum)
+            episodes = torch.zeros((), dtype=torch.int32, device=dev)
+            state = (states.cells.reshape(B, t.n_cells),
+                     states.agent_pos.reshape(B, 2 * t.n_agents), states.step_count,
+                     states.extinguished)
+            for start in range(0, num_steps, self.chunk):
+                with annotate("rollout.chunk"):
+                    K = min(self.chunk, num_steps - start)
+                    if slab.kernel:
+                        out = wf_philox_slab(slab, *state, run_ret, self.key, self.step, K)
+                    else:
+                        out = ms_philox_spec(t, K, *state, run_ret, self.key, self.step)
+                    *state, run_ret, rew, ep, eps = out
+                    self.step += K
+                    reward_sum = reward_sum + rew.sum()
+                    ep_ret_sum = ep_ret_sum + ep.sum()
+                    episodes = episodes + eps.sum(dtype=torch.int32)
+            cells, pos, sc, ext = state
+            return WildfireState(cells.reshape(B, cfg.height, cfg.width),
+                                 pos.reshape(B, t.n_agents, 2), sc, ext), {
+                "reward_sum": reward_sum,
+                "episodes": episodes,
+                "ep_return_sum": ep_ret_sum,
+                "run_return": run_ret,
+            }
 
 
 def make_wildfire_episode_rollout(

@@ -39,6 +39,7 @@ import torch
 from gym_multigrid_tpu_torch.core.constants import COLLECT_ACTION_TO_VEC
 from gym_multigrid_tpu_torch.envs import collect, ctf, maze, wildfire
 from gym_multigrid_tpu_torch.ops import _build, collect_slab, ctf_slab, maze_slab, wildfire_slab
+from gym_multigrid_tpu_torch.utils.profiling import annotate
 
 
 @dataclass(frozen=True, eq=False)
@@ -97,26 +98,29 @@ class BatchedEnv:
         return states, self.encode(self.cfg, states)
 
     def step(self, states, actions):
-        actions = torch.as_tensor(actions, device=self.device)
-        if tuple(actions.shape) != self.actions_shape:
-            raise ValueError(
-                f"actions must have shape {self.actions_shape}, got {tuple(actions.shape)}"
-            )
-        return self._step(states, actions, encode_obs=True)
+        with annotate("env.step"):
+            actions = torch.as_tensor(actions, device=self.device)
+            if tuple(actions.shape) != self.actions_shape:
+                raise ValueError(
+                    f"actions must have shape {self.actions_shape}, got {tuple(actions.shape)}"
+                )
+            return self._step(states, actions, encode_obs=True)
 
     def _step(self, states, actions, encode_obs):
         # The obs is taken here, before the reset (Collect's resets the
         # finished rows in place), and never computed by the step.
-        new_states, _, rewards, term, trunc, _ = self.step_batch(
-            self.slab, states, actions, generator=self.generator, encode_obs=False,
-        )
+        with annotate("env.transition"):
+            new_states, _, rewards, term, trunc, _ = self.step_batch(
+                self.slab, states, actions, generator=self.generator, encode_obs=False,
+            )
         obs = self.encode(self.cfg, new_states) if encode_obs else None
         if not self.auto_reset:
             return new_states, obs, rewards, term, trunc
-        states = self.reset_batch(
-            self.slab, self.num_envs, generator=self.generator,
-            done=term | trunc, states=new_states,
-        )
+        with annotate("env.reset"):
+            states = self.reset_batch(
+                self.slab, self.num_envs, generator=self.generator,
+                done=term | trunc, states=new_states,
+            )
         return states, obs, rewards, term, trunc
 
     def rollout(
@@ -190,11 +194,19 @@ def _encoder(encode, make_partial_encode, cfg, partial_obs_view):
     """The batch's ``encode(cfg, states)``: the family's configured
     observation, or with ``partial_obs_view=V`` each agent's field of view,
     (B, agents, V, V, 3) uint8 (JAX's ``_swap_obs``: ``step`` returns it
-    for the post-step, pre-reset states)."""
-    if partial_obs_view is None:
-        return encode
-    encode_partial = make_partial_encode(cfg, partial_obs_view)
-    return lambda _cfg, states: encode_partial(states)
+    for the post-step, pre-reset states).  Either runs inside the span
+    ``env.encode``, which every caller of ``env.encode`` then carries."""
+    if partial_obs_view is not None:
+        encode_partial = make_partial_encode(cfg, partial_obs_view)
+
+        def encode(_cfg, states):
+            return encode_partial(states)
+
+    def spanned(cfg, states):
+        with annotate("env.encode"):
+            return encode(cfg, states)
+
+    return spanned
 
 
 def make_collect_batch(

@@ -37,6 +37,7 @@ import torch.distributed as dist
 from gym_multigrid_tpu_torch.parallel.mesh import fold_in_axis
 from gym_multigrid_tpu_torch.parallel.shard import local_batch, psum_scalars
 from gym_multigrid_tpu_torch.rl.networks import sample_actions
+from gym_multigrid_tpu_torch.utils.profiling import annotate
 
 __all__ = [
     "PPOConfig", "RolloutCarry", "Transition", "make_obs_store",
@@ -286,62 +287,68 @@ def make_update_fn(net: torch.nn.Module, optimizer: torch.optim.Optimizer, cfg: 
 
     def update(traj: Transition, last_value: torch.Tensor, generator: torch.Generator,
                episodes=None):
-        with torch.no_grad():
-            advantages, returns = compute_gae(traj, last_value, cfg)
-        T, B = traj.reward.shape
-        S = cfg.shuffle_blocks or math.lcm(cfg.dp_shards, W)
-        if S % cfg.dp_shards:
-            raise ValueError(
-                f"shuffle_blocks={S} must be a multiple of dp_shards={cfg.dp_shards}"
-            )
-        if S % W:
-            raise ValueError(f"shuffle_blocks={S} must be a multiple of the world size {W}")
-        S_local = S // W
-        if B % S_local:
-            raise ValueError(f"num_envs={B * W} not divisible by shuffle blocks={S}")
-        n_local = T * (B // S_local)
-        if n_local % cfg.num_minibatches:
-            raise ValueError(
-                f"rollout_len*num_envs/blocks={n_local} not divisible by "
-                f"num_minibatches={cfg.num_minibatches}"
-            )
-        mb_local = n_local // cfg.num_minibatches
-        dev = traj.reward.device
+        with annotate("ppo.update"):
+            with torch.no_grad(), annotate("ppo.gae"):
+                advantages, returns = compute_gae(traj, last_value, cfg)
+            T, B = traj.reward.shape
+            S = cfg.shuffle_blocks or math.lcm(cfg.dp_shards, W)
+            if S % cfg.dp_shards:
+                raise ValueError(
+                    f"shuffle_blocks={S} must be a multiple of dp_shards={cfg.dp_shards}"
+                )
+            if S % W:
+                raise ValueError(f"shuffle_blocks={S} must be a multiple of the world size {W}")
+            S_local = S // W
+            if B % S_local:
+                raise ValueError(f"num_envs={B * W} not divisible by shuffle blocks={S}")
+            n_local = T * (B // S_local)
+            if n_local % cfg.num_minibatches:
+                raise ValueError(
+                    f"rollout_len*num_envs/blocks={n_local} not divisible by "
+                    f"num_minibatches={cfg.num_minibatches}"
+                )
+            mb_local = n_local // cfg.num_minibatches
+            dev = traj.reward.device
 
-        def blocks(x):
-            # (T, B, ...) -> (S_local, T*B/S_local, ...), env-major: each
-            # block holds whole envs.
-            x = x.movedim(1, 0)
-            return x.reshape((S_local, n_local) + x.shape[2:])
+            def blocks(x):
+                # (T, B, ...) -> (S_local, T*B/S_local, ...), env-major: each
+                # block holds whole envs.
+                x = x.movedim(1, 0)
+                return x.reshape((S_local, n_local) + x.shape[2:])
 
-        flat = [blocks(x) for x in (traj.obs, traj.actions, traj.logp, advantages, returns)]
-        rows = torch.arange(S_local, device=dev)[:, None]
-        mine = slice(rank * S_local, (rank + 1) * S_local)
-        epoch_metrics = None
-        for _ in range(cfg.num_epochs):
-            perm = torch.rand((S, n_local), generator=generator, device=dev)[mine].argsort(dim=1)
-            idxs = perm.reshape(S_local, cfg.num_minibatches, mb_local).transpose(0, 1)
-            per_mb = []
-            for idx in idxs:  # (S_local, mb_local): block s takes its own rows
-                mb = [x[rows, idx].reshape((S_local * mb_local,) + x.shape[2:]) for x in flat]
-                loss, metrics = loss_fn(*mb)
-                optimizer.zero_grad(set_to_none=True)
-                loss.backward()
-                _clip_by_global_norm_(params, cfg.max_grad_norm)
-                optimizer.step()
-                per_mb.append(metrics)
-            epoch_metrics = {k: torch.stack([m[k] for m in per_mb]).mean() for k in per_mb[0]}
-        if mesh is not None:
-            return _global_metrics(epoch_metrics, traj, returns, episodes, mesh)
-        metrics = dict(epoch_metrics)
-        metrics["reward_per_step"] = traj.reward.mean()
-        ret_var = returns.var(correction=0)
-        metrics["explained_variance"] = 1.0 - (returns - traj.value).var(correction=0) / (
-            ret_var + 1e-8
-        )
-        if episodes is not None:
-            metrics.update(_episode_stats(*episodes))
-        return metrics
+            flat = [blocks(x) for x in (traj.obs, traj.actions, traj.logp, advantages, returns)]
+            rows = torch.arange(S_local, device=dev)[:, None]
+            mine = slice(rank * S_local, (rank + 1) * S_local)
+            epoch_metrics = None
+            for _ in range(cfg.num_epochs):
+                perm = torch.rand((S, n_local), generator=generator, device=dev)[mine]
+                perm = perm.argsort(dim=1)
+                idxs = perm.reshape(S_local, cfg.num_minibatches, mb_local).transpose(0, 1)
+                per_mb = []
+                for idx in idxs:  # (S_local, mb_local): block s takes its own rows
+                    with annotate("ppo.minibatch"):
+                        mb = [x[rows, idx].reshape((S_local * mb_local,) + x.shape[2:])
+                              for x in flat]
+                        with annotate("ppo.loss"):
+                            loss, metrics = loss_fn(*mb)
+                        optimizer.zero_grad(set_to_none=True)
+                        with annotate("ppo.backward"):
+                            loss.backward()
+                        with annotate("ppo.clip"):
+                            _clip_by_global_norm_(params, cfg.max_grad_norm)
+                        optimizer.step()
+                        per_mb.append(metrics)
+                epoch_metrics = {k: torch.stack([m[k] for m in per_mb]).mean() for k in per_mb[0]}
+            if mesh is not None:
+                return _global_metrics(epoch_metrics, traj, returns, episodes, mesh)
+            metrics = dict(epoch_metrics)
+            metrics["reward_per_step"] = traj.reward.mean()
+            ret_var = returns.var(correction=0)
+            res_var = (returns - traj.value).var(correction=0)
+            metrics["explained_variance"] = 1.0 - res_var / (ret_var + 1e-8)
+            if episodes is not None:
+                metrics.update(_episode_stats(*episodes))
+            return metrics
 
     return update
 
@@ -388,42 +395,45 @@ def make_ppo(env, net: torch.nn.Module, cfg: PPOConfig, mesh=None):
     def collect(carry: RolloutCarry, generator: torch.Generator):
         """The rollout: (carry, traj, last value, summed episode returns,
         episode count)."""
-        states, run_ret = carry
-        ep_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        ep_cnt = torch.zeros((), dtype=torch.int32, device=dev)
-        obs = env.encode(env.cfg, states)
-        with torch.no_grad():
-            logits, value = net(obs)
-        steps = []
-        for _ in range(cfg.rollout_len):
-            actions, logp = sample_actions(logits, generator)
-            states, step_obs, rewards, term, trunc = env.step(
-                states, actions.reshape(env.actions_shape)
-            )
-            team = rewards.sum(dim=1) if rewards.ndim > 1 else rewards
-            # Episode returns across the auto-reset, as BatchedEnv.rollout
-            # keeps them.
-            done = term | trunc
-            run_ret = run_ret + team
-            ep_sum = ep_sum + torch.where(done, run_ret, 0.0).sum()
-            ep_cnt = ep_cnt + done.sum(dtype=torch.int32)
-            run_ret = torch.where(done, 0.0, run_ret)
-            # One forward over the next step's obs (post-reset) and this
-            # step's pre-reset obs, whose value is the truncation
-            # bootstrap.  It runs every step: GAE reads it only where an
-            # episode was truncated, and asking the device whether one was
-            # would make the host wait each step.
-            next_obs = env.encode(env.cfg, states)
-            with torch.no_grad():
-                logits_2, value_2 = net(torch.cat([next_obs, step_obs]))
-            steps.append(Transition(
-                obs=store_obs(obs), actions=actions, logp=logp, value=value,
-                reward=team.to(torch.float32), terminated=term.to(torch.float32),
-                truncated=trunc.to(torch.float32), boot_value=value_2[B:],
-            ))
-            obs, logits, value = next_obs, logits_2[:B], value_2[:B]
-        traj = Transition(*(torch.stack(xs) for xs in zip(*steps)))
-        return RolloutCarry(states, run_ret), traj, value, ep_sum, ep_cnt
+        with annotate("ppo.rollout"):
+            states, run_ret = carry
+            ep_sum = torch.zeros((), dtype=torch.float32, device=dev)
+            ep_cnt = torch.zeros((), dtype=torch.int32, device=dev)
+            obs = env.encode(env.cfg, states)
+            with torch.no_grad(), annotate("ppo.forward"):
+                logits, value = net(obs)
+            steps = []
+            for _ in range(cfg.rollout_len):
+                with annotate("ppo.rollout.step"):
+                    with annotate("ppo.sample"):
+                        actions, logp = sample_actions(logits, generator)
+                    states, step_obs, rewards, term, trunc = env.step(
+                        states, actions.reshape(env.actions_shape)
+                    )
+                    team = rewards.sum(dim=1) if rewards.ndim > 1 else rewards
+                    # Episode returns across the auto-reset, as
+                    # BatchedEnv.rollout keeps them.
+                    done = term | trunc
+                    run_ret = run_ret + team
+                    ep_sum = ep_sum + torch.where(done, run_ret, 0.0).sum()
+                    ep_cnt = ep_cnt + done.sum(dtype=torch.int32)
+                    run_ret = torch.where(done, 0.0, run_ret)
+                    # One forward over the next step's obs (post-reset) and this
+                    # step's pre-reset obs, whose value is the truncation
+                    # bootstrap.  It runs every step: GAE reads it only where an
+                    # episode was truncated, and asking the device whether one was
+                    # would make the host wait each step.
+                    next_obs = env.encode(env.cfg, states)
+                    with torch.no_grad(), annotate("ppo.forward"):
+                        logits_2, value_2 = net(torch.cat([next_obs, step_obs]))
+                    steps.append(Transition(
+                        obs=store_obs(obs), actions=actions, logp=logp, value=value,
+                        reward=team.to(torch.float32), terminated=term.to(torch.float32),
+                        truncated=trunc.to(torch.float32), boot_value=value_2[B:],
+                    ))
+                    obs, logits, value = next_obs, logits_2[:B], value_2[:B]
+            traj = Transition(*(torch.stack(xs) for xs in zip(*steps)))
+            return RolloutCarry(states, run_ret), traj, value, ep_sum, ep_cnt
 
     def rollout(carry: RolloutCarry, generator: torch.Generator):
         carry, traj, last_value, ep_sum, ep_cnt = collect(carry, generator)
