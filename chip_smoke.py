@@ -325,6 +325,7 @@ from gym_multigrid_tpu_torch.ops.maze_slab import (  # noqa: E402
 from gym_multigrid_tpu_torch.ops.wildfire_slab import (  # noqa: E402
     make_wildfire_episode_rollout,
     ms_philox_spec,
+    wf_autoreset_slab,
     wf_philox_slab,
     wildfire_step_slab,
 )
@@ -603,6 +604,8 @@ COLLECT_WARMUP_MAX = 10
 CTF_WARMUP_MAX = 20
 MAZE_WARMUP_MAX = 10
 WF_WARMUP_MAX = 10
+#: The benchmark's per-step batch, at which wf_autoreset is timed too.
+AUTORESET_BIG = 65536
 # The training paths: the width of the repo's trained model and
 # scripts/train.py's PPO settings, two untimed and five timed iterations.
 TRAIN_HIDDEN = (256, 256)
@@ -1082,8 +1085,9 @@ def check_next_step(name, make, cfg, seed):
     the rows not masked bit-equal (states, obs, rewards, flags); the
     masked rows (finished on the step before) keep their states and report
     ``encode`` of them with reward 0 and no flag; the input states never
-    written.  Launches: the step kernel twice a step (both envs), and
-    Collect's masked reset twice."""
+    written.  Launches: the step kernel twice a step (both envs),
+    Collect's masked reset twice, and Wildfire's auto-reset kernel once
+    (``BatchedEnv.step`` only)."""
     cfg = dataclasses.replace(cfg, max_steps=VEC_MAX_STEPS)
     env, ref = make(cfg, B), make(cfg, B)
     states, _ = env.reset(seed=seed)
@@ -1124,6 +1128,8 @@ def check_next_step(name, make, cfg, seed):
     want = {step_kernel: 2 * VEC_STEPS}
     if name == "Collect":
         want["collect_reset"] = 2 * VEC_STEPS
+    if name == "Wildfire":  # BatchedEnv.step's auto-reset kernel; NEXT_STEP keeps the glue
+        want["wf_autoreset"] = VEC_STEPS
     check_launches(counts, want, f"{name} NEXT_STEP")
     check(not bad, f"{name}: next_step_autoreset differs from BatchedEnv.step or its contract")
     check(masked >= 2 * B, f"{name}: only {masked} masked rows")
@@ -1602,6 +1608,85 @@ def check_wildfire_step_kernel(cfg, name, steps, seed, n=B, need_events=True):
     log(f"wildfire_step kernel == step_spec: {name}, {steps} steps at B={n}: {put_out} fires "
         f"put out, {ignited} trees ignited, {episodes} episodes ended, max_abs_err {err}")
     return err
+
+
+def autoreset_inputs(slab, states, gen):
+    """``wf_autoreset_slab``'s arguments after one step of ``states``:
+    the step kernel's outputs (fresh tensors, which the kernel writes in
+    place), the counts before it and a reset draw."""
+    n = states.cells.shape[0]
+    acts = torch.randint(-1, 7, (n, slab.t.n_agents), generator=gen, device=DEV,
+                         dtype=torch.int32)
+    rnd = torch.rand((n, slab.step_draws), generator=gen, device=DEV)
+    rnd_reset = torch.rand((n, slab.reset_draws), generator=gen, device=DEV)
+    step = wildfire_step_slab(*wildfire_args(slab, states, acts, rnd))
+    return (*step, states.step_count, states.extinguished, rnd_reset)
+
+
+def check_wf_autoreset_kernel(cfg, name, seed, n=B, steps=30):
+    """``wf_autoreset_slab`` (the kernel) against ``autoreset_spec`` over
+    ``steps`` chained steps of ``n`` envs from the batch reset with step
+    counts spread over the episode and every seventh board without fire,
+    with and without the obs; some step must finish some rows and not
+    all."""
+    slab = wildfire_slab.make_wildfire_slab(cfg, DEV)
+    t = slab.t
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    states = wildfire_slab.reset_batch(slab, n, generator=gen)
+    rows = torch.arange(n, device=DEV)
+    states = WildfireState(
+        torch.where((rows % 7 == 0)[:, None, None] & (states.cells == FIRE), TREE, states.cells),
+        states.agent_pos,
+        torch.randint(0, t.max_steps, (n,), generator=gen, device=DEV, dtype=torch.int32),
+        states.extinguished)
+    err, finished, partial = 0.0, 0, 0
+    for _ in range(steps):
+        args = autoreset_inputs(slab, states, gen)
+        want = wildfire_slab.autoreset_spec(slab, *args)
+        for encode_obs in (True, False):
+            got = wf_autoreset_slab(slab, *(x.clone() for x in args), encode_obs=encode_obs)
+            check((got[4] is None) != encode_obs, f"{name}: obs with encode_obs={encode_obs}")
+            err = max(err, max_abs_err([g for g in got if g is not None],
+                                       [w for w, g in zip(want, got) if g is not None]))
+        done = int((want[6] | want[7]).sum())
+        finished += done
+        partial += 0 < done < n
+        cells, pos, sc, ext = want[:4]
+        states = WildfireState(cells.reshape(states.cells.shape),
+                               pos.reshape(states.agent_pos.shape), sc, ext)
+    check(partial > 0, f"{name}: {finished} rows finished, {partial} of {steps} steps with "
+                       f"some rows finished and some not")
+    log(f"wf_autoreset kernel == autoreset_spec: {name}, {steps} steps at B={n}, with and "
+        f"without the obs: {finished} rows finished, max_abs_err {err}")
+    return err
+
+
+def time_autoreset(slab, states, gen):
+    """``wf_autoreset_slab`` after a step of ``states`` (the step's outputs
+    taken once: each launch finds the same rows finished and writes the
+    same fresh boards), logged: (ms, ``autoreset_spec``'s ms, bound ms,
+    what bounds it).  Bytes: the inputs but the reset draw, the finished
+    rows' reset uniforms, the outputs and the finished rows' fresh boards;
+    operations: the fresh boards' (``wf_steps_philox``'s count of
+    them)."""
+    t = slab.t
+    C, A = t.n_cells, t.n_agents
+    args = autoreset_inputs(slab, states, gen)
+    ms, ms_all = time_ms(lambda: wf_autoreset_slab(slab, *args), 200)
+    plain_ms, plain_all = time_ms(lambda: wildfire_slab.autoreset_spec(slab, *args), 20)
+    out = wf_autoreset_slab(slab, *args)
+    done = int((out[6] | out[7]).sum())
+    nbytes = sum(x.numel() * x.element_size() for x in args[:-1]) + sum(
+        x.numel() * x.element_size() for x in out[2:]) + done * 4 * (
+        slab.reset_draws + C + 2 * A)
+    ops = done * (C * WF_FRESH_CELL_OPS + t.n_fires * WF_FRESH_FIRE_OPS
+                  + A * (CTF_SPAWN_OPS + 2 + CTF_SPAWN_PAIR_OPS * (A - 1)))
+    bound_ms, by, *parts = bound(nbytes, ops)
+    log(f"wf_autoreset at B={states.cells.shape[0]}: {ms * 1e3:.2f} us/launch (median of "
+        f"windows {us(ms_all)}), bound {bound_ms * 1e3:.2f} us ({by}; {nbytes} bytes with {done} "
+        f"finished rows take {parts[0] * 1e3:.2f} us, {ops} operations {parts[1] * 1e3:.2f} "
+        f"us), autoreset_spec {plain_ms * 1e3:.1f} us {us(plain_all)}")
+    return ms, plain_ms, bound_ms, by
 
 
 def check_wildfire_stacked(seed):
@@ -3127,12 +3212,14 @@ def bench_call_launches(family, path, steps):
     path's as ``episode_call_launches`` (Collect: one ``collect_steps_philox``
     a 25-step chunk); the step path's
     step kernel once a step and, for Collect, the masked reset once a
-    step."""
+    step, for Wildfire the auto-reset kernel once a step."""
     if path == "episode":
         return episode_call_launches(family, steps)
     want = {VEC_FAMILIES[family][0]: steps}
     if family == "collect":
         want["collect_reset"] = steps
+    if family == "wildfire":
+        want["wf_autoreset"] = steps
     return want
 
 
@@ -3418,6 +3505,17 @@ def main():
                                    need_events=False),
     )
     check_misaligned_refused()
+    # The auto-reset kernel after the step (BatchedEnv.step's Wildfire
+    # path): the three configs at B = 8192, WF_MAIN also at 8189 and 5
+    # (a block holds 4 envs).
+    wf_ar_err = max(
+        check_wf_autoreset_kernel(cfg, name, seed=58 + i, n=n)
+        for i, (cfg, name, n) in enumerate((
+            (WF_MAIN, "WF_MAIN", B), (WF_MAIN, "WF_MAIN, ragged", RAGGED[0]),
+            (WF_MAIN, "WF_MAIN, ragged", RAGGED[1]),
+            (WF_FOUR, "10x10, 4 agents, step penalty", B),
+            (WF_SPREAD, "32x32, p_spread 1, p_burnout 0", B)))
+    )
     ctf_ms_err = max(
         check_ctf_steps_kernel(dataclasses.replace(cfg, max_steps=MS_CHECK_MAX_STEPS), name,
                                seed=70 + i, n=n, chunks=chunks)
@@ -3576,7 +3674,8 @@ def main():
 
     # The Wildfire path.
     wf_launches, (wf_env, *wf_result) = run_counted(wildfire_main_path)
-    check_launches(wf_launches, {"wildfire_step": WF_STEPS_PER_CALL}, "Wildfire")
+    check_launches(wf_launches, {"wildfire_step": WF_STEPS_PER_CALL,
+                                 "wf_autoreset": WF_STEPS_PER_CALL}, "Wildfire")
     check_wildfire_path(wf_env, *wf_result)
     wf_states = time_rollout(wf_env.rollout, "WildfireSlab", wf_result[2], WF_STEPS_PER_CALL,
                              WF_MAIN.num_agents, WF_WARMUP_MAX)
@@ -3600,8 +3699,14 @@ def main():
         f"bound {wf_bound * 1e3:.2f} us ({wf_by}; {wf_bytes} bytes take "
         f"{wf_parts[0] * 1e3:.2f} us, {wf_ops} operations {wf_parts[1] * 1e3:.2f} us), "
         f"step_spec {wf_plain_ms * 1e3:.1f} us {us(wf_plain_all)}; "
-        f"the rollout's masked reset_batch (plain PyTorch, no kernel: "
-        f"{wslab.reset_draws} uniforms an env) {wf_reset_ms * 1e3:.1f} us {us(wf_reset_all)}")
+        f"the masked reset_batch (plain PyTorch, {wslab.reset_draws} uniforms an env, "
+        f"now on the old glue's paths only) {wf_reset_ms * 1e3:.1f} us {us(wf_reset_all)}")
+    # The auto-reset kernel after the step, on the rollout's states (their
+    # counts spread over the episode) at B, and eight copies of them at the
+    # benchmark's 65,536 envs.
+    wf_big = WildfireState(*(x.repeat(AUTORESET_BIG // B, *[1] * (x.dim() - 1)) for x in (
+        wf_states.cells, wf_states.agent_pos, wf_states.step_count, wf_states.extinguished)))
+    ar = {n: time_autoreset(wslab, s, gen) for n, s in ((B, wf_states), (AUTORESET_BIG, wf_big))}
 
     # The Collect episode path: one collect_steps_philox launch a chunk,
     # the reset's collect_reset, no collect_step.
@@ -3885,6 +3990,16 @@ def main():
          "launches": wf_launches["wildfire_step"], "max_abs_err": wf_err,
          "ms": wf_ms, "plain_ms": wf_plain_ms, "bound_ms": wf_bound,
          "bound_by": wf_by, "library_ms": None},
+        # No TPU kernel: JAX's batch env encodes and resets with plain XLA
+        # around wildfire_step_slab.  BatchedEnv.step's Wildfire path, after
+        # wildfire_step: the obs, rewards, flags, counts and fresh boards.
+        {"name": "wf_autoreset", "route": "cuda",
+         "source": "gym_multigrid_tpu_torch/csrc/wildfire_step.cu", "replaces": None,
+         "launches": wf_launches["wf_autoreset"], "max_abs_err": wf_ar_err,
+         "ms": ar[B][0], "plain_ms": ar[B][1], "bound_ms": ar[B][2], "bound_by": ar[B][3],
+         "library_ms": None, f"ms_b{AUTORESET_BIG}": ar[AUTORESET_BIG][0],
+         f"plain_ms_b{AUTORESET_BIG}": ar[AUTORESET_BIG][1],
+         f"bound_ms_b{AUTORESET_BIG}": ar[AUTORESET_BIG][2]},
         # The K-step entries: each source's transition with the episode
         # math's auto-reset (_ctf_ms_math, pallas_ctf.py:698; _ms_math,
         # pallas_wildfire.py:101), 50 and 24 steps a launch on the CtF and

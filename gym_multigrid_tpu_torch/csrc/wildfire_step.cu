@@ -852,6 +852,206 @@ cudaError_t launch_philox_steps(const MsInputs& in, const MsOutputs& out, const 
   return cudaGetLastError();
 }
 
+// ---- the per-step auto-reset after wildfire_step ----
+//
+// autoreset_kernel replaces no TPU kernel: the JAX package's batch env
+// encodes and resets with plain XLA ops around its step.  It was added for
+// BatchedEnv.step's per-step path, where that glue ran as about 140 PyTorch
+// passes over the whole batch a step (a fresh board drawn for every env,
+// then kept in the 1-2% of rows that finished), forty times the step
+// kernel's own device time.  Its plain version is
+// ops.wildfire_slab.autoreset_spec, and the two agree bit for bit.
+//
+// After wildfire_step it does the rest of the step in one launch, one warp
+// per env: the observation of the stepped, pre-reset board (WildfireWorld
+// encode: type, colour, state, x-major, each agent written over its cell in
+// agent order), the per-agent rewards (the team reward over A, a float32
+// division as the plain version's), the flags, the step and put-out counts,
+// and for a finished env a fresh board (fresh_board, on the reset draw's
+// uniforms of that row, which no other row reads) written over the step
+// kernel's own outputs in place.  What bounds it: bytes.  A step reads the
+// boards (4 C bytes an env) and writes the observation (3 C bytes an env),
+// plus a few words an env and, for the finished envs, their uniforms and
+// fresh boards; at 16x16 and B = 65536 that is about 123 MB, 37 us at the
+// card's 3.35 TB/s.  The design: lane l holds cells l + 32 k, read with
+// coalesced loads; every load of an env, and a finished env's reset
+// uniforms, is issued before its first store, so a warp's life is about one
+// round trip to memory; the block's few envs are consecutive, so their
+// observations are one contiguous span, staged in shared memory byte by
+// byte (the transpose to x-major happens there) and written out in aligned
+// 16-byte stores; the fresh board stays in the warp's registers until it is
+// stored.  At 16x16 and B = 65536 it takes about 55 us on an H100 (the
+// profiler's kernel time), two thirds of its byte bound: what is left is
+// the many short warps' latency and the fresh board's registers (60
+// against 47 without it), which cut the warps an SM holds; capping the
+// registers spilled and ran slower, and blocks of 1, 2 or 8 envs ran no
+// faster than 4.
+
+constexpr int kAgent = 4;  // WildfireWorld's agent type, in the observation only
+// Envs (warps) a block of autoreset_kernel: few, so that a block's barrier
+// before the observation's stores holds few warps (measured faster than 8).
+constexpr int kAutoresetEnvs = 4;
+
+struct AutoresetIn {
+  const float* reward;  // (B, 1) wildfire_step's team reward
+  const int* n_ext;     // (B, 1) its fires put out
+  const int* term;      // (B, 1) its "no fire left"
+  const int* sc;        // (B,) the step counts before the step
+  const int* ext;       // (B,) the put-out counts before the step
+  const float* rnd;     // (B, C + n_fires + A) the fresh boards' uniforms
+};
+
+struct AutoresetOut {
+  int* cells;          // (B, C) wildfire_step's boards, fresh ones written over the finished
+  int* pos;            // (B, 2A) its positions, likewise
+  unsigned char* obs;  // (B, W, H, 3), or null for no observation
+  float* rewards;      // (B, A)
+  int* sc;
+  int* ext;
+  bool* terminated;
+  bool* truncated;
+};
+
+struct AutoresetParams {
+  int n_fires, max_steps;
+  float tree_density;
+  // Observation colours of a tree, a fire, a burnt cell and each agent.
+  int tree_color, fire_color, burnt_color;
+  int agent_color[kMaxAgents];
+};
+
+template <int NK>
+__global__ void __launch_bounds__(kAutoresetEnvs * 32)
+autoreset_kernel(const AutoresetIn in, const AutoresetOut out, const Params p,
+                 const AutoresetParams q) {
+  constexpr int T = kAutoresetEnvs;
+  // The block's observations, staged at their global byte offset minus
+  // `base`, the 16-byte boundary at or below the first.
+  __shared__ __align__(16) unsigned char s_obs[16 + T * 3 * 32 * NK];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int C = p.w * p.h, A = p.n_agents;
+  const int b0 = blockIdx.x * T, b = b0 + warp;
+  const size_t env_bytes = 3 * (size_t)C;
+  const size_t g0 = b0 * env_bytes, g1 = min(b0 + T, p.B) * env_bytes;
+  const size_t base = g0 & ~(size_t)15;
+
+  if (b < p.B) {  // a whole warp
+    // Every load of the env comes before its first store, so that none
+    // waits on a store to memory it might alias.
+    const float reward = in.reward[b];
+    const int sc2 = in.sc[b] + 1, ext2 = in.ext[b] + in.n_ext[b];
+    const bool term = in.term[b] != 0, trunc = sc2 >= q.max_steps, done = term || trunc;
+    int v[NK];
+#pragma unroll
+    for (int k = 0; k < NK; ++k) {
+      const int c = 32 * k + lane;
+      v[k] = c < C ? out.cells[(size_t)b * C + c] : kEmpty;
+    }
+    int xs[kMaxAgents], ys[kMaxAgents];
+#pragma unroll
+    for (int i = 0; i < kMaxAgents; ++i) {
+      xs[i] = i < A ? out.pos[(size_t)b * 2 * A + 2 * i] : 0;
+      ys[i] = i < A ? out.pos[(size_t)b * 2 * A + 2 * i + 1] : 0;
+    }
+    // A finished row's reset uniforms, requested before the observation is
+    // staged so that their latency overlaps it: lane l's tree uniforms of
+    // cells l + 32 k, and pick j (the fires', then the agents') in lane j.
+    const float* u = in.rnd + (size_t)b * (C + q.n_fires + A);
+    float u_tree[NK], u_pick = 0.f;
+    if (done) {  // warp-uniform
+#pragma unroll
+      for (int k = 0; k < NK; ++k) u_tree[k] = 32 * k + lane < C ? u[32 * k + lane] : 1.f;
+      if (lane < q.n_fires + A) u_pick = u[C + lane];
+    }
+    if (out.obs) {
+      unsigned char* s = s_obs + (g0 - base) + warp * env_bytes;
+      // Cell c = 32 k + lane is (x, y) = (c % w, c / w), stepped 32 cells
+      // a word, so that the divisions are made once.
+      const int step_y = 32 / p.w, step_x = 32 % p.w;
+      int x = lane % p.w, y = lane / p.w;
+#pragma unroll
+      for (int k = 0; k < NK; ++k, x += step_x, y += step_y) {
+        if (x >= p.w) {
+          x -= p.w;
+          ++y;
+        }
+        if (32 * k + lane < C) {
+          unsigned char* o = s + 3 * (x * p.h + y);
+          const int t = v[k];
+          o[0] = (unsigned char)t;
+          o[1] = (unsigned char)(t == kTree    ? q.tree_color
+                                 : t == kFire  ? q.fire_color
+                                 : t == kBurnt ? q.burnt_color
+                                               : 0);
+          o[2] = 0;
+        }
+      }
+      __syncwarp();
+      if (lane == 0) {
+#pragma unroll
+        for (int i = 0; i < kMaxAgents; ++i) {
+          if (i < A) {
+            unsigned char* o = s + 3 * (xs[i] * p.h + ys[i]);
+            o[0] = kAgent;
+            o[1] = (unsigned char)q.agent_color[i];
+            o[2] = 3;
+          }
+        }
+      }
+    }
+    if (lane == 0) {
+      out.terminated[b] = term;
+      out.truncated[b] = trunc;
+      out.sc[b] = done ? 0 : sc2;
+      out.ext[b] = done ? 0 : ext2;
+    }
+    if (lane < A) out.rewards[(size_t)b * A + lane] = __fdiv_rn(reward, (float)A);
+    if (done) {
+      fresh_board<NK>(
+          p, q.tree_density, q.n_fires, lane, [&](int k) { return u_tree[k]; },
+          [&](int j) { return j < 32 ? __shfl_sync(kFull, u_pick, j) : u[C + j]; }, v, xs, ys);
+#pragma unroll
+      for (int k = 0; k < NK; ++k) {
+        const int c = 32 * k + lane;
+        if (c < C) out.cells[(size_t)b * C + c] = v[k];
+      }
+      if (lane < A) {
+        int x = 0, y = 0;
+#pragma unroll
+        for (int i = 0; i < kMaxAgents; ++i)
+          if (i == lane) {
+            x = xs[i];
+            y = ys[i];
+          }
+        out.pos[(size_t)b * 2 * A + 2 * lane] = x;
+        out.pos[(size_t)b * 2 * A + 2 * lane + 1] = y;
+      }
+    }
+  }
+  if (!out.obs) return;  // block-uniform
+  __syncthreads();
+  // The block's span [g0, g1) of the observation, in 16-byte chunks at
+  // 16-byte boundaries: whole chunks by one vector store, the partial ones
+  // at either end byte by byte.
+  for (size_t at = base + 16 * (size_t)threadIdx.x; at < g1; at += 16 * (size_t)blockDim.x) {
+    const unsigned char* s = s_obs + (at - base);
+    if (at >= g0 && at + 16 <= g1) {
+      *reinterpret_cast<uint4*>(out.obs + at) = *reinterpret_cast<const uint4*>(s);
+    } else {
+      for (int i = 0; i < 16; ++i)
+        if (at + i >= g0 && at + i < g1) out.obs[at + i] = s[i];
+    }
+  }
+}
+
+template <int NK>
+cudaError_t launch_autoreset(const AutoresetIn& in, const AutoresetOut& out, const Params& p,
+                             const AutoresetParams& q, cudaStream_t stream) {
+  constexpr int T = kAutoresetEnvs;
+  autoreset_kernel<NK><<<(p.B + T - 1) / T, T * 32, 0, stream>>>(in, out, p, q);
+  return cudaGetLastError();
+}
+
 // The words of 32 cells a lane holds for a board of C cells: the kernels'
 // NK, a power of two.
 int words_for(int C) {
@@ -938,5 +1138,49 @@ extern "C" int wf_steps_philox(const void* cells, const void* pos, const void* s
              : nk == 8  ? launch_philox_steps<8>
              : nk == 16 ? launch_philox_steps<16>
                         : launch_philox_steps<32>;
+  return (int)run(in, out, p, q, (cudaStream_t)stream);
+}
+
+// The rest of BatchedEnv.step after wildfire_step, with the auto-reset
+// (ops.wildfire_slab.wf_autoreset_slab; plain version autoreset_spec).
+// cells (B, width * height) and pos (B, 2A) int32, reward (B, 1) float32,
+// n_ext and term (B, 1) int32: wildfire_step's outputs, of which cells and
+// pos are rewritten in place with the fresh boards of the finished envs.
+// sc and ext (B,) int32: the counts before the step.  rnd_reset (B, width *
+// height + n_fires + A) float32: the reset draw, read in the finished rows
+// only.  Outputs: obs (B, width, height, 3) uint8, 16-byte aligned, or null
+// for none; rewards (B, A) float32; sc_out and ext_out (B,) int32;
+// terminated and truncated (B,) bool.  The colours are the observation's;
+// agent_color0..3 those of the agents (the unused ones any value).
+// Launches on `stream` and returns the launch's cudaError_t.
+extern "C" int wf_autoreset(void* cells, void* pos, const void* reward, const void* n_ext,
+                            const void* term, const void* sc, const void* ext,
+                            const void* rnd_reset, void* obs, void* rewards, void* sc_out,
+                            void* ext_out, void* terminated, void* truncated, int B, int width,
+                            int height, int n_agents, int n_fires, int max_steps, int tree_color,
+                            int fire_color, int burnt_color, int agent_color0, int agent_color1,
+                            int agent_color2, int agent_color3, float tree_density,
+                            void* stream) {
+  using namespace wildfire;
+  const int C = width * height;
+  if (B < 1 || n_agents < 1 || n_agents > kMaxAgents || width < 1 || height < 1 ||
+      C > kMaxCells || n_fires < 0)
+    return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)obs & 15u) return (int)cudaErrorMisalignedAddress;
+  const Params p{B, width, height, n_agents, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const AutoresetParams q{n_fires,     max_steps,   tree_density,
+                          tree_color,  fire_color,  burnt_color,
+                          {agent_color0, agent_color1, agent_color2, agent_color3}};
+  const AutoresetIn in{(const float*)reward, (const int*)n_ext, (const int*)term,
+                       (const int*)sc,       (const int*)ext,   (const float*)rnd_reset};
+  const AutoresetOut out{(int*)cells,   (int*)pos,     (unsigned char*)obs, (float*)rewards,
+                         (int*)sc_out,  (int*)ext_out, (bool*)terminated,   (bool*)truncated};
+  const int nk = words_for(C);
+  auto run = nk == 1    ? launch_autoreset<1>
+             : nk == 2  ? launch_autoreset<2>
+             : nk == 4  ? launch_autoreset<4>
+             : nk == 8  ? launch_autoreset<8>
+             : nk == 16 ? launch_autoreset<16>
+                        : launch_autoreset<32>;
   return (int)run(in, out, p, q, (cudaStream_t)stream);
 }

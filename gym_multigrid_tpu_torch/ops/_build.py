@@ -64,6 +64,7 @@ ENTRY_POINTS = {
     "wildfire_step.cu": {
         "wildfire_step": [_P] * 9 + [_I] * 5 + [_F] * 8 + [_P],
         "wf_steps_philox": [_P] * 13 + [_I] * 10 + [_F] * 9 + [_P],
+        "wf_autoreset": [_P] * 14 + [_I] * 13 + [_F] + [_P],
     },
 }
 
@@ -148,6 +149,19 @@ def check_arg(name, x, dtype, shape, device):
             f"{tuple(shape)} on {device}, got {x.dtype} {tuple(x.shape)} on "
             f"{x.device} (contiguous={x.is_contiguous()})"
         )
+
+
+def call_on(device: torch.device, entry, *args) -> int:
+    """``entry(*args, stream)`` with ``device`` current and its current
+    stream last: a kernel entry's launch, for wrappers on a per-step path.
+    The raw stream handle and the device index are read without building
+    a ``torch.cuda.Stream`` or entering a device guard where ``device`` is
+    current already; returns the entry's CUDA error code."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        return entry(*args, stream)
+    with torch.cuda.device(device):
+        return entry(*args, stream)
 
 
 @functools.cache

@@ -26,6 +26,13 @@ and of ``gym_multigrid_tpu/ops/pallas_wildfire.py``: the Pallas kernel
   ``make_wildfire_step_batch`` and of the auto-reset in ``_ms_math``.
   Their uniforms come from a ``torch.Generator``, or from an ``rnd`` tensor
   used as is (which is how the tests hold them to JAX bit for bit).
+* :func:`step_reset` is ``BatchedEnv.step`` with the auto-reset in two
+  launches on the card: the step kernel, then the kernel entry
+  ``wf_autoreset`` (:func:`wf_autoreset_slab`, plain version
+  :func:`autoreset_spec`), which does the observation, the rewards, the
+  flags, the counts and the fresh boards of the finished envs, the same
+  results as :func:`step_batch`, ``encode`` and :func:`reset_batch` on the
+  same draws.
 * :func:`ms_spec` is ``_ms_math`` in its pre-drawn form: K steps with the
   per-env auto-reset and the return accounting, the form JAX is held
   against.  :func:`ms_philox_spec` is ``ms_spec`` on the draws of the
@@ -53,6 +60,7 @@ survival table, as JAX forms them (:func:`ignite_thresholds`).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -60,11 +68,14 @@ import torch
 
 from gym_multigrid_tpu_torch.envs.wildfire import (
     BURNT,
+    BURNT_COLOR,
     EMPTY,
     FIRE,
+    FIRE_COLOR,
     MAX_AGENTS,
     NUM_ACTIONS,
     TREE,
+    TREE_COLOR,
     WfTables,
     WildfireConfig,
     WildfireState,
@@ -463,6 +474,15 @@ class WildfireSlab:
         """Uniforms one env's reset takes."""
         return reset_rnd_width(self.t)
 
+    @functools.cached_property
+    def autoreset_args(self) -> tuple:
+        """The config's arguments of the kernel entry ``wf_autoreset``, after
+        the batch size: formed once, not on every step."""
+        t = self.t
+        colors = (*self.cfg.agents_index, 0, 0, 0)[:MAX_AGENTS]
+        return (t.width, t.height, t.n_agents, t.n_fires, t.max_steps,
+                TREE_COLOR, FIRE_COLOR, BURNT_COLOR, *colors, t.tree_density)
+
 
 def make_wildfire_slab(cfg: WildfireConfig, device) -> WildfireSlab:
     """The slab of ``cfg`` on ``device``, its route picked by
@@ -502,13 +522,8 @@ def step_batch(
         actions.reshape(B, A).to(torch.int32).contiguous(),
         rnd,
     )
-    step_count = states.step_count + 1
-    new_states = WildfireState(
-        cells=cells.reshape(B, cfg.height, cfg.width),
-        agent_pos=pos.reshape(B, A, 2),
-        step_count=step_count,
-        extinguished=states.extinguished + n_ext[:, 0],
-    )
+    new_states, rewards, terminated, truncated = _step_tail(
+        slab, cells, pos, reward, n_ext, term, states.step_count, states.extinguished)
     obs = encode(cfg, new_states) if encode_obs else None
     step_info = None
     if with_info:
@@ -517,10 +532,26 @@ def step_batch(
             "burning": (cells == FIRE).sum(dim=1, dtype=torch.int32),
             "burnt": (cells == BURNT).sum(dim=1, dtype=torch.int32),
         }
-    return (
-        new_states, obs, (reward / A).repeat(1, A), term[:, 0].to(torch.bool),
-        step_count >= t.max_steps, step_info,
+    return new_states, obs, rewards, terminated, truncated, step_info
+
+
+def _step_tail(slab: WildfireSlab, cells, pos, reward, n_ext, term, step_count, extinguished):
+    """A batch step's results past the transition (:func:`step_spec`'s
+    outputs, the counts before it): (states', rewards (B, A) float32,
+    terminated (B,), truncated (B,)).  Every agent gets the team reward
+    divided by A, a float32 division on every device (a division by a
+    Python number is a multiply by its reciprocal on the card)."""
+    cfg, t = slab.cfg, slab.t
+    B, A = cells.shape[0], t.n_agents
+    step_count = step_count + 1
+    new_states = WildfireState(
+        cells=cells.reshape(B, cfg.height, cfg.width),
+        agent_pos=pos.reshape(B, A, 2),
+        step_count=step_count,
+        extinguished=extinguished + n_ext[:, 0],
     )
+    return (new_states, (reward / torch.full_like(reward, A)).repeat(1, A),
+            term[:, 0].to(torch.bool), step_count >= t.max_steps)
 
 
 def reset_batch(
@@ -556,6 +587,138 @@ def reset_batch(
         step_count=states.step_count.masked_fill(done, 0),
         extinguished=states.extinguished.masked_fill(done, 0),
     )
+
+
+# ---------------------------------------------------------------------------
+# The per-step auto-reset
+# ---------------------------------------------------------------------------
+
+
+def autoreset_spec(slab: WildfireSlab, cells, pos, reward, n_ext, term, sc, ext, rnd_reset,
+                   encode_obs: bool = True):
+    """The rest of a batch step after the transition, with the auto-reset,
+    in plain PyTorch: :func:`step_batch`'s results past the step
+    (``_step_tail``), ``encode`` of its states, and :func:`reset_batch` of
+    the finished rows on ``rnd_reset``.
+
+    cells (B, C), pos (B, 2A), reward (B, 1), n_ext and term (B, 1): a
+    step's results (:func:`step_spec`); sc and ext (B,) int32: the step
+    and put-out counts before it; rnd_reset (B, ``slab.reset_draws``): the
+    fresh boards' uniforms, of which the finished rows' are read.  Returns
+    (cells, pos, sc, ext, obs, rewards (B, A) float32, terminated (B,),
+    truncated (B,)): the next state's planes and counts, the obs of the
+    stepped boards before the reset (None with ``encode_obs=False``), and
+    the step's flags.  A row is finished where it terminated or its count
+    reaches ``max_steps``; it gets a fresh board and counts 0, the others
+    their counts plus one step and the fires put out."""
+    B = cells.shape[0]
+    states, rewards, terminated, truncated = _step_tail(
+        slab, cells, pos, reward, n_ext, term, sc, ext)
+    obs = encode(slab.cfg, states) if encode_obs else None
+    states = reset_batch(slab, B, rnd=rnd_reset, done=terminated | truncated, states=states)
+    return (states.cells.reshape(B, -1), states.agent_pos.reshape(B, -1), states.step_count,
+            states.extinguished, obs, rewards, terminated, truncated)
+
+
+def wf_autoreset_slab(slab: WildfireSlab, cells, pos, reward, n_ext, term, sc, ext, rnd_reset,
+                      encode_obs: bool = True):
+    """:func:`autoreset_spec` for CPU tensors; for CUDA tensors the kernel
+    entry ``wf_autoreset`` of ``csrc/wildfire_step.cu``, one launch, which
+    writes the fresh boards of the finished rows into ``cells`` and ``pos``
+    in place (they are :func:`wildfire_step_slab`'s own outputs) and
+    returns them; every other result is a new tensor.  Same arguments and
+    results as :func:`autoreset_spec`."""
+    t = slab.t
+    if cells.device.type == "cpu":
+        return autoreset_spec(slab, cells, pos, reward, n_ext, term, sc, ext, rnd_reset,
+                              encode_obs)
+    if cells.device.type != "cuda":
+        raise ValueError(f"no Wildfire auto-reset for tensors on {cells.device}")
+    check_envelope(t)
+    B, C, A = cells.shape[0], t.n_cells, t.n_agents
+    if B < 1:
+        raise ValueError("an empty batch has nothing to reset")
+    for name, x, dtype, shape in (
+        ("cells", cells, torch.int32, (B, C)),
+        ("pos", pos, torch.int32, (B, 2 * A)),
+        ("reward", reward, torch.float32, (B, 1)),
+        ("n_ext", n_ext, torch.int32, (B, 1)),
+        ("term", term, torch.int32, (B, 1)),
+        ("sc", sc, torch.int32, (B,)),
+        ("ext", ext, torch.int32, (B,)),
+        ("rnd_reset", rnd_reset, torch.float32, (B, reset_rnd_width(t))),
+    ):
+        _build.check_arg(name, x, dtype, shape, cells.device)
+    return _autoreset_launch(slab, cells, pos, reward, n_ext, term, sc, ext, rnd_reset,
+                             encode_obs)
+
+
+#: Launches of the auto-reset kernel since the count was last set to 0.
+wf_autoreset_slab.launches = 0
+
+
+def _autoreset_launch(slab: WildfireSlab, cells, pos, reward, n_ext, term, sc, ext, rnd_reset,
+                      encode_obs):
+    """:func:`wf_autoreset_slab`'s launch on checked arguments, with the
+    config's arguments formed once a slab and no stream object built.  One
+    ``torch.empty`` an output (one a dtype, split into views, costs the
+    host as much)."""
+    B, dev = cells.shape[0], cells.device
+    cfg = slab.cfg
+    obs = (torch.empty((B, cfg.width, cfg.height, 3), dtype=torch.uint8, device=dev)
+           if encode_obs else None)
+    rewards = torch.empty((B, slab.t.n_agents), dtype=torch.float32, device=dev)
+    sc_out = torch.empty((B,), dtype=torch.int32, device=dev)
+    ext_out = torch.empty((B,), dtype=torch.int32, device=dev)
+    terminated = torch.empty((B,), dtype=torch.bool, device=dev)
+    truncated = torch.empty((B,), dtype=torch.bool, device=dev)
+    err = _build.call_on(
+        dev, _build.load().wf_autoreset,
+        cells.data_ptr(), pos.data_ptr(), reward.data_ptr(), n_ext.data_ptr(),
+        term.data_ptr(), sc.data_ptr(), ext.data_ptr(), rnd_reset.data_ptr(),
+        None if obs is None else obs.data_ptr(), rewards.data_ptr(), sc_out.data_ptr(),
+        ext_out.data_ptr(), terminated.data_ptr(), truncated.data_ptr(), B,
+        *slab.autoreset_args,
+    )
+    if err:
+        raise RuntimeError(f"wf_autoreset kernel launch failed: CUDA error {err}")
+    wf_autoreset_slab.launches += 1
+    return cells, pos, sc_out, ext_out, obs, rewards, terminated, truncated
+
+
+def step_reset(slab: WildfireSlab, states: WildfireState, actions: torch.Tensor,
+               generator: torch.Generator | None, encode_obs: bool):
+    """``BatchedEnv.step`` with the auto-reset for a slab on the kernel
+    route: (states', obs, rewards (B, A), terminated, truncated), as
+    :func:`step_batch`, ``encode`` of its states and :func:`reset_batch`
+    of the finished rows give them.  The draws are theirs, from
+    ``generator`` in their order: the step's (B, ``slab.step_draws``),
+    then the fresh boards' (B, ``slab.reset_draws``).  Then one
+    :func:`wildfire_step_slab` and one :func:`wf_autoreset_slab`; nothing
+    waits for the device, and ``states`` is not written."""
+    t, cfg = slab.t, slab.cfg
+    B, C, A = states.cells.shape[0], t.n_cells, t.n_agents
+    sc, ext = states.step_count, states.extinguished
+    if actions.dtype != torch.int32 or actions.shape != (B, A) or not actions.is_contiguous():
+        actions = actions.reshape(B, A).to(torch.int32).contiguous()
+    with annotate("env.transition"):
+        rnd = torch.rand((B, slab.step_draws), generator=generator, device=slab.device)
+        rnd_reset = torch.rand((B, slab.reset_draws), generator=generator, device=slab.device)
+        step = wildfire_step_slab(
+            t, states.cells.reshape(B, C), states.agent_pos.reshape(B, 2 * A), actions, rnd)
+    with annotate("env.autoreset"):
+        if step[0].device.type == "cuda":
+            # The step kernel's outputs and the reset's uniforms have the
+            # shapes the launch needs by construction: only the caller's
+            # counts are checked.
+            for name, x in (("step_count", sc), ("extinguished", ext)):
+                _build.check_arg(name, x, torch.int32, (B,), step[0].device)
+            out = _autoreset_launch(slab, *step, sc, ext, rnd_reset, encode_obs)
+        else:
+            out = wf_autoreset_slab(slab, *step, sc, ext, rnd_reset, encode_obs)
+    cells, pos, sc, ext, obs, rewards, term, trunc = out
+    return (WildfireState(cells.reshape(B, cfg.height, cfg.width), pos.reshape(B, A, 2), sc, ext),
+            obs, rewards, term, trunc)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,11 @@ whole batch launches the family's step kernel once on a CUDA device
 (``ops/*_slab.py``), beside the PyTorch glue around it.  Finished envs are
 reset under a ``done`` mask (in place by the Collect reset kernel; into new
 tensors by the other families' resets, which are plain PyTorch), so
-neither ``step`` nor ``rollout`` waits on the device inside its loop.
+neither ``step`` nor ``rollout`` waits on the device inside its loop.  A
+Wildfire batch on the kernel route with the full observation takes no
+glue: its ``step_reset`` (``wildfire_slab.step_reset``) is the step kernel
+and one auto-reset kernel, which writes the observation, the rewards, the
+flags and the fresh boards.
 Randomness comes from the env's ``torch.Generator``, seeded by
 ``reset(seed)``.
 
@@ -43,6 +47,20 @@ from gym_multigrid_tpu_torch.utils.profiling import annotate
 
 
 @dataclass(frozen=True, eq=False)
+class StepReset:
+    """A family's whole batch step with the auto-reset in one function, and
+    the glue it stands for."""
+
+    #: ``fn(slab, states, actions, generator, encode_obs) -> (states', obs,
+    #: rewards, terminated, truncated)``: the same results as ``step_batch``,
+    #: ``encode`` and ``reset_batch`` of ``glue`` on the same draws.
+    fn: Callable
+    #: (step_batch, encode, reset_batch): the batch's glue that ``fn``
+    #: stands for.
+    glue: tuple
+
+
+@dataclass(frozen=True, eq=False)
 class BatchedEnv:
     """Batched env with auto-reset, for one env family.
 
@@ -75,6 +93,18 @@ class BatchedEnv:
     action_cols: int | None
     #: False: ``step`` returns the post-step states without resetting any.
     auto_reset: bool = True
+    #: Optional: the whole step with the auto-reset in one function
+    #: (:class:`StepReset`), which stands for ``step_batch``, ``encode`` and
+    #: ``reset_batch`` together and overrides all three in ``step`` and
+    #: ``rollout`` where ``auto_reset`` is True.  A batch built with other
+    #: glue than the one it stands for (``dataclasses.replace`` of any of
+    #: the three) drops it, and steps through its own glue.
+    step_reset: StepReset | None = None
+
+    def __post_init__(self):
+        fused = self.step_reset
+        if fused is not None and fused.glue != (self.step_batch, self.encode, self.reset_batch):
+            object.__setattr__(self, "step_reset", None)
 
     @property
     def actions_shape(self) -> tuple[int, ...]:
@@ -99,7 +129,8 @@ class BatchedEnv:
 
     def step(self, states, actions):
         with annotate("env.step"):
-            actions = torch.as_tensor(actions, device=self.device)
+            if not isinstance(actions, torch.Tensor) or actions.device != self.device:
+                actions = torch.as_tensor(actions, device=self.device)
             if tuple(actions.shape) != self.actions_shape:
                 raise ValueError(
                     f"actions must have shape {self.actions_shape}, got {tuple(actions.shape)}"
@@ -107,6 +138,8 @@ class BatchedEnv:
             return self._step(states, actions, encode_obs=True)
 
     def _step(self, states, actions, encode_obs):
+        if self.step_reset is not None and self.auto_reset:
+            return self.step_reset.fn(self.slab, states, actions, self.generator, encode_obs)
         # The obs is taken here, before the reset (Collect's resets the
         # finished rows in place), and never computed by the step.
         with annotate("env.transition"):
@@ -304,19 +337,28 @@ def make_wildfire_batch(
     """A batch of ``num_envs`` Wildfire envs on ``device`` (default and CPU
     as for :func:`make_collect_batch`).  Actions are (num_envs, num_agents)
     ids 0..4; rewards are (num_envs, num_agents), the team reward split
-    evenly."""
+    evenly.  On the kernel route with the full observation, ``step`` is
+    ``wildfire_slab.step_reset``: the step kernel and one auto-reset
+    kernel (the plain versions on the CPU); otherwise it is the family's
+    step, encode and masked reset, as for the other families."""
     device = _build.default_device(device, "make_wildfire_batch")
+    slab = wildfire_slab.make_wildfire_slab(cfg, device)
+    glue = (functools.partial(wildfire_slab.step_batch, with_info=False),
+            _encoder(wildfire.encode, wildfire.make_wildfire_partial_encode, cfg,
+                     partial_obs_view),
+            wildfire_slab.reset_batch)
+    fused = slab.kernel and partial_obs_view is None
     return BatchedEnv(
-        slab=wildfire_slab.make_wildfire_slab(cfg, device),
+        slab=slab,
         num_envs=num_envs,
         generator=torch.Generator(device=device),
-        step_batch=functools.partial(wildfire_slab.step_batch, with_info=False),
-        reset_batch=wildfire_slab.reset_batch,
-        encode=_encoder(wildfire.encode, wildfire.make_wildfire_partial_encode, cfg,
-                        partial_obs_view),
+        step_batch=glue[0],
+        reset_batch=glue[2],
+        encode=glue[1],
         num_actions=wildfire.NUM_ACTIONS,
         action_cols=cfg.num_agents,
         auto_reset=auto_reset,
+        step_reset=StepReset(wildfire_slab.step_reset, glue) if fused else None,
     )
 
 

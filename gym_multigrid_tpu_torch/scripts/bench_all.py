@@ -126,6 +126,7 @@ def kernel_wrappers() -> dict:
             "maze_step": maze_slab.maze_step_slab,
             "maze_steps_philox": maze_slab.maze_philox_slab,
             "wildfire_step": wildfire_slab.wildfire_step_slab,
+            "wf_autoreset": wildfire_slab.wf_autoreset_slab,
             "wf_steps_philox": wildfire_slab.wf_philox_slab}
 
 

@@ -64,6 +64,10 @@ _HEAVY_MODULE_PREFIXES = (
 _last_module = [None]
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA card; skips without one")
+
+
 def _module_name(item):
     return getattr(item, "module", None) and item.module.__name__ or ""
 

@@ -1,7 +1,8 @@
 """The port's spans (``utils/profiling.annotate``) on the CPU: under
-``torch.profiler`` the per-step batch env, the four episode rollouts and a
-PPO train step record exactly the spans of their layers, each inside its
-parent; with no profiler running the helper never enters
+``torch.profiler`` the per-step batch env (the Wildfire batch's fused
+step and the other families' step, encode and reset), the four episode
+rollouts and a PPO train step record exactly the spans of their layers,
+each inside its parent; with no profiler running the helper never enters
 ``record_function``; and the spans change no result."""
 
 from collections import Counter
@@ -49,8 +50,18 @@ def with_parents(spans) -> Counter:
 
 
 def env_step_spans(parent, n=1) -> Counter:
+    """A step of the old glue (step, encode, masked reset), as the CtF
+    batch takes it."""
     return Counter({("env.step", parent): n, ("env.transition", "env.step"): n,
                     ("env.encode", "env.step"): n, ("env.reset", "env.step"): n})
+
+
+def fused_step_spans(parent, n=1) -> Counter:
+    """A step of the Wildfire batch on the kernel route
+    (``wildfire_slab.step_reset``): the draws and the step, then the
+    auto-reset with the observation."""
+    return Counter({("env.step", parent): n, ("env.transition", "env.step"): n,
+                    ("env.autoreset", "env.step"): n})
 
 
 def rollout_spans() -> Counter:
@@ -106,8 +117,8 @@ def episode(family):
     return roll, states, steps
 
 
-def test_batch_env_step_spans():
-    env = vector.make_vector_batch("wildfire", N, "cpu")
+def two_step_spans(family):
+    env = vector.make_vector_batch(family, N, "cpu")
     states, _ = env.reset(3)
     acts = torch.zeros(env.actions_shape, dtype=torch.int32)
 
@@ -116,8 +127,15 @@ def test_batch_env_step_spans():
         for _ in range(2):
             s = env.step(s, acts)[0]
 
-    _, spans = profiled(two_steps)
-    assert with_parents(spans) == env_step_spans(None, 2)
+    return profiled(two_steps)[1]
+
+
+def test_batch_env_step_spans():
+    assert with_parents(two_step_spans("wildfire")) == fused_step_spans(None, 2)
+
+
+def test_batch_env_step_spans_of_the_old_glue():
+    assert with_parents(two_step_spans("ctf")) == env_step_spans(None, 2)
 
 
 @pytest.mark.parametrize("family", ["ctf", "wildfire", "collect", "maze"])
