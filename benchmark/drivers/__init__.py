@@ -1,31 +1,40 @@
 """Drivers: one module a kind of traffic (``traffic/<name>.json``'s
 ``driver``), each a ``Driver(cell, seed, device)`` that sets the cell up
 and warms it up, drives one call of the window at a time (``call(i)``),
-and checks the call it kept against the reference (``check(control)``).
-These are the only modules of the benchmark that import
+and checks the call it kept against the reference (``check(control)``),
+and each with ``TINY``, the traffic it takes at the CPU tests' size.
+What belongs to one env family lives in ``families/<family>.py``, found
+by the configuration file's ``family``.  The drivers and the family
+modules are the only modules of the benchmark that import
 ``gym_multigrid_tpu_torch``; each config file becomes the program's own
-config object here."""
+config object in its family module."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+
+from benchmark import harness
+
+
+@functools.cache
+def family(name: str):
+    """``families/<name>.py``, loaded once a process."""
+    path = harness.HERE / "drivers" / "families" / f"{name}.py"
+    if not path.exists():
+        raise ValueError(f"no family module {path.name} under drivers/families/")
+    return harness.load_module(path, f"benchmark_family_{name}")
 
 
 def port_config(conf: dict):
     """The program's config object of a configuration file."""
-    family, c = conf["family"], dict(conf["config"])
-    if family == "ctf":
-        from gym_multigrid_tpu_torch.envs.ctf import CtfConfig, PolicySpec
+    return family(conf["family"]).config(conf["config"])
 
-        fm = np.asarray(c.pop("map_rows"), dtype=np.int64).T
-        c["enemy_policies"] = tuple(PolicySpec(**p) for p in c["enemy_policies"])
-        return CtfConfig(map_data=tuple(tuple(int(v) for v in row) for row in fm), **c)
-    if family == "wildfire":
-        from gym_multigrid_tpu_torch.envs.wildfire import WildfireConfig
 
-        c["agents_index"] = tuple(c["agents_index"])
-        return WildfireConfig(**c)
-    raise ValueError(f"no driver knows the family {family!r}")
+def by_family(value, name: str):
+    """A traffic value: a number, or a map by family (``name``'s entry)."""
+    return value[name] if isinstance(value, dict) else value
 
 
 def sub_seeds(seed: int, n: int) -> list[int]:

@@ -15,6 +15,9 @@ import torch
 from benchmark.drivers import check_index, gap, mismatches, port_config, sub_seeds
 from benchmark.reference import wildfire as ref_wf
 
+#: The traffic at the CPU tests' size.
+TINY = {"num_envs": 48, "action_bank": 3, "warmup_calls": 1, "check_within": 2}
+
 
 class Driver:
     def __init__(self, cell, seed: int, device, fault=None):

@@ -20,6 +20,11 @@ from benchmark.drivers import port_config, sub_seeds
 from benchmark.reference import ppo as ref_ppo
 from benchmark.roofline import counts as roofline
 
+#: The traffic at the CPU tests' size (``ppo``'s keys merged into the
+#: cell's).
+TINY = {"num_envs": 128, "checked_steps": 2,
+        "ppo": {"rollout_len": 3, "num_minibatches": 2, "shuffle_blocks": 4}}
+
 
 def leaf_gaps(got, want, keep) -> list[float]:
     """Each kept leaf's gap between the norms of two lists of tensors, over

@@ -1,8 +1,9 @@
 """The parts of a run every cell shares: finding a cell's files by name,
 the timed window, the reading of a profiler trace, the checks of the
 environment, and the result line.  Imports no JAX and nothing of the
-program: the drivers (``drivers/<kind>.py``) are the only modules that
-import ``gym_multigrid_tpu_torch``."""
+program: the drivers (``drivers/<kind>.py``) and the family modules
+(``drivers/families/<family>.py``) are the only modules that import
+``gym_multigrid_tpu_torch``."""
 
 from __future__ import annotations
 

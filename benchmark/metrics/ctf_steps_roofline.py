@@ -6,4 +6,4 @@ from benchmark.roofline import window
 
 
 def read(run):
-    return window.share(window.ctf_steps(run))
+    return window.share(window.work(run, "ctf_steps"))

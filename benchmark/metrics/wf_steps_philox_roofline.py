@@ -6,4 +6,4 @@ from benchmark.roofline import window
 
 
 def read(run):
-    return window.share(window.wf_steps_philox(run))
+    return window.share(window.work(run, "wf_steps_philox"))

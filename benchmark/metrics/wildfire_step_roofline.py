@@ -6,4 +6,4 @@ from benchmark.roofline import window
 
 
 def read(run):
-    return window.share(window.wildfire_step(run))
+    return window.share(window.work(run, "wildfire_step"))

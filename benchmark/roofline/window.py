@@ -1,17 +1,26 @@
-"""The work a traced window gave each measured kernel: (bytes,
-operations, the kernel's summed device seconds), read from the run's
-trace and counts and from the configuration's own tables.  None where
-the run has no trace, or the trace's launches of the kernel are not the
-launches the program's wrapper counted."""
+"""The work a traced window gave a cell's measured kernel: (bytes,
+operations, the kernel's summed device seconds), from the cell's work
+reader ``work/<driver>.<family>.py``, found by the cell's traffic driver
+and configuration family.  Each reader holds ``KERNEL``, the kernel's
+name, and ``read(run)``, which reads the run's trace and counts and the
+configuration's own tables, and returns None where the run has no trace,
+or the trace's launches of the kernel are not the launches the program's
+wrapper counted (:func:`matched`)."""
 
 from __future__ import annotations
 
-from benchmark.reference import ctf as ref_ctf
-from benchmark.reference import wildfire as ref_wf
+import functools
+
+from benchmark import harness
 from benchmark.roofline import counts
 
+WORK = harness.HERE / "roofline" / "work"
 
-def _matched(run, *fragments, exclude=()):
+
+def matched(run, *fragments, exclude=()):
+    """The summed device seconds of the trace's kernels whose names hold
+    every fragment and none of ``exclude``; None without a trace, or where
+    their count is not the wrapper's ``launches``."""
     if run.trace is None:
         return None
     ops = run.trace.kernels(*fragments, exclude=exclude)
@@ -20,53 +29,20 @@ def _matched(run, *fragments, exclude=()):
     return sum(op[2] for op in ops) / 1e9
 
 
-def ctf_steps(run):
-    seconds = _matched(run, "ctf::", "steps_kernel")
-    if seconds is None:
+@functools.cache
+def reader(driver: str, family: str):
+    """``work/<driver>.<family>.py``, or None where the cell has none."""
+    path = WORK / f"{driver}.{family}.py"
+    return harness.load_module(path, f"benchmark_work_{driver}_{family}") if path.exists() else None
+
+
+def work(run, kernel: str | None = None):
+    """The cell's kernel work in the traced window, or None; with
+    ``kernel``, None also where the cell measures another kernel."""
+    module = reader(run.cell.traffic["driver"], run.cell.config["family"])
+    if module is None or kernel not in (None, module.KERNEL):
         return None
-    c, t = run.counts, ref_ctf.tables(run.cell.config["config"])
-    B, Ks = c["num_envs"], ref_ctf.chunk_sizes(c["steps_per_call"], c["chunk"])
-    static = t.s0 * t.s1 + 8 + 8 + 4 * 2 * (len(t.blue_terr) + len(t.red_terr))
-    nbytes = ops = 0
-    for K in Ks * run.trace.calls:
-        b, o = counts.ctf_steps_launch(B, K, t.n_blue, t.n_red, [k for k, _ in t.policies],
-                                       t.mvn, t.step_draws, static, 0)
-        nbytes, ops = nbytes + b, ops + o
-    A = t.n_agents
-    done = c["episodes"]
-    nbytes += done * A * 4
-    ops += done * A * (counts.CTF_SPAWN_OPS
-                       + counts.CTF_SPAWN_PAIR_OPS * (max(t.n_blue, t.n_red) - 1))
-    return nbytes, ops, seconds
-
-
-def wf_steps_philox(run):
-    """Per-call work from the checked call's replay (its fresh boards and
-    the Philox calls and words its data needs), times the traced calls."""
-    seconds = _matched(run, "wildfire::", "philox_steps_kernel")
-    need = run.counts.get("philox")
-    if seconds is None or not need:
-        return None
-    c, t = run.counts, ref_wf.tables(run.cell.config["config"])
-    Ks = ref_ctf.chunk_sizes(c["steps_per_call"], c["chunk"])
-    nbytes, ops = counts.wf_steps_philox_call(c["num_envs"], t.n_cells, t.n_agents, t.n_fires,
-                                              Ks, need["fresh"], need["calls"], need["words"])
-    return nbytes * run.trace.calls, ops * run.trace.calls, seconds
-
-
-def wildfire_step(run):
-    seconds = _matched(run, "wildfire::", "step_kernel", exclude=("philox",))
-    if seconds is None:
-        return None
-    t = ref_wf.tables(run.cell.config["config"])
-    b, o = counts.wildfire_step_launch(run.counts["num_envs"], t.n_cells, t.n_agents)
-    n = run.counts["launches"]
-    return b * n, o * n, seconds
-
-
-#: The measured kernel of each kind of cell, by (driver, family).
-BY_CELL = {("episode", "ctf"): ctf_steps, ("episode", "wildfire"): wf_steps_philox,
-           ("step", "wildfire"): wildfire_step}
+    return module.read(run)
 
 
 def share(work) -> float | None:

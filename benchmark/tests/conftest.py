@@ -1,7 +1,8 @@
 """Shared helpers of the benchmark's tests: every cell of BENCHMARK.json
 cut to a size the CPU runs in a second or two (the same files, fewer
-envs, steps and calls), and the ``card`` marker of the tests that need a
-CUDA card, which decide so inside a fixture."""
+envs, steps and calls: the driver's ``TINY``, then the family module's
+for that driver), and the ``card`` marker of the tests that need a CUDA
+card, which decide so inside a fixture."""
 
 from __future__ import annotations
 
@@ -11,14 +12,8 @@ import pytest
 import torch
 
 from benchmark import harness
+from benchmark.drivers import family
 
-#: The traffic each kind of driver takes at the tests' size.
-TINY = {
-    "episode": {"num_envs": 48, "steps_per_call": {"ctf": 20, "wildfire": 12},
-                "chunk": {"ctf": 7, "wildfire": 5}, "warmup_calls": 1, "check_within": 2},
-    "step": {"num_envs": 48, "action_bank": 3, "warmup_calls": 1, "check_within": 2},
-    "train": {"num_envs": 128, "checked_steps": 2},
-}
 CELLS = [w["name"] for w in harness.load_json(harness.ROOT / "BENCHMARK.json")["workloads"]]
 
 
@@ -26,12 +21,17 @@ def pytest_configure(config):
     config.addinivalue_line("markers", "card: needs a CUDA card; skips without one")
 
 
+def merged(traffic: dict, tiny: dict) -> dict:
+    """``traffic`` with ``tiny``'s values; a map in both is merged."""
+    return dict(traffic, **{k: dict(traffic[k], **v) if isinstance(v, dict)
+                            and isinstance(traffic.get(k), dict) else v for k, v in tiny.items()})
+
+
 def tiny_cell(name: str):
     cell = harness.find_cell(name)
-    traffic = dict(cell.traffic, **TINY[cell.traffic["driver"]])
-    if "ppo" in traffic:
-        traffic["ppo"] = dict(traffic["ppo"], rollout_len=3, num_minibatches=2,
-                              shuffle_blocks=4)
+    kind = cell.traffic["driver"]
+    traffic = merged(cell.traffic, harness.driver_module(kind).TINY)
+    traffic = merged(traffic, family(cell.config["family"]).TINY.get(kind, {}))
     return dataclasses.replace(cell, traffic=traffic)
 
 
