@@ -70,6 +70,12 @@ class MazeConfig:
     def field_map(self) -> np.ndarray:
         return np.asarray(self.map_data, dtype=np.int64)
 
+    @property
+    def num_agents(self) -> int:
+        """One agent, as in every Maze env; not a field, so the fields stay
+        the JAX package's."""
+        return 1
+
     # Products in double, as in the JAX package; the step rounds each to
     # float32 once.
     @property
