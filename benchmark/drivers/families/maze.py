@@ -1,10 +1,9 @@
 """Maze in the episode driver: the program's ``MazeConfig``, the episode
 rollout (``ops/maze_slab.py``) with its K-step wrapper, and the
 reference's replay of a checked call on the Philox counters
-(``reference/maze.py``), which also counts the Philox calls the roofline
-needs.  The check compares the position (packed as one cell), the
-direction and the step count after the call, the first reset, the
-finished episodes, the running return and the two sums."""
+(``reference/maze.py``).  The check compares the position (packed as
+one cell), the direction and the step count after the call, the first
+reset, the finished episodes, the running return and the two sums."""
 
 from __future__ import annotations
 
@@ -51,13 +50,10 @@ def reference(conf: dict, seed: int, state, run_ret, index: int, steps: int, chu
               count=None):
     """The reference's first reset and its run of call ``index`` from the
     program's state before it: (reset state, state after, running return,
-    sums).  ``count``, a dict, gets ``philox_calls``: the Philox calls an
-    env makes in the call's launches."""
+    sums); ``count`` is not used, as the cell has no work reader."""
     B, dev = run_ret.shape[0], run_ret.device
     t, key = ref_mz.tables(conf), philox.key_of(seed)
     step0 = index * steps
-    if count is not None:
-        count["philox_calls"] = ref_mz.philox_calls(step0, steps, chunk)
     prog = (state.pos, state.dir, state.step_count, run_ret.to(fdt))
     out, run, sums = ref_mz.episode_call(t, prog, key, step0, steps, fdt)
     return ref_mz.first_reset(t, key, B, dev, fdt), out, run, sums

@@ -67,18 +67,6 @@ class Tables:
     step_penalty: float
     max_steps: int
 
-    @property
-    def n_cells(self) -> int:
-        return self.s0 * self.s1
-
-    @property
-    def table_bytes(self) -> int:
-        """Bytes of the kernel's move table, read once a launch: a move
-        entry and a reward a (cell, action), a spawn a background cell,
-        padded to 16 bytes."""
-        n = 2 * NUM_ACTIONS * self.n_cells + len(self.background)
-        return 4 * (n + -n % 4)
-
 
 def f32(v: float) -> float:
     return float(np.float32(v))
@@ -158,17 +146,6 @@ def first_reset(t: Tables, key, envs: int, device, fdt=torch.float32):
 def pack(pos):
     """(B,) int32 cells ``row << 16 | col``: what the check compares."""
     return pos[:, 0] * 65536 + pos[:, 1]
-
-
-def philox_calls(step0: int, num_steps: int, chunk: int) -> int:
-    """Philox calls an env makes in a call's launches of ``chunk`` steps
-    from global step ``step0``: one a pair of steps, a launch that starts
-    at an odd step making the call of that step's pair too."""
-    n = 0
-    for start in range(0, num_steps, chunk):
-        K, s = min(chunk, num_steps - start), step0 + start
-        n += (s % 2 + K + 1) // 2
-    return n
 
 
 #: Steps whose draws are formed at once: (K, B, 4) int64 words.

@@ -3,8 +3,7 @@ program's plain episode steps (``ops/maze_slab.py`` ``ms_philox_spec``)
 over chunks that span flag terminations, truncations and respawns, the
 reference's first reset against the rollout's, the cell's check with the
 program, the control and each fault on three seeds, the reference's
-independence of the program, the span metrics of a traced run, and the
-kernel work reader."""
+independence of the program, and the span metrics of a traced run."""
 
 import dataclasses
 import json
@@ -18,7 +17,6 @@ from benchmark import faults, harness, run
 from benchmark.drivers import family
 from benchmark.reference import maze as ref_mz
 from benchmark.reference import philox
-from benchmark.roofline import window
 from benchmark.tests.conftest import tiny_cell
 
 CELL = "maze-main.episode-b65536"
@@ -110,29 +108,3 @@ def test_traced_cpu_run_reports_the_span_metrics():
     assert metrics["host_syncs_per_call.rollout"]["value"] == 0
     assert metrics["host_ms_per_call.rollout"]["value"] > 0
 
-
-def test_philox_calls_count_a_pair_of_steps_a_call():
-    assert ref_mz.philox_calls(0, 2000, 1000) == 1000
-    assert ref_mz.philox_calls(1, 4, 4) == 3  # steps 1 | 2 3 | 4
-    assert ref_mz.philox_calls(0, 130, 45) == 23 + 23 + 20  # 45 | 45 from 45 (odd) | 40
-
-
-def test_work_reader_counts_the_traced_launches():
-    """Bytes and operations for a window of 3 calls of 2000 steps in chunks
-    of 1000 at 65,536 envs; nothing where the trace's launches are not the
-    wrapper's."""
-    cell = harness.find_cell(CELL)
-    B, calls = 65536, 3
-    ops = [("maze::(anonymous namespace)::philox_steps_kernel(maze::(anonymous "
-            "namespace)::MsParams)", i, 300_000) for i in range(2 * calls)]
-    counts = {"episodes": 0, "launches": 2 * calls, "num_envs": B, "steps_per_call": 2000,
-              "chunk": 1000, "philox_calls": 1000}
-    trace = harness.Trace(ops, [], 1.0, calls)
-    win = harness.Window(calls, 1.0, [0.7] * calls)
-    nbytes, n_ops, seconds = window.work(harness.Run(cell, 1.0, win, 0, {}, trace, counts))
-    assert n_ops == calls * B * (1000 * 40 + 2000 * (2 * 3 + 25))
-    table = 4 * (2 * 5 * 169 + 137 + 1)  # 1,827 entries padded to 1,828
-    assert nbytes == 2 * calls * (2 * 7 * 4 * B + table)
-    assert seconds == pytest.approx(6 * 300e-6)
-    counts["launches"] -= 1
-    assert window.work(harness.Run(cell, 1.0, win, 0, {}, trace, counts)) is None
